@@ -1,0 +1,19 @@
+"""hyperseg_torch: HyperSeg in PyTorch, with hand-written CUDA kernels for Hopper.
+
+A port of the JAX package `hyperseg_tpu` (kept beside it as the reference).
+Module names and layout mirror that package so each counterpart is easy to
+find; inside, the code is plain PyTorch:
+
+  * tensors at module boundaries are NCHW, as in torch and the reference
+    implementation; conv weights are OIHW;
+  * parameter and buffer names equal the reference's torch state_dict keys,
+    so a reference state_dict (without `num_batches_tracked`) loads with
+    `load_state_dict(strict=True)`;
+  * entry points run on `cuda` unless the caller passes `device="cpu"`. On a
+    CUDA tensor each kernel wrapper in `ops/kernels` launches its CUDA kernel
+    (or raises); on a CPU tensor it runs the kernel's plain PyTorch twin.
+
+This package imports neither JAX nor `hyperseg_tpu`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,29 @@
+"""Carry a parameter dict of the JAX package across to this package.
+
+The JAX package keeps torch's key names but its own layouts: conv kernels
+HWIO, linear weights (in, out). This is the inverse of its checkpoint
+importer: HWIO -> OIHW, (in, out) -> (out, in), 1-D tensors unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+
+def jax_to_torch_state_dict(params: Mapping[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """Flat {key: array} in the JAX package's layout -> torch state_dict.
+
+    Values may be numpy arrays or anything `np.asarray` accepts (a JAX array
+    converts without this module importing JAX)."""
+    out = {}
+    for k, v in params.items():
+        a = np.asarray(v)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 2 and k.endswith("weight"):
+            a = a.transpose(1, 0)
+        out[k] = torch.from_numpy(np.array(a))  # a writable, contiguous copy
+    return out

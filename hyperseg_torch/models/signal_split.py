@@ -1,0 +1,63 @@
+"""Signal-channel division arithmetic (the v1_0 variant).
+
+The hypernetwork signal is split across the decoder's weight generators in
+proportion to how many parameters each must produce. This integer division
+sizes every signal2weights convolution, so it must reproduce the
+reference's arithmetic exactly (hyperseg_v1_0.py:763-810): channels are
+counted in units of `min_unit`; outputs of equal size form a group and get
+identical shares; groups are served in decreasing order of total mass; the
+last group absorbs the remainder.
+"""
+
+from __future__ import annotations
+
+from itertools import groupby
+from typing import Sequence
+
+import numpy as np
+
+
+def next_multiply(x: int, base: int) -> int:
+    """Round up to a multiple of base."""
+    return type(x)(np.ceil(x / base) * base)
+
+
+def _sorted_groups(out_features: Sequence[int]):
+    """Indices of equal out_features grouped, groups by total mass, largest
+    first (the reference's argsort + groupby)."""
+    idx = np.argsort(out_features)
+    vals = np.array(out_features)[idx]
+    groups = [(k, idx[list(g)]) for k, g in
+              groupby(range(len(idx)), lambda i: vals[i])]
+    groups.sort(key=lambda g: g[0] * len(g[1]), reverse=True)
+    return groups
+
+
+def divide_feature(in_feature: int, out_features: Sequence[int], min_unit: int = 8):
+    """Channels of the signal for each output, in the order of out_features."""
+    assert in_feature % min_unit == 0, (
+        f"in_feature ({in_feature}) must be divisible by min_unit ({min_unit})")
+    units = in_feature // min_unit
+    groups = _sorted_groups(out_features)
+    ratio = float(units) / sum(out_features)
+
+    group_units = [len(g[1]) for g in groups]  # every member gets >= 1 unit
+    remaining = units - sum(group_units)
+    for i, (feat, members) in enumerate(groups):
+        if i < len(groups) - 1:
+            n = len(members)
+            share = max(feat * n * ratio, n)
+            share = share // n * n - n  # snap to group size, minus the pre-grant
+            share = min(share, remaining)
+            group_units[i] += share
+            remaining -= share
+            if remaining == 0:
+                break
+        else:
+            group_units[-1] += remaining
+
+    out = np.zeros(len(out_features), dtype=int)
+    for (_, members), n_units in zip(groups, group_units):
+        for j in members:
+            out[j] = n_units // len(members) * min_unit
+    return out

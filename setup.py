@@ -5,8 +5,10 @@ setup(
     version="0.1.0",
     description=("TPU-native real-time semantic segmentation with patch-wise "
                  "hypernetworks (JAX/XLA/Pallas)"),
-    packages=find_packages(include=["hyperseg_tpu", "hyperseg_tpu.*"]),
-    package_data={"hyperseg_tpu.native": ["*.cpp", "Makefile"]},
+    packages=find_packages(include=["hyperseg_tpu", "hyperseg_tpu.*",
+                                    "hyperseg_torch", "hyperseg_torch.*"]),
+    package_data={"hyperseg_tpu.native": ["*.cpp", "Makefile"],
+                  "hyperseg_torch.ops.kernels": ["*.cu", "*.cuh", "*.cpp", "*.h"]},
     python_requires=">=3.10",
     install_requires=["jax", "optax", "numpy", "Pillow"],
     extras_require={
