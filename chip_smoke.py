@@ -14,7 +14,8 @@ Phases (any failure exits non-zero before the result lines):
      and 8; bfloat16 stage by stage (backbone stride-2 feature, decoder on
      the reference features); then the bfloat16 main path at batch 1 and 8
      with every launch counter set to 0 just before and read just after,
-     img/s by host clock around synchronised forwards;
+     img/s by host clock around synchronised forwards; then a profile of
+     the device time per forward and the kernels that take it;
   4. print the per-kernel JSON line, then the result line.
 
 The script exits with an error, printing no result, when torch finds no
@@ -41,7 +42,7 @@ HYPERSEG_M_KW = dict(
 PARAM_COUNT = 10378108           # state-dict elements (bench.py:92, total)
 RES = (512, 1024)                # (H, W): Cityscapes 1024x512
 PER_FORWARD = {"stem": 1, "mbconv_dw": 2, "mbconv_project": 2, "patch_invres_s2w": 2}
-# H100 SXM published peaks (on-chip-measurement guide): HBM bytes/s, dense
+# H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
 # flop/s by input type (bf16 on the tensor cores, float32 on the CUDA cores)
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -68,12 +69,15 @@ def fail(msg):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() in ms, CUDA events around a warm loop."""
+    """Mean device time of fn() in ms, CUDA events around a warm loop. The
+    device first spins for ~20 ms, so the host has queued every timed launch
+    before the first starts: the events see kernel time, not launch overhead."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -310,7 +314,34 @@ def phase_model():
             None)
     for b in (1, 8):
         print(f"model  HyperSeg-M 1024x512 bf16 batch {b}: {fps[b]:.2f} img/s", flush=True)
+    phase_profile(gpu, {1: xb1, 8: xb8}, fps)
     return launches, fps
+
+
+def phase_profile(gpu, inputs, fps, forwards=3):
+    """Where a bf16 forward's device time goes (torch.profiler): device time
+    per forward, its share of the unprofiled wall time per forward (the rest
+    is the card idling on the host), and the kernels that take most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for b, x in inputs.items():
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(forwards):
+                gpu(x)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / forwards
+        if not events:
+            print(f"profile batch {b}: the profiler saw no device time (not measured)")
+            continue
+        wall_ms = 1e3 * b / fps[b]
+        print(f"profile batch {b}: device {device_ms:.3f} ms per forward, wall "
+              f"{wall_ms:.3f} ms, device busy {device_ms / wall_ms:.1%}, "
+              f"{sum(e.count for e in events) // forwards} device ops per forward", flush=True)
+        events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+        for e in events[:12]:
+            print(f"profile batch {b}:   {e.self_device_time_total / 1e3 / forwards:8.3f} ms "
+                  f"x{e.count // forwards:<4d} {e.key[:90]}", flush=True)
 
 
 def main():

@@ -65,9 +65,8 @@ class PatchConvUnit(nn.Sequential):
     activation: children [(dropout slot,) conv holder, (BN)] give the
     reference keys `<unit>.0.signal2weights.weight`, `<unit>.1.*`."""
 
-    def __init__(self, in_ch, out_ch, *, kernel=1, groups=1, pad=0,
-                 padding_mode="reflect", bn=False, act=None, dropout_slot=False,
-                 device=None):
+    def __init__(self, in_ch, out_ch, *, kernel=1, groups=1, pad=0, bn=False,
+                 act=None, dropout_slot=False, device=None):
         layers = [nn.Identity()] if dropout_slot else []
         layers.append(_HyperConv())
         if bn:
@@ -75,7 +74,7 @@ class PatchConvUnit(nn.Sequential):
         super().__init__(*layers)
         self.in_ch, self.out_ch = in_ch, out_ch
         self.kernel, self.groups, self.pad = kernel, groups, pad
-        self.padding_mode, self.act = padding_mode, act
+        self.act = act
         self.has_bn = bn
         self.route: Optional[S2W] = None
 
@@ -96,8 +95,7 @@ class PatchConvUnit(nn.Sequential):
         """x: (B, in_ch, H, W); w: (B, hyper_params, fh, fw)."""
         fh, fw = w.shape[2], w.shape[3]
         if self.pad > 0:
-            xp = P.extract_patches_with_halo(x, fh, fw, (self.pad, self.pad),
-                                             mode=self.padding_mode)
+            xp = P.extract_patches_with_halo(x, fh, fw, (self.pad, self.pad))
         else:
             xp = P.block_patches(x, fh, fw)
         out = P.unblock_patches(P.patch_conv_valid(
@@ -173,6 +171,10 @@ class MultiScaleDecoderV1(nn.Module):
         assert len(ks) == levels and len(ll) == levels and len(er) == levels
         self.levels = levels
         self.num_classes = num_classes
+        # coordinate grids by (h, w, dtype, device), made once: building one
+        # from numpy is a host-to-device copy that stalls the host on the card
+        # (the reference caches them as buffers too, hyperseg_v1_0.py:189-213)
+        self._coords = {}
         rev_feats = list(feat_channels[::-1])
 
         level_units: List[List[nn.Module]] = []
@@ -223,6 +225,12 @@ class MultiScaleDecoderV1(nn.Module):
                 sig_index += ch
                 k += 1
 
+    def _coordinates(self, p):
+        key = (p.shape[2], p.shape[3], p.dtype, p.device)
+        if key not in self._coords:
+            self._coords[key] = F.image_coordinates(1, *key)
+        return self._coords[key].expand(p.shape[0], -1, -1, -1)
+
     def forward(self, xs, s):
         """xs: [input image, feat_s2, ..., feat_s16] (finest -> coarsest, head
         excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32."""
@@ -233,9 +241,7 @@ class MultiScaleDecoderV1(nn.Module):
                 p = feat
             else:
                 p = torch.cat([feat, F.resize_bilinear(p, feat.shape[2:])], 1)
-            coords = F.image_coordinates(p.shape[0], p.shape[2], p.shape[3],
-                                         p.dtype, p.device)
-            p = torch.cat([coords, p], 1)
+            p = torch.cat([self._coordinates(p), p], 1)
             base = 0
             for u in getattr(self, f"level_{lv}"):
                 hi = min(base + u.hyper_params, s.shape[1])

@@ -36,17 +36,15 @@ def same_padding_2d(in_hw, kernel_hw, stride_hw, dilation_hw=(1, 1)):
     return tuple(pads)
 
 
-def pad2d(x, pad_hw, mode="constant", value=0.0):
+def pad2d(x, pad_hw, mode="constant"):
     """Pad the spatial dims of an NCHW tensor; pad_hw = ((top, bottom),
-    (left, right)); mode 'constant' | 'reflect' | 'replicate' | 'circular'."""
+    (left, right)); mode 'constant' (zeros) or 'reflect'."""
     (pt, pb), (pl, pr) = pad_hw
     if pt == pb == pl == pr == 0:
         return x
-    if mode == "constant":
-        return TF.pad(x, (pl, pr, pt, pb), mode="constant", value=value)
-    if mode in ("reflect", "replicate", "circular"):
-        return TF.pad(x, (pl, pr, pt, pb), mode=mode)
-    raise ValueError(f"unknown pad mode {mode!r}")
+    if mode not in ("constant", "reflect"):
+        raise ValueError(f"unknown pad mode {mode!r}")
+    return TF.pad(x, (pl, pr, pt, pb), mode=mode)
 
 
 # ---------------------------------------------------------------------------
@@ -81,8 +79,22 @@ def fold_bn(scale, bias, mean, var, eps):
 
 
 def batch_norm(x, scale, bias, mean, var, *, eps=1e-5):
-    """Running-stats BN over the channel axis (dim 1) of an NCHW tensor."""
-    return batch_norm_dim(x, (scale, bias, mean, var), 1, eps=eps)
+    """Running-stats BN over the channel axis (dim 1) of an NCHW tensor: one
+    torch call, which computes in float32 for a bfloat16 input."""
+    if _CALIBRATING.get():
+        _record_batch_stats(x, (scale, bias, mean, var), 1)
+    return TF.batch_norm(x, mean, var, scale, bias, False, 0.0, eps)
+
+
+def batch_norm_dim(x, bn, channel_dim, *, eps=1e-5):
+    """Running-stats BN with its channel axis at `channel_dim` (the decoder's
+    patch-blocked tensors); bn is (weight, bias, running_mean, running_var)."""
+    if _CALIBRATING.get():
+        _record_batch_stats(x, bn, channel_dim)
+    s, b = fold_bn(*bn, eps)
+    shape = [1] * x.dim()
+    shape[channel_dim] = -1
+    return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
 
 
 _CALIBRATING = contextvars.ContextVar("hyperseg_torch_bn_calibrating", default=False)
@@ -90,10 +102,10 @@ _CALIBRATING = contextvars.ContextVar("hyperseg_torch_bn_calibrating", default=F
 
 @contextlib.contextmanager
 def calibrating_bn():
-    """Within this context every BN (that is, every batch_norm_dim call) first
-    writes the batch statistics of its input into its running_mean and
-    running_var, then normalizes with them: one train-mode BN pass whose
-    statistics stay behind (utils/calibrate.py)."""
+    """Within this context every BN of the plain path (batch_norm,
+    batch_norm_dim) first writes the batch statistics of its input into its
+    running_mean and running_var, then normalizes with them: one train-mode
+    BN pass whose statistics stay behind (utils/calibrate.py)."""
     token = _CALIBRATING.set(True)
     try:
         yield
@@ -101,20 +113,15 @@ def calibrating_bn():
         _CALIBRATING.reset(token)
 
 
-def batch_norm_dim(x, bn, channel_dim, *, eps=1e-5):
-    """Running-stats BN with its channel axis at `channel_dim`; bn is
-    (weight, bias, running_mean, running_var). Every BN of the plain path
-    goes through here."""
+def _record_batch_stats(x, bn, channel_dim):
+    """Biased batch mean/var over every axis but `channel_dim`, in float32."""
+    dims = [d for d in range(x.dim()) if d != channel_dim]
     shape = [1] * x.dim()
     shape[channel_dim] = -1
-    if _CALIBRATING.get():
-        dims = [d for d in range(x.dim()) if d != channel_dim]
-        x32 = x.float()
-        mean = x32.mean(dims)
-        bn[2].copy_(mean)
-        bn[3].copy_((x32 - mean.view(shape)).square().mean(dims))
-    s, b = fold_bn(*bn, eps)
-    return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+    x32 = x.float()
+    mean = x32.mean(dims)
+    bn[2].copy_(mean)
+    bn[3].copy_((x32 - mean.view(shape)).square().mean(dims))
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +138,7 @@ def relu6(x):
 
 
 def swish(x):
-    return x * torch.sigmoid(x)
+    return TF.silu(x)
 
 
 ACTIVATIONS = {

@@ -98,7 +98,8 @@ void mbconv_project(const Tensor& h, const Tensor& se, const Tensor& w,
 
 void patch_invres_s2w(const Tensor& x, const Tensor& s, int64_t s_bstride,
                       const Tensor& w_s2w, int64_t groups, int64_t hidden,
-                      at::TensorList bn, double eps, Tensor& out) {
+                      at::TensorList bn, double eps, int64_t hidden_chunk,
+                      int64_t threads, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "patch_invres_s2w x");
@@ -112,7 +113,8 @@ void patch_invres_s2w(const Tensor& x, const Tensor& s, int64_t s_bstride,
       bn_of(bn[0], bn[1], bn[2], bn[3]), bn_of(bn[4], bn[5], bn[6], bn[7]),
       bn_of(bn[8], bn[9], bn[10], bn[11]), static_cast<float>(eps), out.data_ptr(),
       x.size(0), x.size(1), x.size(2), x.size(3), s.size(2), s.size(3), s.size(1),
-      groups, w_s2w.size(0), hidden, out.size(1), stream_of(x)));
+      groups, w_s2w.size(0), hidden, out.size(1), hidden_chunk, threads,
+      stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -127,7 +129,8 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
         "Tensor bn_bias, Tensor bn_mean, Tensor bn_var, Tensor? residual, "
         "float eps, Tensor(a!) out) -> ()");
   m.def("patch_invres_s2w(Tensor x, Tensor s, int s_batch_stride, Tensor w_s2w, "
-        "int groups, int hidden, Tensor[] bn, float eps, Tensor(a!) out) -> ()");
+        "int groups, int hidden, Tensor[] bn, float eps, int hidden_chunk, "
+        "int threads, Tensor(a!) out) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {

@@ -42,13 +42,16 @@ cudaError_t launch_mbconv_project(DType dt, const void* h, const float* se,
 
 // K1. x (B, cin, H, W); s: signal slice, element (b, c, fy, fx) at
 // s + b*s_bstride + (c*fh + fy)*fw + fx, c < sig; w_s2w (n_out, sig/groups);
-// out (B, out_ch, H, W). out_ch <= 32.
+// out (B, out_ch, H, W). out_ch <= 32; `threads` a multiple of 32, at most
+// 256; `hidden_chunk` a multiple of 8, and at least the hidden width rounded
+// up to 8 unless a patch has at most `threads` pixels.
 cudaError_t launch_patch_invres_s2w(DType dt, const void* x, const void* s,
                                     int64_t s_bstride, const void* w_s2w,
                                     BNParams bn1, BNParams bn2, BNParams bn3,
                                     float eps, void* out, int batch, int cin,
                                     int height, int width, int fh, int fw,
                                     int sig, int groups, int n_out, int hidden,
-                                    int out_ch, cudaStream_t stream);
+                                    int out_ch, int hidden_chunk, int threads,
+                                    cudaStream_t stream);
 
 }  // namespace hyperseg

@@ -32,16 +32,16 @@ def unblock_patches(xp):
     return xp.permute(0, 3, 1, 4, 2, 5).reshape(b, c, fh * ph, fw * pw)
 
 
-def extract_patches_with_halo(x, fh, fw, pad_hw, mode="reflect"):
+def extract_patches_with_halo(x, fh, fw, pad_hw):
     """(B, C, H, W) -> overlapping patches (B, fh, fw, C, ph+2pt, pw+2pl).
 
-    The map is padded once (reflect by default), so the halo of an inner
-    patch is its neighbours' pixels and only the image border reflects — the
-    reference's pad + overlapping unfold (hyperseg_v1_0.py:336-342)."""
+    The map is reflect-padded once, so the halo of an inner patch is its
+    neighbours' pixels and only the image border reflects — the reference's
+    pad + overlapping unfold (hyperseg_v1_0.py:336-342)."""
     b, c, h, w = x.shape
     ph, pw = h // fh, w // fw
     pt, pl = pad_hw
-    xpad = F.pad2d(x, ((pt, pt), (pl, pl)), mode=mode)
+    xpad = F.pad2d(x, ((pt, pt), (pl, pl)), mode="reflect")
     xp = xpad.unfold(2, ph + 2 * pt, ph).unfold(3, pw + 2 * pl, pw)
     return xp.permute(0, 2, 3, 1, 4, 5)
 
@@ -98,7 +98,7 @@ def patch_conv_valid(xp, w, out_channels, kernel_size, groups=1):
 
 
 def patch_inverted_residual(x, w, *, hidden, out_ch, kernel, bn1, bn2, bn3,
-                            eps=1e-5, padding_mode="reflect"):
+                            eps=1e-5):
     """The v1_0 hyper inverted residual from per-patch weights (eval BN):
     on each reflect-haloed patch, relu6(bn1(x.w1)) -> relu6(bn2(dw(., w2)))
     -> bn3(.w3), plus x when Cin == out_ch (hyperseg_v1_0.py:328-370).
@@ -112,7 +112,7 @@ def patch_inverted_residual(x, w, *, hidden, out_ch, kernel, bn1, bn2, bn3,
     r2 = r1 + hidden * kernel * kernel
     r3 = r2 + hidden * out_ch
     pad = kernel // 2
-    xp = extract_patches_with_halo(x, fh, fw, (pad, pad), mode=padding_mode)
+    xp = extract_patches_with_halo(x, fh, fw, (pad, pad))
     h = patch_pointwise(xp, w[:, :r1], hidden)
     h = F.relu6(F.batch_norm_dim(h, bn1, 3, eps=eps))
     h = patch_depthwise_valid(h, w[:, r1:r2], (kernel, kernel))

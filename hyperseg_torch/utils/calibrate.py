@@ -21,8 +21,8 @@ def calibrate_bn(model, x):
     has in a forward of `x`, in place; returns the model.
 
     Runs on the CPU, where every kernel wrapper takes its plain twin and each
-    BN goes through nn.functional.batch_norm_dim (the CUDA kernels fold BN
-    into their own arithmetic). Statistics are over all but the channel axis,
+    BN goes through nn.functional's batch_norm or batch_norm_dim (the CUDA
+    kernels fold BN into their own arithmetic). Statistics are over all but the channel axis,
     which for the decoder's inverted residuals is the patch batch with halos,
     as in the reference."""
     if x.device.type != "cpu" or any(p.device.type != "cpu" for p in model.parameters()):

@@ -4,7 +4,7 @@ K1 (patch_invres_s2w), K3 (stem) and K4a/K4b (mbconv_dw / mbconv_project):
 each plain twin - what a wrapper runs for a CPU tensor - is compared with the
 Pallas kernel it replaces in interpret mode, at shapes that kernel accepts,
 and K1 also with the JAX eager path. The CUDA kernels themselves run only on
-the card (test marked `cuda`)."""
+the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -151,45 +151,3 @@ def test_wrappers_on_cpu_run_the_twins_and_count_nothing():
     assert sum(LAUNCHES.values()) == 0
     with pytest.raises(ValueError):
         K3.stem(x.to("meta"), w.to("meta"), tuple(v.to("meta") for v in bn))
-
-
-@pytest.mark.cuda
-def test_kernels_match_twins_on_card():
-    """Each CUDA kernel against its plain twin on the card, f32 and bf16."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator().manual_seed(0)
-    dev = "cuda"
-
-    def bn(c):
-        return tuple(t(v).to(dev) for v in bn_params(np.random.RandomState(c), c))
-
-    for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
-        def r(*shape, scale=1.0):
-            return (torch.randn(*shape, generator=g) * scale).to(dev, dt)
-
-        def close(a, b):
-            err = (a.float() - b.float()).abs().max().item()
-            assert err <= tol * max(1.0, b.float().abs().max().item()), err
-
-        x, w = r(2, 3, 64, 128), r(32, 3, 3, 3, scale=0.3)
-        close(K3.stem(x, w, bn(32)), K3.stem_plain(x, w, bn(32)))
-        x, w = r(2, 16, 32, 64), r(16, 1, 3, 3, scale=0.3)
-        h = K4.mbconv_dw(x, w, bn(16))
-        close(h, K4.mbconv_dw_plain(x, w, bn(16)))
-        se = torch.rand(2, 16, generator=g).to(dev)
-        wp = r(16, 16, 1, 1, scale=0.3)
-        close(K4.mbconv_project(h, se, wp, bn(16), x),
-              K4.mbconv_project_plain(h, se, wp, bn(16), x))
-        for case in K1_CASES:
-            b, fh, fw, ph, pw, cin, hidden, out, sig, groups, pad_out = case
-            xs, ss, ws, bns = _k1_inputs(5, *case)
-            args = dict(groups=groups, hidden=hidden, out_ch=out,
-                        bn1=tuple(t(v).to(dev) for v in bns[0]),
-                        bn2=tuple(t(v).to(dev) for v in bns[1]),
-                        bn3=tuple(t(v).to(dev) for v in bns[2]))
-            xs, ss, ws = (t(a).to(dev, dt) for a in (xs, ss, ws))
-            close(K1.patch_invres_s2w(xs, ss, ws, **args),
-                  K1.patch_invres_s2w_plain(xs, ss, ws, **args))
