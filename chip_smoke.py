@@ -4,44 +4,81 @@
 
 Phases (any failure exits non-zero before the result lines):
   1. print the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from this checkout (ops/kernels/build.py) and
-     hold each against its plain PyTorch twin at the HyperSeg-M 1024x512
-     shapes, in float32 and bfloat16; time kernel, twin, and one PyTorch
-     library call with CUDA events over a warm loop;
-  3. drive HyperSeg-M at 1024x512 through the normal factory: BN calibrated
-     on the CPU from seeded weights, the CPU (all-plain) float32 logits as
-     the reference; the card's float32 kernel path against them at batch 1
-     and 8; bfloat16 stage by stage (backbone stride-2 feature, decoder on
-     the reference features); then the bfloat16 main path at batch 1 and 8
-     with every launch counter set to 0 just before and read just after,
-     img/s by host clock around synchronised forwards; then a profile of
-     the device time per forward and the kernels that take it;
-  4. print the per-kernel JSON line, then the result line.
+  2. build the CUDA kernels from this checkout (ops/kernels/build.py);
+  3. for each model - HyperSeg-M Cityscapes 1024x512, then HyperSeg-L CamVid
+     768x1024 - built through the normal factory at full width and depth
+     from seeded weights, BN calibrated on the CPU, the CPU (all-plain)
+     float32 logits as the reference:
+     a. kernels: one batch-1 forward on the card in float32, then one in
+        bfloat16, with every kernel wrapper recording its calls; each call is
+        replayed against its plain PyTorch twin on the same inputs (the main
+        path's own shapes), and in bfloat16 the kernel, its twin and one
+        PyTorch library call are timed with CUDA events over a warm loop,
+        beside the least time the card could take (bytes or operations);
+        for HyperSeg-L, K1 and K2 are also timed against each other at the
+        levels K1 takes;
+     b. the card's float32 kernel path against the reference (HyperSeg-M at
+        batch 1 and 8, HyperSeg-L at batch 1); bfloat16 stage by stage
+        (backbone features, decoder on the reference features);
+     c. the bfloat16 main path at batch 1 and 8 with every launch counter set
+        to 0 just before and read just after, checked against the launches
+        per forward; img/s by host clock around synchronised forwards; a
+        profile of the device time per forward and the kernels that take it;
+  4. print the per-kernel JSON line, the card's name and power limit, and the
+     result line.
 
 The script exits with an error, printing no result, when torch finds no
 CUDA device or when the hyperseg_torch package is not beside it.
 """
 
+import contextlib
 import copy
+import functools
+import importlib
 import json
 import os
 import subprocess
 import sys
 import time
+from dataclasses import dataclass
 
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-HYPERSEG_M_KW = dict(
-    levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
-    kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
-    expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19,
-)
-PARAM_COUNT = 10378108           # state-dict elements (bench.py:92, total)
-RES = (512, 1024)                # (H, W): Cityscapes 1024x512
-PER_FORWARD = {"stem": 1, "mbconv_dw": 2, "mbconv_project": 2, "patch_invres_s2w": 2}
+
+@dataclass
+class Model:
+    name: str
+    kw: dict
+    res: tuple             # (H, W)
+    param_count: int       # state-dict elements
+    per_forward: dict      # kernel launches per forward
+    f32_batches: tuple     # batches whose float32 card logits are gated
+
+
+MODELS = {
+    "M": Model(
+        "HyperSeg-M Cityscapes 1024x512",
+        dict(levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
+             kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
+             expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
+        (512, 1024), 10378108,    # bench.py:92, total
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+         "patch_invres_s2w": 2, "patch_invres": 0, "resize_bilinear": 5},
+        (1, 8)),
+    "L": Model(
+        "HyperSeg-L CamVid 768x1024",   # tests/golden/make_goldens.py:56-61
+        dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3, 3),
+             level_channels=[64, 32, 16, 16, 16, 16], expand_ratio=2,
+             with_out_fc=False, decoder_dropout=None,
+             weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
+        (768, 1024), 10036096,    # the JAX count_params (tests/test_torch_hyperseg_l.py)
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+         "patch_invres_s2w": 2, "patch_invres": 1, "resize_bilinear": 5},
+        (1,)),
+}
 # H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
 # flop/s by input type (bf16 on the tensor cores, float32 on the CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -51,15 +88,22 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # about one output ulp (bfloat16, 2^-8 relative); tolerances are relative to
 # the largest reference magnitude
 KERNEL_TOL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
-SOURCES = {
-    "stem": ("hyperseg_torch/ops/kernels/stem.cu",
-             "hyperseg_tpu/ops/pallas/stem.py:209"),
-    "mbconv_dw": ("hyperseg_torch/ops/kernels/mbconv.cu",
-                  "hyperseg_tpu/ops/pallas/mbconv.py:62"),
-    "mbconv_project": ("hyperseg_torch/ops/kernels/mbconv.cu",
-                       "hyperseg_tpu/ops/pallas/mbconv.py:126"),
-    "patch_invres_s2w": ("hyperseg_torch/ops/kernels/patch_invres.cu",
-                         "hyperseg_tpu/ops/pallas/patch_invres.py:488"),
+K = "hyperseg_torch/ops/kernels/"
+P = "hyperseg_tpu/ops/pallas/"
+# name -> (module, twin, source, the TPU kernel it replaces)
+KERNELS = {
+    "stem": ("stem", "stem_plain", K + "stem.cu", P + "stem.py:209"),
+    "mbconv_dw": ("mbconv", "mbconv_dw_plain", K + "mbconv.cu", P + "mbconv.py:62"),
+    "mbconv_project": ("mbconv", "mbconv_project_plain", K + "mbconv.cu",
+                       P + "mbconv.py:126"),
+    "mbconv_expand_dw": ("mbconv", "mbconv_expand_dw_plain", K + "mbconv.cu",
+                         P + "mbconv.py:231"),
+    "patch_invres_s2w": ("patch_invres", "patch_invres_s2w_plain", K + "patch_invres.cu",
+                         P + "patch_invres.py:488"),
+    "patch_invres": ("patch_invres", "patch_invres_plain", K + "patch_invres.cu",
+                     P + "patch_invres.py:870"),
+    "resize_bilinear": ("resize", "resize_bilinear_plain", K + "resize.cu",
+                        P + "resize.py:152"),
 }
 
 
@@ -86,8 +130,16 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+def tensors(obj):
+    """The tensors in a nest of arguments."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (list, tuple)):
+        for o in obj:
+            yield from tensors(o)
+    elif isinstance(obj, dict):
+        for o in obj.values():
+            yield from tensors(o)
 
 
 def bound_ms(nbytes_moved, flops, dtype):
@@ -97,167 +149,222 @@ def bound_ms(nbytes_moved, flops, dtype):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
-class KernelCheck:
-    """One kernel at one main-path shape: inputs, kernel, twin, library call,
-    and its work (bytes, flops)."""
+@dataclass
+class Call:
+    """One call of a kernel wrapper on the main path: its arguments and output."""
+    name: str
+    args: tuple
+    kw: dict
+    out: torch.Tensor
 
-    def __init__(self, name, kernel, plain, library, moved, flops):
-        self.name, self.kernel, self.plain, self.library = name, kernel, plain, library
-        self.moved, self.flops = moved, flops
+    def _fn(self, attr):
+        mod = importlib.import_module(f"hyperseg_torch.ops.kernels.{KERNELS[self.name][0]}")
+        return functools.partial(getattr(mod, attr), *self.args, **self.kw)
 
+    @property
+    def kernel(self):
+        return self._fn(self.name)
 
-def kernel_checks(dtype, gen):
-    """The main path's calls of each kernel at batch 1, 1024x512, on random
-    inputs made from `gen`: stem once, K4a/K4b for B1 blocks 0 and 1, K1 for
-    decoder levels 3 and 4."""
-    import torch.nn.functional as TF
-    from hyperseg_torch.nn import functional as F
-    from hyperseg_torch.ops.kernels import mbconv as K4
-    from hyperseg_torch.ops.kernels import patch_invres as K1
-    from hyperseg_torch.ops.kernels import stem as K3
+    @property
+    def plain(self):
+        return self._fn(KERNELS[self.name][1])
 
-    dev = "cuda"
+    def moved(self):
+        """Bytes the function must move: each input once, the output once."""
+        return sum(t.numel() * t.element_size()
+                   for t in tensors((self.args, self.kw, self.out)))
 
-    def rnd(*shape, scale=1.0, dt=dtype):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev, dt)
+    def flops(self):
+        """Operations the function needs for these inputs."""
+        a, kw, out = self.args, self.kw, self.out
+        if self.name == "stem":
+            return 2 * 27 * out.numel()
+        if self.name == "mbconv_dw":
+            return 2 * 9 * out.numel()
+        if self.name == "mbconv_project":
+            return 2 * a[0].shape[1] * out.numel()
+        if self.name == "mbconv_expand_dw":
+            return 2 * (a[0].numel() * a[1].shape[0] + 9 * out.numel())
+        if self.name == "resize_bilinear":
+            return 8 * out.numel()
+        from hyperseg_torch.ops.kernels import patch_invres as PI
+        b, cin, h, w = a[0].shape
+        hidden, out_ch = kw["hidden"], kw["out_ch"]
+        fh, fw = a[1].shape[2:] if self.name == "patch_invres_s2w" else a[1].shape[1:3]
+        ph, pw = h // fh, w // fw
+        per_patch = (ph + 2) * (pw + 2) * cin * hidden + ph * pw * hidden * (9 + out_ch)
+        if self.name == "patch_invres_s2w":
+            per_patch += PI.hyper_params(cin, hidden, out_ch) * a[1].shape[1] // kw["groups"]
+        return 2 * per_patch * fh * fw * b
 
-    def bn(c):
-        return ((torch.rand(c, generator=gen) + 0.5).to(dev),
-                (torch.randn(c, generator=gen) * 0.1).to(dev),
-                (torch.randn(c, generator=gen) * 0.1).to(dev),
-                (torch.rand(c, generator=gen) + 0.5).to(dev))
+    def library(self):
+        """One PyTorch call computing the same function on the same inputs,
+        BN (and SE) folded into its weights beforehand, or None; for K5 the
+        cuDNN expand + ATen depthwise pair (no swish), as ("pair", fn)."""
+        import torch.nn.functional as TF
+        from hyperseg_torch.nn import functional as F
+        from hyperseg_torch.ops.kernels import mbconv as K4
 
-    def folded(w, b_, eps):
-        s, bias = F.fold_bn(*b_, eps)
-        return (w.float() * s.view(-1, *([1] * (w.dim() - 1)))).to(dtype), bias.to(dtype)
+        a, kw = self.args, self.kw
 
-    checks = []
-    h, w = RES
-    x = rnd(1, 3, h, w)
-    ws, bs = rnd(32, 3, 3, 3, scale=0.3), bn(32)
-    wf, bf = folded(ws, bs, 1e-3)
-    xpad = TF.pad(x, (0, 1, 0, 1))
-    out_elems = 32 * (h // 2) * (w // 2)
-    checks.append(KernelCheck(
-        "stem", lambda: K3.stem(x, ws, bs), lambda: K3.stem_plain(x, ws, bs),
-        lambda: TF.conv2d(xpad, wf, bf, stride=2),
-        nbytes(x, ws) + out_elems * x.element_size(), 2 * 27 * out_elems))
+        def folded(w, bn):
+            s, bias = F.fold_bn(*bn, kw["eps"])
+            return ((w.float() * s.view(-1, *([1] * (w.dim() - 1)))).to(w.dtype),
+                    bias.to(w.dtype))
 
-    for c, co, res in ((32, 16, False), (16, 16, True)):
-        hx = rnd(1, c, h // 2, w // 2)
-        wd, b1 = rnd(c, 1, 3, 3, scale=0.3), bn(c)
-        wdf, bdf = folded(wd, b1, 1e-3)
-        checks.append(KernelCheck(
-            "mbconv_dw", (lambda hx=hx, wd=wd, b1=b1: K4.mbconv_dw(hx, wd, b1)),
-            (lambda hx=hx, wd=wd, b1=b1: K4.mbconv_dw_plain(hx, wd, b1)),
-            (lambda hx=hx, wdf=wdf, bdf=bdf, c=c: TF.conv2d(hx, wdf, bdf, padding=1, groups=c)),
-            2 * nbytes(hx) + nbytes(wd), 2 * 9 * hx.numel()))
-        se = torch.rand(1, c, generator=gen).to(dev)
-        wp, b2 = rnd(co, c, 1, 1, scale=0.3), bn(co)
-        r = rnd(1, co, h // 2, w // 2) if res else None
-        wpf, bpf = folded(wp * se.view(1, c, 1, 1).to(dtype), b2, 1e-3)
-        checks.append(KernelCheck(
-            "mbconv_project",
-            (lambda hx=hx, se=se, wp=wp, b2=b2, r=r: K4.mbconv_project(hx, se, wp, b2, r)),
-            (lambda hx=hx, se=se, wp=wp, b2=b2, r=r: K4.mbconv_project_plain(hx, se, wp, b2, r)),
-            (lambda hx=hx, wpf=wpf, bpf=bpf: TF.conv2d(hx, wpf, bpf)),
-            nbytes(hx, se, wp, r) + co * hx[0, 0].numel() * hx.element_size(),
-            2 * c * co * hx[0, 0].numel()))
-
-    signal = rnd(1, 1280, h // 32, w // 32, scale=0.5)
-    for cin, hidden, out, lh, lw, sig, groups in ((24, 48, 16, h // 4, w // 4, 192, 16),
-                                                  (34, 68, 19, h // 2, w // 2, 320, 4)):
-        p = K1.hyper_params(cin, hidden, out)
-        xs = rnd(1, cin, lh, lw)
-        s = signal[:, :sig]
-        wsw = rnd(p, sig // groups, 1, 1, scale=(groups / sig) ** 0.5)
-        bns = dict(bn1=bn(hidden), bn2=bn(hidden), bn3=bn(out))
-        args = dict(groups=groups, hidden=hidden, out_ch=out, **bns)
-        fh, fw = signal.shape[2:]
-        ph, pw = lh // fh, lw // fw
-        per_patch = (p * sig // groups + (ph + 2) * (pw + 2) * cin * hidden
-                     + ph * pw * hidden * (9 + out))
-        checks.append(KernelCheck(
-            "patch_invres_s2w",
-            (lambda xs=xs, s=s, wsw=wsw, args=args: K1.patch_invres_s2w(xs, s, wsw, **args)),
-            (lambda xs=xs, s=s, wsw=wsw, args=args: K1.patch_invres_s2w_plain(xs, s, wsw, **args)),
-            None,
-            nbytes(xs, wsw) + sig * fh * fw * s.element_size()
-            + out * lh * lw * xs.element_size(),
-            2 * per_patch * fh * fw))
-    return checks
+        if self.name == "stem":
+            wf, bf = folded(a[1], a[2])
+            xpad = TF.pad(a[0], (0, 1, 0, 1))
+            return "conv2d", lambda: TF.conv2d(xpad, wf, bf, stride=2)
+        if self.name == "mbconv_dw":
+            wf, bf = folded(a[1], a[2])
+            return "conv2d", lambda: TF.conv2d(a[0], wf, bf, padding=1, groups=a[0].shape[1])
+        if self.name == "mbconv_project":
+            h, se, w, bn = a
+            wf, bf = folded(w * se[0].view(1, -1, 1, 1).to(w.dtype), bn)
+            return "conv2d", lambda: TF.conv2d(h, wf, bf)
+        if self.name == "mbconv_expand_dw":
+            x, we, bn0, wd, bn1, stride = a
+            wef, b0 = folded(we, bn0)
+            wdf, b1 = folded(wd, bn1)
+            (pt, pb), (pl, pr) = K4.EXPAND_PADS[stride]
+            return "pair", lambda: TF.conv2d(TF.pad(TF.conv2d(x, wef, b0), (pl, pr, pt, pb)),
+                                             wdf, b1, stride=stride, groups=wd.shape[0])
+        if self.name == "resize_bilinear":
+            return "interpolate", lambda: TF.interpolate(a[0], size=tuple(a[1]),
+                                                         mode="bilinear", align_corners=False)
+        return None, None
 
 
-def phase_kernels():
-    """Kernel vs twin at the main path's shapes, f32 and bf16; bf16 times."""
-    gen = torch.Generator().manual_seed(0)
-    rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        for chk in kernel_checks(dtype, gen):
-            got, want = chk.kernel(), chk.plain()
+@contextlib.contextmanager
+def recording():
+    """Every kernel wrapper records its calls (the wrappers are looked up on
+    their modules at call time, so the models call the recorders)."""
+    calls, saved = [], []
+    for name, (mod_name, *_) in KERNELS.items():
+        mod = importlib.import_module(f"hyperseg_torch.ops.kernels.{mod_name}")
+        fn = getattr(mod, name)
+
+        def rec(*args, _name=name, _fn=fn, **kw):
+            out = _fn(*args, **kw)
+            calls.append(Call(_name, args, kw, out))
+            return out
+        saved.append((mod, name, fn))
+        setattr(mod, name, rec)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def check_calls(model, calls, dtype, rows):
+    """Each recorded call's kernel against its twin; in bfloat16 also the
+    times, summed per kernel over one forward's calls."""
+    for c in calls:
+        got, want = c.kernel(), c.plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = KERNEL_TOL[dtype] * max(1.0, want.float().abs().max().item())
+        ok = bool(torch.isfinite(got).all()) and err <= tol
+        print(f"kernel {model} {c.name:17s} {str(dtype):15s} {tuple(got.shape)} "
+              f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{c.name} disagrees with its plain twin in {dtype} ({model})")
+        row = rows.setdefault((model, c.name), dict(
+            max_abs_err=0.0, f32_max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+            by={}, library_ms=None, library=None, calls=0))
+        key = "max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"
+        row[key] = max(row[key], err)
+        if dtype != torch.bfloat16:
+            continue
+        ms, plain_ms = cuda_ms(c.kernel), cuda_ms(c.plain)
+        lib, lib_fn = c.library()
+        lib_ms = cuda_ms(lib_fn) if lib_fn else None
+        b_ms, by = bound_ms(c.moved(), c.flops(), dtype)
+        print(f"time   {model} {c.name:17s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+              f"{lib or 'library'} {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
+              f"bound {b_ms:.4f} ms ({by})", flush=True)
+        row["calls"] += 1
+        row["ms"] += ms
+        row["plain_ms"] += plain_ms
+        row["bound_ms"] += b_ms
+        row["by"][by] = row["by"].get(by, 0.0) + b_ms
+        if lib_ms is not None:
+            row["library"] = lib
+            row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
+
+
+def k1_vs_k2(calls, timed):
+    """K1 against K2 on the same units, where K1 runs: K2 from the weight
+    map that the decoder would make (decoder.weight_map's matmul). In
+    float32 the two outputs must agree; in bfloat16 the weight map is rounded
+    to bfloat16, which calibrated BN amplifies, so they are only timed: K1,
+    K2 alone, and the matmul + K2."""
+    from hyperseg_torch.models.decoder import s2w_dense_matrix
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+
+    for i, c in enumerate(x for x in calls if x.name == "patch_invres_s2w"):
+        x, sl, w_s2w = c.args
+        kw = {k: v for k, v in c.kw.items() if k != "groups"}
+        p = PI.hyper_params(x.shape[1], kw["hidden"], kw["out_ch"])
+        dense = s2w_dense_matrix(w_s2w, c.kw["groups"])[:, :p].to(sl.dtype)
+
+        def wmap():
+            return torch.matmul(sl.permute(0, 2, 3, 1), dense)
+        wm = wmap()
+        if not timed:
+            k1, k2 = c.kernel(), PI.patch_invres(x, wm, **kw)
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
-            tol = KERNEL_TOL[dtype] * max(1.0, want.float().abs().max().item())
-            ok = bool(torch.isfinite(got).all()) and err <= tol
-            print(f"kernel {chk.name:17s} {str(dtype):15s} {tuple(got.shape)} "
-                  f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}",
-                  flush=True)
-            if not ok:
-                fail(f"{chk.name} disagrees with its plain twin in {dtype}")
-            row = rows.setdefault(chk.name, dict(
-                max_abs_err=0.0, f32_max_abs_err=0.0, ms=0.0, plain_ms=0.0,
-                bound_ms=0.0, by={}, library_ms=None))
-            key = "max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"
-            row[key] = max(row[key], err)
-            if dtype != torch.bfloat16:
-                continue
-            # per-forward totals at the serving dtype: summed over the calls
-            # one forward makes of this kernel
-            ms, plain_ms = cuda_ms(chk.kernel), cuda_ms(chk.plain)
-            lib_ms = cuda_ms(chk.library) if chk.library else None
-            b_ms, by = bound_ms(chk.moved, chk.flops, dtype)
-            print(f"time   {chk.name:17s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                  f"library {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
-                  f"bound {b_ms:.4f} ms ({by})", flush=True)
-            row["ms"] += ms
-            row["plain_ms"] += plain_ms
-            row["bound_ms"] += b_ms
-            row["by"][by] = row["by"].get(by, 0.0) + b_ms
-            if lib_ms is not None:
-                row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
-    return rows
+            err = (k1.float() - k2.float()).abs().max().item()
+            # two float32 sums for the weights (grouped conv in K1, a dense
+            # matmul here), then the same unit: reassociation, amplified by
+            # the calibrated BN
+            tol = 1e-4 * max(1.0, k1.float().abs().max().item())
+            print(f"k1_vs_k2 L unit {i} x {tuple(x.shape)} float32: outputs differ by "
+                  f"{err:.3e} (tol {tol:.3e})", flush=True)
+            if not err <= tol:
+                fail(f"K1 and K2 disagree on L's k=3 unit {i}")
+            continue
+        t1 = cuda_ms(c.kernel)
+        t2 = cuda_ms(lambda: PI.patch_invres(x, wm, **kw))
+        t2m = cuda_ms(lambda: PI.patch_invres(x, wmap(), **kw))
+        print(f"k1_vs_k2 L unit {i} x {tuple(x.shape)} bfloat16: K1 {t1:.4f} ms, "
+              f"K2 {t2:.4f} ms, weight map + K2 {t2m:.4f} ms", flush=True)
 
 
-def phase_model():
-    """The main path end to end; returns the launch counts of the bf16 run."""
+def run_model(key, rows):
+    """One model end to end; returns its main-path launch counts and img/s."""
     from hyperseg_torch.models.hyperseg_v1_0 import hyperseg_efficientnet
     from hyperseg_torch.nn.modules import cast_weights
     from hyperseg_torch.ops.kernels import LAUNCHES
     from hyperseg_torch.utils.calibrate import calibrate_bn
 
+    cfg = MODELS[key]
     gen = torch.Generator().manual_seed(1)
-    model = hyperseg_efficientnet("efficientnet-b1", device="cpu", seed=0, **HYPERSEG_M_KW)
+    model = hyperseg_efficientnet("efficientnet-b1", device="cpu", seed=0, **cfg.kw)
     n = sum(v.numel() for v in model.state_dict().values())
-    if n != PARAM_COUNT:
-        fail(f"parameter count {n} != {PARAM_COUNT}")
-    x8 = torch.randn(8, 3, *RES, generator=gen)
+    if n != cfg.param_count:
+        fail(f"{cfg.name}: parameter count {n} != {cfg.param_count}")
+    x8 = torch.randn(8, 3, *cfg.res, generator=gen)
     x1 = x8[:1].clone()
     t0 = time.perf_counter()
     calibrate_bn(model, x1)
     with torch.no_grad():                     # the all-plain path: float32, CPU
-        ref8 = model(x8)
+        ref = model(x8 if 8 in cfg.f32_batches else x1)
         feats = model.backbone(x1)
         signal = model.weight_mapper(feats[-1])
         ref_dec = model.decoder([x1] + feats[:-1], signal)
-    print(f"model  calibrated and ran the CPU reference in "
-          f"{time.perf_counter() - t0:.1f} s; logits std {ref8.std().item():.4f}", flush=True)
+    print(f"model  {key} calibrated and ran the CPU reference in "
+          f"{time.perf_counter() - t0:.1f} s; logits std {ref.std().item():.4f}", flush=True)
 
     def compare(got, want, what, rel_l2_max, agree_min=None):
         got, want = got.float().cpu(), want.float()
         if got.shape != want.shape or not torch.isfinite(got).all():
             fail(f"{what}: {tuple(got.shape)} not finite of shape {tuple(want.shape)}")
         rel = ((got - want).norm() / want.norm()).item()
-        line = f"model  {what}: max_abs_err {(got - want).abs().max().item():.3e} rel_l2 {rel:.3e}"
+        line = (f"model  {key} {what}: max_abs_err {(got - want).abs().max().item():.3e} "
+                f"rel_l2 {rel:.3e}")
         ok = rel_l2_max is None or rel <= rel_l2_max
         if rel_l2_max is not None:
             line += f" (max {rel_l2_max})"
@@ -267,31 +374,47 @@ def phase_model():
             line += f" label agreement {agree:.5f} (min {agree_min})"
         print(line + ("" if rel_l2_max is None else " ok" if ok else " FAIL"), flush=True)
         if not ok:
-            fail(f"{what} disagrees with the CPU plain path")
+            fail(f"{cfg.name}: {what} disagrees with the CPU plain path")
 
     gpu = copy.deepcopy(model).to("cuda")
     with torch.no_grad():
-        compare(gpu(x1.cuda()), ref8[:1], "cuda float32 b1 logits vs cpu plain", 1e-3, 0.999)
-        compare(gpu(x8.cuda()), ref8, "cuda float32 b8 logits vs cpu plain", 1e-3, 0.999)
+        with recording() as calls:
+            gpu(x1.cuda())
+        check_calls(key, calls, torch.float32, rows)
+        if key == "L":
+            k1_vs_k2(calls, timed=False)
+        del calls
+        for b in cfg.f32_batches:
+            compare(gpu(x8[:b].cuda()), ref[:b], f"cuda float32 b{b} logits vs cpu plain",
+                    1e-3, 0.999)
     cast_weights(gpu, torch.bfloat16)
     xb1 = x1.to("cuda", torch.bfloat16)
     xb8 = x8.to("cuda", torch.bfloat16)
     with torch.no_grad():
+        with recording() as calls:
+            gpu(xb1)
+        check_calls(key, calls, torch.bfloat16, rows)
+        if key == "L":
+            k1_vs_k2(calls, timed=True)
+        del calls
         # bfloat16 stage by stage: the calibrated random-weight net amplifies
         # rounding through its depth (docs/PARITY.md), so each stage runs on
         # the float32 reference's inputs and is held to its output
-        compare(gpu.backbone(xb1)[0], feats[0],
+        got_feats = gpu.backbone(xb1)
+        compare(got_feats[0], feats[0],
                 "cuda bfloat16 stride-2 feature (K3, K4a, K4b) vs cpu plain", 0.03)
+        compare(got_feats[1], feats[1],
+                "cuda bfloat16 stride-4 feature (+ K5, K4b) vs cpu plain", 0.05)
         dec = gpu.decoder([xb1] + [f.to("cuda", torch.bfloat16) for f in feats[:-1]],
                           signal.to("cuda", torch.bfloat16))
-        compare(dec, ref_dec, "cuda bfloat16 decoder (K1) on the reference features",
-                0.05, 0.97)
+        compare(dec, ref_dec, "cuda bfloat16 decoder (K1, K2, K6) on the reference "
+                "features", 0.05, 0.97)
 
     fps = {}
     LAUNCHES.clear()
     with torch.no_grad():
         out1 = gpu(xb1)
-        out8 = gpu(xb8)
+        gpu(xb8)
         for b, x, iters in ((1, xb1, 20), (8, xb8, 5)):
             for _ in range(2):
                 gpu(x)
@@ -303,22 +426,21 @@ def phase_model():
             fps[b] = b * iters / (time.perf_counter() - t0)
         n_forwards = 2 + 2 * 2 + 20 + 5
     launches = dict(LAUNCHES)
-    for name, per in PER_FORWARD.items():
+    for name, per in cfg.per_forward.items():
         if launches.get(name, 0) != per * n_forwards:
-            fail(f"{name}: {launches.get(name, 0)} launches on the main path, "
+            fail(f"{cfg.name}: {name}: {launches.get(name, 0)} launches on the main path, "
                  f"expected {per} x {n_forwards} forwards")
-    print(f"model  bf16 main path: {n_forwards} forwards, launches {launches}", flush=True)
-    compare(out1, ref8[:1], "cuda bfloat16 b1 logits vs cpu plain float32 (drift, not gated)",
-            None)
-    compare(out8, ref8, "cuda bfloat16 b8 logits vs cpu plain float32 (drift, not gated)",
+    print(f"model  {key} bf16 main path: {n_forwards} forwards, launches {launches}",
+          flush=True)
+    compare(out1, ref[:1], "cuda bfloat16 b1 logits vs cpu plain float32 (drift, not gated)",
             None)
     for b in (1, 8):
-        print(f"model  HyperSeg-M 1024x512 bf16 batch {b}: {fps[b]:.2f} img/s", flush=True)
-    phase_profile(gpu, {1: xb1, 8: xb8}, fps)
+        print(f"model  {cfg.name} bf16 batch {b}: {fps[b]:.2f} img/s", flush=True)
+    phase_profile(key, gpu, {1: xb1, 8: xb8}, fps)
     return launches, fps
 
 
-def phase_profile(gpu, inputs, fps, forwards=3):
+def phase_profile(key, gpu, inputs, fps, forwards=3):
     """Where a bf16 forward's device time goes (torch.profiler): device time
     per forward, its share of the unprofiled wall time per forward (the rest
     is the card idling on the host), and the kernels that take most of it."""
@@ -330,18 +452,46 @@ def phase_profile(gpu, inputs, fps, forwards=3):
                 gpu(x)
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / forwards
         if not events:
-            print(f"profile batch {b}: the profiler saw no device time (not measured)")
+            print(f"profile {key} batch {b}: the profiler saw no device time (not measured)")
             continue
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / forwards
         wall_ms = 1e3 * b / fps[b]
-        print(f"profile batch {b}: device {device_ms:.3f} ms per forward, wall "
+        print(f"profile {key} batch {b}: device {device_ms:.3f} ms per forward, wall "
               f"{wall_ms:.3f} ms, device busy {device_ms / wall_ms:.1%}, "
               f"{sum(e.count for e in events) // forwards} device ops per forward", flush=True)
         events.sort(key=lambda e: e.self_device_time_total, reverse=True)
-        for e in events[:12]:
-            print(f"profile batch {b}:   {e.self_device_time_total / 1e3 / forwards:8.3f} ms "
-                  f"x{e.count // forwards:<4d} {e.key[:90]}", flush=True)
+        for e in events[:14]:
+            print(f"profile {key} batch {b}:   {e.self_device_time_total / 1e3 / forwards:8.3f} "
+                  f"ms x{e.count // forwards:<4d} {e.key[:90]}", flush=True)
+
+
+def kernels_line(rows, launches):
+    """One entry per kernel: HyperSeg-M's per-forward numbers where M runs
+    it, else HyperSeg-L's, each model's under `by_model`; launches summed
+    over both main paths."""
+    kernels = []
+    for name, (_, _, source, replaces) in KERNELS.items():
+        per_model = {m: r for (m, n), r in rows.items() if n == name}
+        if not per_model or not any(launches[m].get(name, 0) for m in MODELS):
+            fail(f"{name}: not launched on any main path")
+        row = per_model.get("M", per_model.get("L"))    # HyperSeg-M's, where it runs
+
+        def summary(r):
+            return dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+                        bound_by=max(r["by"], key=r["by"].get),
+                        library_ms=r["library_ms"] if r["library"] != "pair" else None,
+                        pair_ms=r["library_ms"] if r["library"] == "pair" else None,
+                        calls_per_forward=r["calls"])
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(launches[m].get(name, 0) for m in MODELS),
+            launches_by_model={m: launches[m].get(name, 0) for m in MODELS},
+            max_abs_err=max(r["max_abs_err"] for r in per_model.values()),
+            f32_max_abs_err=max(r["f32_max_abs_err"] for r in per_model.values()),
+            model="M" if "M" in per_model else "L", **summary(row),
+            by_model={m: summary(r) for m, r in per_model.items()}, passed=True))
+    return kernels
 
 
 def main():
@@ -361,21 +511,14 @@ def main():
     build.kernels()
     print(f"build  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows = phase_kernels()
-    launches, fps = phase_model()
+    rows, launches, fps = {}, {}, {}
+    for key in MODELS:
+        launches[key], fps[key] = run_model(key, rows)
 
-    kernels = []
-    for name, row in rows.items():
-        source, replaces = SOURCES[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches[name], max_abs_err=row["max_abs_err"],
-            f32_max_abs_err=row["f32_max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=max(row["by"], key=row["by"].get),
-            library_ms=row["library_ms"], passed=True))
-    print(json.dumps({"kernels": kernels, "img_per_s": {str(b): v for b, v in fps.items()}}),
-          flush=True)
+    kernels = kernels_line(rows, launches)
+    print(json.dumps({"kernels": kernels,
+                      "img_per_s": {m: {str(b): v for b, v in f.items()}
+                                    for m, f in fps.items()}}), flush=True)
     print(smi.stdout.strip(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,10 +6,13 @@ construction: block configs, channel counts, multi-scale feature taps with
 their `_feat_fc_*` compressors, and TF-SAME pads computed from the *nominal*
 model image size (240 for B1), not the runtime size.
 
-Kernels: the stem runs K3 (ops/kernels/stem.py) and the leading expand-1,
-3x3, stride-1 SE blocks (B1's blocks 0-1) run K4a + SE + K4b
-(ops/kernels/mbconv.py); SE pooling and its MLP are torch ops between the
-two. The remaining blocks are torch convolutions.
+Kernels (ops/kernels/): the stem runs K3; the expand-1, 3x3, stride-1 SE
+blocks (B1's blocks 0-1) run K4a + SE + K4b; the expand-ratio 3x3 SE blocks
+(B1's blocks 2-4, 8-11, 21 and 22) run K5 + SE, then K4b where the
+projection has at most 32 outputs (blocks 2-4) and a torch 1x1 conv + BN
+otherwise. SE pooling and its MLP are torch ops between the kernels, as in
+the JAX package's fused chain (efficientnet.py:390-431). The 5x5 blocks are
+torch convolutions.
 """
 
 from __future__ import annotations
@@ -88,6 +91,15 @@ class MBConvPlan:
         return (self.expand == 1 and self.kernel == 3 and self.stride == 1
                 and self.dw_pad == ((1, 1), (1, 1)) and self.se_ch is not None)
 
+    @property
+    def expand_fusable(self):
+        """The block shape K5 takes: expand > 1, 3x3, stride 1 with the
+        symmetric SAME pad or stride 2 with the TF-SAME pad (0, 1), SE
+        present."""
+        return (self.expand > 1 and self.kernel == 3 and self.se_ch is not None
+                and self.stride in K4.EXPAND_PADS
+                and self.dw_pad == K4.EXPAND_PADS[self.stride])
+
 
 class MBConvBlock(nn.Module):
     """Mobile inverted bottleneck with SE; parameter names as the reference's
@@ -121,11 +133,25 @@ class MBConvBlock(nn.Module):
             # K4a -> SE (torch) -> K4b, as the TPU's dw_phase / project_phase
             h = K4.mbconv_dw(x, self._depthwise_conv.weight, self._bn1.params,
                              eps=BN_EPS)
-            se = self._se_scale(h.float().mean((2, 3)))
+            se = self._se_scale(h.mean((2, 3), dtype=torch.float32))
             return K4.mbconv_project(h, se, self._project_conv.weight,
                                      self._bn2.params,
                                      residual=x if p.residual else None,
                                      eps=BN_EPS)
+        if p.expand_fusable:
+            # K5 -> SE (torch) -> K4b or a torch projection
+            h = K4.mbconv_expand_dw(x, self._expand_conv.weight, self._bn0.params,
+                                    self._depthwise_conv.weight, self._bn1.params,
+                                    p.stride, eps=BN_EPS)
+            se = self._se_scale(h.mean((2, 3), dtype=torch.float32))
+            residual = x if p.residual else None
+            if p.out_ch <= K4.MAX_PROJECT_OUT:
+                return K4.mbconv_project(h, se, self._project_conv.weight,
+                                         self._bn2.params, residual=residual,
+                                         eps=BN_EPS)
+            y = self._bn2(F.conv2d(h * se.to(h.dtype)[:, :, None, None],
+                                   self._project_conv.weight))
+            return y if residual is None else y + residual
         inputs = x
         if p.expand != 1:
             x = F.swish(self._bn0(F.conv2d(x, self._expand_conv.weight)))

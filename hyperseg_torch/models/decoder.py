@@ -12,10 +12,14 @@ vector per patch. Checkpoint-parity quirks reproduced:
   #4 signal2weights output channels round up to the weight-group count and
      the generated map is clipped back to hyper_params.
 
-k=1 units (HyperSeg-M levels 0-2) run as batched per-patch matmuls, as the
-JAX package runs them outside any kernel. k=3 inverted-residual units
-(levels 3-4) run K1 (ops/kernels/patch_invres.py), which generates the
-weights and applies the unit in one kernel.
+k=1 units (levels 0-2) run as batched per-patch matmuls, as the JAX package
+runs them outside any kernel. k=3 inverted-residual units run K1
+(ops/kernels/patch_invres.py), which generates the weights and applies the
+unit in one kernel, where K1's one block per patch fits (`k1_fits`: HyperSeg-M
+levels 3-4, HyperSeg-L levels 3-4); otherwise (HyperSeg-L level 5, 32x32
+patches) the weight map is made by one matmul with the dense
+signal2weights matrix, as decoder.py:358-390 makes it in XLA, and K2 applies
+the unit.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from hyperseg_torch.models.signal_split import divide_feature, next_multiply
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, conv
 from hyperseg_torch.ops import patch as P
-from hyperseg_torch.ops.kernels import patch_invres as K1
+from hyperseg_torch.ops.kernels import patch_invres as PI
 
 BN_EPS = 1e-5
 
@@ -50,6 +54,24 @@ def apply_signal2weights(s, route: S2W, weight):
     """Weight map (B, hyper_params, fh, fw) of one unit from its routed slice."""
     sl = s[:, route.signal_index:route.signal_index + route.signal_ch]
     return F.conv2d(sl, weight, groups=route.groups)[:, :route.hyper_params]
+
+
+def s2w_dense_matrix(weight, groups):
+    """The grouped signal2weights conv weight (out_ch, signal_ch // groups,
+    1, 1) as one dense (signal_ch, out_ch) matrix: block-diagonal for
+    groups > 1, off-block entries exact zeros (decoder.py:358-370)."""
+    k = weight[:, :, 0, 0]
+    opg = k.shape[0] // groups
+    return torch.block_diag(*(k[g * opg:(g + 1) * opg].t() for g in range(groups)))
+
+
+def weight_map(s, route: S2W, weight):
+    """A unit's weight map (B, fh, fw, hyper_params), each patch's weights
+    contiguous: the routed slice, patch-major, times the dense
+    signal2weights matrix clipped to hyper_params (decoder.py:373-390)."""
+    sl = s[:, route.signal_index:route.signal_index + route.signal_ch]
+    dense = s2w_dense_matrix(weight, route.groups)[:, :route.hyper_params]
+    return torch.matmul(sl.permute(0, 2, 3, 1), dense.to(sl.dtype))
 
 
 class _HyperConv(nn.Module):
@@ -125,7 +147,7 @@ class InvResUnit(nn.Module):
 
     @property
     def hyper_params(self) -> int:
-        return K1.hyper_params(self.in_ch, self.hidden, self.out_ch, self.kernel)
+        return PI.hyper_params(self.in_ch, self.hidden, self.out_ch, self.kernel)
 
     def attach(self, route: S2W, device=None):
         self.route = route
@@ -133,17 +155,33 @@ class InvResUnit(nn.Module):
                                    groups=route.groups, device=device)
 
     def apply_weights(self, x, w):
-        """The eager unit from a given weight map w: (B, hyper_params, fh, fw)."""
-        return P.patch_inverted_residual(
+        """The unit from a given weight map w: (B, hyper_params, fh, fw), as
+        the JAX InvResUnit.apply: K2 on the card, its twin on the CPU."""
+        return self._k2(x, w.permute(0, 2, 3, 1).contiguous())
+
+    def _k2(self, x, w):
+        """K2 on a (B, fh, fw, hyper_params) weight map."""
+        return PI.patch_invres(
             x, w, hidden=self.hidden, out_ch=self.out_ch, kernel=self.kernel,
             bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params,
             eps=BN_EPS)
 
+    def uses_k1(self, x_hw, s_hw):
+        """The dispatch rule: K1 when its one block per patch fits
+        (PI.k1_fits) for a map x_hw split by the signal grid s_hw, else K2.
+        Measured at HyperSeg-L's level 4, where both run, in PERF.md."""
+        (h, w), (fh, fw) = x_hw, s_hw
+        return PI.k1_fits(self.in_ch, self.hidden, self.out_ch, h // fh, w // fw,
+                          self.route.signal_ch)
+
     def forward(self, x, s):
-        """Generate-and-apply from the level's signal slice s (K1)."""
+        """Generate-and-apply from the level's signal slice s: K1, or the
+        weight map and K2 (`uses_k1`)."""
         r = self.route
+        if not self.uses_k1(x.shape[2:], s.shape[2:]):
+            return self._k2(x, weight_map(s, r, self.signal2weights.weight))
         sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
-        return K1.patch_invres_s2w(
+        return PI.patch_invres_s2w(
             x, sl, self.signal2weights.weight, groups=r.groups,
             hidden=self.hidden, out_ch=self.out_ch, bn1=self.bn1.params,
             bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS,

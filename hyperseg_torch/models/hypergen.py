@@ -11,8 +11,13 @@ from torch import nn
 
 
 class HyperGen(nn.Module):
-    def __init__(self, backbone, decoder, weight_mapper):
+    def __init__(self, backbone, decoder, weight_mapper, *,
+                 inference_hflip=False, inference_gather="mean"):
         super().__init__()
+        # kept for the test-time-augmentation pyramid (not ported yet); the
+        # plain forward does not read them (quirk #5)
+        self.inference_hflip = inference_hflip
+        self.inference_gather = inference_gather
         self.backbone = backbone
         self.decoder = decoder
         self.weight_mapper = weight_mapper

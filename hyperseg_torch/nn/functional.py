@@ -6,8 +6,10 @@ Counterpart of hyperseg_tpu/nn/functional.py. Conventions:
   * BN statistics and folded affines are computed in float32;
   * `same_padding_2d` derives TF-SAME pads from the *nominal* model image
     size, as the reference's Conv2dStaticSamePadding does;
-  * `resize_bilinear` is torch's bilinear with align_corners=False and no
-    antialias; `upsample_nearest` uses floor(dst * in / out) indices.
+  * `resize_bilinear` is bilinear with half-pixel centres, edge clamp and no
+    antialias (align_corners=False); integer scales 2-4 run K6
+    (ops/kernels/resize.py); `upsample_nearest` uses floor(dst * in / out)
+    indices.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as TF
+
+from hyperseg_torch.ops.kernels import resize as K6
 
 # ---------------------------------------------------------------------------
 # Padding
@@ -155,10 +159,16 @@ ACTIVATIONS = {
 
 
 def resize_bilinear(x, out_hw):
-    """Bilinear resize of NCHW: half-pixel centres, edge clamp, no antialias
-    (torch interpolate, align_corners=False)."""
+    """Bilinear resize of NCHW: half-pixel centres, edge clamp, no antialias.
+    One integer scale in 2-4 on both axes (every upsample of HyperSeg-M and
+    -L) runs K6; other sizes, which the JAX package also resizes outside any
+    kernel, take torch's interpolate with align_corners=False."""
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
+    if K6.integer_scale(x.shape[2:], out_hw) is not None:
+        # the kernel reads dense NCHW planes; a decoder level's output can be
+        # a strided view of its patch-blocked result
+        return K6.resize_bilinear(x.contiguous(), out_hw)
     return TF.interpolate(x, size=tuple(out_hw), mode="bilinear",
                           align_corners=False, antialias=False)
 

@@ -96,6 +96,52 @@ void mbconv_project(const Tensor& h, const Tensor& se, const Tensor& w,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void mbconv_expand_dw(const Tensor& x, const Tensor& w_expand, at::TensorList bn,
+                      const Tensor& w_dw, double eps, int64_t stride, int64_t pad_t,
+                      int64_t pad_l, int64_t tile_h, int64_t tile_w, Tensor& out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  const DType dt = dtype_of(x);
+  check_like(x, x, "mbconv_expand_dw x");
+  check_like(w_expand, x, "mbconv_expand_dw w_expand");
+  check_like(w_dw, x, "mbconv_expand_dw w_dw");
+  check_like(out, x, "mbconv_expand_dw out");
+  TORCH_CHECK(bn.size() == 8, "mbconv_expand_dw: bn takes 2 x (weight, bias, mean, var)");
+  C10_CUDA_CHECK(hyperseg::launch_mbconv_expand_dw(
+      dt, x.data_ptr(), w_expand.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
+      w_dw.data_ptr(), bn_of(bn[4], bn[5], bn[6], bn[7]), static_cast<float>(eps),
+      out.data_ptr(), x.size(0), x.size(1), out.size(1), x.size(2), x.size(3),
+      out.size(2), out.size(3), stride, pad_t, pad_l, tile_h, tile_w, stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void resize_bilinear(const Tensor& x, int64_t scale, Tensor& out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  const DType dt = dtype_of(x);
+  check_like(x, x, "resize_bilinear x");
+  check_like(out, x, "resize_bilinear out");
+  C10_CUDA_CHECK(hyperseg::launch_resize_bilinear(
+      dt, x.data_ptr(), out.data_ptr(), x.size(0) * x.size(1), x.size(2), x.size(3),
+      scale, stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
+void patch_invres(const Tensor& x, const Tensor& wmap, int64_t hidden,
+                  at::TensorList bn, double eps, int64_t band, Tensor& out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  const DType dt = dtype_of(x);
+  check_like(x, x, "patch_invres x");
+  check_like(wmap, x, "patch_invres w");
+  check_like(out, x, "patch_invres out");
+  TORCH_CHECK(bn.size() == 12, "patch_invres: bn takes 3 x (weight, bias, mean, var)");
+  C10_CUDA_CHECK(hyperseg::launch_patch_invres(
+      dt, x.data_ptr(), wmap.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
+      bn_of(bn[4], bn[5], bn[6], bn[7]), bn_of(bn[8], bn[9], bn[10], bn[11]),
+      static_cast<float>(eps), out.data_ptr(), x.size(0), x.size(1), x.size(2),
+      x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), band,
+      stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void patch_invres_s2w(const Tensor& x, const Tensor& s, int64_t s_bstride,
                       const Tensor& w_s2w, int64_t groups, int64_t hidden,
                       at::TensorList bn, double eps, int64_t hidden_chunk,
@@ -131,6 +177,12 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
   m.def("patch_invres_s2w(Tensor x, Tensor s, int s_batch_stride, Tensor w_s2w, "
         "int groups, int hidden, Tensor[] bn, float eps, int hidden_chunk, "
         "int threads, Tensor(a!) out) -> ()");
+  m.def("mbconv_expand_dw(Tensor x, Tensor w_expand, Tensor[] bn, Tensor w_dw, "
+        "float eps, int stride, int pad_t, int pad_l, int tile_h, int tile_w, "
+        "Tensor(a!) out) -> ()");
+  m.def("resize_bilinear(Tensor x, int scale, Tensor(a!) out) -> ()");
+  m.def("patch_invres(Tensor x, Tensor w, int hidden, Tensor[] bn, float eps, "
+        "int band, Tensor(a!) out) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {
@@ -138,4 +190,7 @@ TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {
   m.impl("mbconv_dw", &mbconv_dw);
   m.impl("mbconv_project", &mbconv_project);
   m.impl("patch_invres_s2w", &patch_invres_s2w);
+  m.impl("mbconv_expand_dw", &mbconv_expand_dw);
+  m.impl("resize_bilinear", &resize_bilinear);
+  m.impl("patch_invres", &patch_invres);
 }

@@ -15,7 +15,7 @@ import os
 import torch
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("bindings.cpp", "stem.cu", "mbconv.cu", "patch_invres.cu")
+SOURCES = ("bindings.cpp", "stem.cu", "mbconv.cu", "patch_invres.cu", "resize.cu")
 BUILD_DIR = os.path.join(_DIR, "_build")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 

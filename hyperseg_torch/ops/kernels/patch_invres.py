@@ -1,7 +1,17 @@
-"""K1: signal2weights + patch-wise hyper inverted residual, fused.
+"""K1 and K2: the patch-wise hyper inverted residual, on the card.
 
-Replaces hyperseg_tpu/ops/pallas/patch_invres.py:488
-`patch_inverted_residual_s2w_fused`. Source: patch_invres.cu.
+K1 `patch_invres_s2w` replaces hyperseg_tpu/ops/pallas/patch_invres.py:488
+`patch_inverted_residual_s2w_fused`: signal2weights and the unit, fused.
+K2 `patch_invres` replaces patch_invres.py:870 `patch_inverted_residual_fused`:
+the unit from a weight map made beforehand. Source: patch_invres.cu.
+
+K1 holds a whole patch in one block; a patch of more pixels than threads
+keeps its whole hidden map in shared memory, which at HyperSeg-L's level 5
+(32x32 patches, 21 -> 42 -> 12) is more than a block may have. `k1_fits`
+says whether K1 takes a unit; the decoder sends the others to K2, which
+tiles a patch into bands of rows.
+
+K1:
 
 One thread block per patch (b, fy, fx). The block
   1. generates its P weights into shared memory from its signal slice with
@@ -24,6 +34,16 @@ cores' ~295 flop/byte balance, so the least time is set by bytes. The kernel
 runs the products on the CUDA cores in float32 from shared memory, where
 operations bind it; moving the expand and project products onto the tensor
 cores is later work.
+
+K2: one block per band of rows of a patch (`k2_plan`: as many rows as give
+at most 256 pixels, in at most SMEM_BUDGET of shared memory, so two blocks
+share an SM). The block loads the band with a one-pixel halo (neighbours'
+pixels inside the map, reflected at the image border) and the patch's P
+weights, contiguous in the (B, fh, fw, P) map, folds the BN scales into them,
+expands the band and its halo rows with this patch's w1, then runs
+depthwise + project one output pixel per thread at a time. The halo rows are
+expanded again by the neighbouring band: 10 rows expanded for 8 kept at
+32x32 patches. Bound: as K1's expand and project stages.
 """
 
 from __future__ import annotations
@@ -66,6 +86,71 @@ def plan(cin, hidden, out_ch, ph, pw, sig, budget=SMEM_BUDGET):
         if fit < hp:
             chunk = _round_up(-(-hp // -(-hp // fit)), HIDDEN_TILE)
     return threads, chunk, 4 * (fixed + chunk * nh)
+
+
+def k1_fits(cin, hidden, out_ch, ph, pw, sig):
+    """Whether K1 takes a unit: its one block per patch fits SMEM_LIMIT."""
+    return plan(cin, hidden, out_ch, ph, pw, sig)[2] <= SMEM_LIMIT
+
+
+def k2_plan(cin, hidden, out_ch, ph, pw, budget=SMEM_BUDGET):
+    """(band rows, shared-memory bytes) of one K2 block; the layout is
+    patch_invres.cu's. The band is the largest divisor of ph with at most
+    MAX_THREADS pixels whose block fits `budget`, else 1 row."""
+    hp, op = _round_up(hidden, HIDDEN_TILE), _round_up(out_ch, 4)
+
+    def nbytes(band):
+        nb = (band + 2) * (pw + 2)
+        return 4 * ((cin + 11) * hp + hp * op + op + 2 * hidden + out_ch + (cin + hp) * nb)
+
+    fits = [r for r in range(1, ph + 1)
+            if ph % r == 0 and r * pw <= MAX_THREADS and nbytes(r) <= budget]
+    band = max(fits, default=1)
+    return band, nbytes(band)
+
+
+def patch_invres_plain(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
+    """Plain twin of K2: the eager unit (ops/patch.py) in float32 on the
+    weight map w (B, fh, fw, P)."""
+    out = P.patch_inverted_residual(x.float(), w.float().permute(0, 3, 1, 2),
+                                    hidden=hidden, out_ch=out_ch, kernel=kernel,
+                                    bn1=bn1, bn2=bn2, bn3=bn3, eps=eps)
+    return out.to(x.dtype)
+
+
+def patch_invres(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
+    """x: (B, Cin, H, W); w: (B, fh, fw, P) per-patch weights, P =
+    hyper_params(Cin, hidden, out_ch) in the order w1 (hidden, Cin) | w2
+    (hidden, 3, 3) | w3 (out_ch, hidden); bnN float32 (weight, bias,
+    running_mean, running_var). Reflect halo, stride 1, relu6, + x when
+    Cin == out_ch. Returns (B, out_ch, H, W)."""
+    if x.device.type == "cpu":
+        return patch_invres_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1,
+                                  bn2=bn2, bn3=bn3, eps=eps, kernel=kernel)
+    name = "patch_invres"
+    build.check_activation(f"{name} x", x)
+    b, cin, h, wd = x.shape
+    if kernel != 3:
+        raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3")
+    if out_ch > MAX_OUT:
+        raise ValueError(f"{name}: {out_ch} output channels; at most {MAX_OUT}")
+    if w.dim() != 4 or w.shape[0] != b:
+        raise ValueError(f"{name}: weight map {tuple(w.shape)} is not (B, fh, fw, P)")
+    _, fh, fw, p = w.shape
+    build.check(f"{name} w", w, x.dtype, (b, fh, fw, hyper_params(cin, hidden, out_ch)))
+    if h % fh or wd % fw or h // fh < 2 or wd // fw < 2:
+        raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches "
+                         "of at least 2x2")
+    for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
+        build.check_bn(f"{name} bn", bn, c)
+    band, nbytes = k2_plan(cin, hidden, out_ch, h // fh, wd // fw)
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {nbytes} B of shared memory per band, "
+                         f"more than {SMEM_LIMIT}")
+    out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
+    build.kernels().patch_invres(x, w, hidden, [*bn1, *bn2, *bn3], float(eps), band, out)
+    LAUNCHES["patch_invres"] += 1
+    return out
 
 
 def patch_invres_s2w_plain(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2,

@@ -10,6 +10,7 @@ import torch
 
 from hyperseg_torch.ops.kernels import mbconv as K4
 from hyperseg_torch.ops.kernels import patch_invres as K1
+from hyperseg_torch.ops.kernels import resize as K6
 from hyperseg_torch.ops.kernels import stem as K3
 
 from torch_parity import bn_params, t
@@ -20,6 +21,22 @@ K1_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out, sig, groups
     (1, 2, 2, 8, 8, 16, 32, 16, 32, 2),     # residual (cin == out)
     (1, 1, 2, 32, 32, 8, 16, 8, 16, 2),     # more pixels than threads, residual
 ]
+
+
+K2_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out
+    (1, 2, 3, 32, 32, 21, 42, 12),  # HyperSeg-L level 5: bands of 8 rows
+    (2, 2, 2, 16, 16, 22, 44, 16),  # level 4
+    (1, 2, 2, 8, 8, 16, 32, 16),    # residual (cin == out)
+    (1, 1, 1, 4, 300, 8, 12, 8),    # a band of more pixels than threads
+]
+K5_CASES = [  # b, cin, mid, h, w, stride
+    (2, 16, 96, 64, 128, 2),        # B1 block 2 (mid not a multiple of 32 below)
+    (1, 24, 144, 33, 70, 1),        # blocks 3-4, ragged tiles
+    (1, 320, 1920, 16, 32, 1),      # block 22
+    (1, 40, 240, 17, 31, 2),        # block 8 at odd sizes
+]
+K6_CASES = [  # b, c, h, w, scale
+    (2, 19, 64, 128, 2), (1, 16, 24, 32, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4)]
 
 
 def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups):
@@ -33,7 +50,9 @@ def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups):
 
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
-    """Each CUDA kernel against its plain twin on the card, f32 and bf16."""
+    """Each CUDA kernel against its plain twin on the card, f32 and bf16:
+    K3, K4a, K4b, K1, and K2, K5, K6 at HyperSeg-L's and -M's widths and at
+    ragged sizes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -41,8 +60,8 @@ def test_kernels_match_twins_on_card():
     g = torch.Generator().manual_seed(0)
     dev = "cuda"
 
-    def bn(c):
-        return tuple(t(v).to(dev) for v in bn_params(np.random.RandomState(c), c))
+    def bn(c, seed=0):
+        return tuple(t(v).to(dev) for v in bn_params(np.random.RandomState(c + seed), c))
 
     for dt, tol in ((torch.float32, 1e-4), (torch.bfloat16, 3e-2)):
         def r(*shape, scale=1.0):
@@ -71,3 +90,18 @@ def test_kernels_match_twins_on_card():
             xs, ss, ws = (t(a).to(dev, dt) for a in (xs, ss, ws))
             close(K1.patch_invres_s2w(xs, ss, ws, **args),
                   K1.patch_invres_s2w_plain(xs, ss, ws, **args))
+        for b, fh, fw, ph, pw, cin, hidden, out in K2_CASES:
+            p = K1.hyper_params(cin, hidden, out)
+            xs, ws = r(b, cin, fh * ph, fw * pw), r(b, fh, fw, p, scale=0.1)
+            args = dict(hidden=hidden, out_ch=out, bn1=bn(hidden), bn2=bn(hidden),
+                        bn3=bn(out))
+            close(K1.patch_invres(xs, ws, **args), K1.patch_invres_plain(xs, ws, **args))
+        for b, cin, mid, h, w, stride in K5_CASES:
+            xs = r(b, cin, h, w)
+            we, wd = r(mid, cin, 1, 1, scale=cin ** -0.5), r(mid, 1, 3, 3, scale=0.3)
+            close(K4.mbconv_expand_dw(xs, we, bn(mid), wd, bn(mid, 1), stride),
+                  K4.mbconv_expand_dw_plain(xs, we, bn(mid), wd, bn(mid, 1), stride))
+        for b, c, h, w, s in K6_CASES:
+            xs = r(b, c, h, w)
+            close(K6.resize_bilinear(xs, (s * h, s * w)),
+                  K6.resize_bilinear_plain(xs, (s * h, s * w)))

@@ -14,6 +14,12 @@ HYPERSEG_M_KW = dict(
     expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19,
 )
 M_PARAM_COUNT = (10378108, 10311214)   # bench.py:92, (total, trainable)
+# HyperSeg-L CamVid, 12 classes, 768x1024 (tests/golden/make_goldens.py:56-61)
+HYPERSEG_L_KW = dict(
+    levels=2, kernel_sizes=(1, 1, 1, 3, 3, 3), level_channels=[64, 32, 16, 16, 16, 16],
+    expand_ratio=2, with_out_fc=False, decoder_dropout=None,
+    weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12,
+)
 
 
 def nchw(a):
