@@ -5,10 +5,10 @@
 Phases (any failure exits non-zero before the result lines):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from this checkout (ops/kernels/build.py);
-  3. for each model - HyperSeg-M Cityscapes 1024x512, then HyperSeg-L CamVid
-     768x1024 - built through the normal factory at full width and depth
-     from seeded weights, BN calibrated on the CPU, the CPU (all-plain)
-     float32 logits as the reference:
+  3. for each model - HyperSeg-M Cityscapes 1024x512, HyperSeg-L CamVid
+     768x1024, then HyperSeg-L VOC 512x512 - built through the normal factory
+     at full width and depth from seeded weights, BN calibrated on the CPU,
+     the CPU (all-plain) float32 logits as the reference:
      a. kernels: one batch-1 forward on the card in float32, then one in
         bfloat16, with every kernel wrapper recording its calls; each call is
         replayed against its plain PyTorch twin on the same inputs (the main
@@ -18,12 +18,14 @@ Phases (any failure exits non-zero before the result lines):
         for HyperSeg-L, K1 and K2 are also timed against each other at the
         levels K1 takes;
      b. the card's float32 kernel path against the reference (HyperSeg-M at
-        batch 1 and 8, HyperSeg-L at batch 1); bfloat16 stage by stage
-        (backbone features, decoder on the reference features);
+        batch 1 and 8, the others at batch 1); bfloat16 stage by stage
+        (backbone features, decoder on the reference features and signal or
+        weight maps);
      c. the bfloat16 main path at batch 1 and 8 with every launch counter set
         to 0 just before and read just after, checked against the launches
         per forward; img/s by host clock around synchronised forwards; a
         profile of the device time per forward and the kernels that take it;
+     d. the model's wall seconds;
   4. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
 
@@ -51,6 +53,8 @@ sys.path.insert(0, HERE)
 @dataclass
 class Model:
     name: str
+    factory: str           # module of hyperseg_torch.models
+    backbone: str
     kw: dict
     res: tuple             # (H, W)
     param_count: int       # state-dict elements
@@ -60,23 +64,37 @@ class Model:
 
 MODELS = {
     "M": Model(
-        "HyperSeg-M Cityscapes 1024x512",
+        "HyperSeg-M Cityscapes 1024x512", "hyperseg_v1_0", "efficientnet-b1",
         dict(levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
              kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
              expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
         (512, 1024), 10378108,    # bench.py:92, total
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 2, "patch_invres": 0, "resize_bilinear": 5},
+         "patch_invres_s2w": 2, "patch_invres": 0, "resize_bilinear": 5,
+         "patch_invres_v01": 0},
         (1, 8)),
     "L": Model(
         "HyperSeg-L CamVid 768x1024",   # tests/golden/make_goldens.py:56-61
+        "hyperseg_v1_0", "efficientnet-b1",
         dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3, 3),
              level_channels=[64, 32, 16, 16, 16, 16], expand_ratio=2,
              with_out_fc=False, decoder_dropout=None,
              weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
         (768, 1024), 10036096,    # the JAX count_params (tests/test_torch_hyperseg_l.py)
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 2, "patch_invres": 1, "resize_bilinear": 5},
+         "patch_invres_s2w": 2, "patch_invres": 1, "resize_bilinear": 5,
+         "patch_invres_v01": 0},
+        (1,)),
+    "V": Model(
+        "HyperSeg-L VOC 512x512",       # tests/golden/make_goldens.py:62-69
+        "hyperseg_v0_1", "efficientnet-b3",
+        dict(levels=3, kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2,
+             with_out_fc=False, decoder_dropout=None, weight_groups=16,
+             num_classes=21),
+        (512, 512), 39781484,     # the JAX count_params (tests/test_torch_hyperseg_voc.py)
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 10,
+         "patch_invres_s2w": 0, "patch_invres": 0, "resize_bilinear": 5,
+         "patch_invres_v01": 4},
         (1,)),
 }
 # H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
@@ -104,6 +122,8 @@ KERNELS = {
                      P + "patch_invres.py:870"),
     "resize_bilinear": ("resize", "resize_bilinear_plain", K + "resize.cu",
                         P + "resize.py:152"),
+    "patch_invres_v01": ("patch_invres", "patch_invres_v01_plain", K + "patch_invres.cu",
+                         P + "patch_invres.py:784"),
 }
 
 
@@ -190,6 +210,8 @@ class Call:
         from hyperseg_torch.ops.kernels import patch_invres as PI
         b, cin, h, w = a[0].shape
         hidden, out_ch = kw["hidden"], kw["out_ch"]
+        if self.name == "patch_invres_v01":     # every pixel expanded once
+            return 2 * b * h * w * hidden * (cin + 9 + out_ch)
         fh, fw = a[1].shape[2:] if self.name == "patch_invres_s2w" else a[1].shape[1:3]
         ph, pw = h // fh, w // fw
         per_patch = (ph + 2) * (pw + 2) * cin * hidden + ph * pw * hidden * (9 + out_ch)
@@ -333,16 +355,23 @@ def k1_vs_k2(calls, timed):
               f"K2 {t2:.4f} ms, weight map + K2 {t2m:.4f} ms", flush=True)
 
 
+def to_card(t, dtype):
+    """A tensor, or each of a list of tensors, on the card in `dtype`."""
+    if isinstance(t, list):
+        return [to_card(v, dtype) for v in t]
+    return t.to("cuda", dtype)
+
+
 def run_model(key, rows):
     """One model end to end; returns its main-path launch counts and img/s."""
-    from hyperseg_torch.models.hyperseg_v1_0 import hyperseg_efficientnet
     from hyperseg_torch.nn.modules import cast_weights
     from hyperseg_torch.ops.kernels import LAUNCHES
     from hyperseg_torch.utils.calibrate import calibrate_bn
 
     cfg = MODELS[key]
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
     gen = torch.Generator().manual_seed(1)
-    model = hyperseg_efficientnet("efficientnet-b1", device="cpu", seed=0, **cfg.kw)
+    model = factory.hyperseg_efficientnet(cfg.backbone, device="cpu", seed=0, **cfg.kw)
     n = sum(v.numel() for v in model.state_dict().values())
     if n != cfg.param_count:
         fail(f"{cfg.name}: parameter count {n} != {cfg.param_count}")
@@ -405,10 +434,11 @@ def run_model(key, rows):
                 "cuda bfloat16 stride-2 feature (K3, K4a, K4b) vs cpu plain", 0.03)
         compare(got_feats[1], feats[1],
                 "cuda bfloat16 stride-4 feature (+ K5, K4b) vs cpu plain", 0.05)
-        dec = gpu.decoder([xb1] + [f.to("cuda", torch.bfloat16) for f in feats[:-1]],
-                          signal.to("cuda", torch.bfloat16))
-        compare(dec, ref_dec, "cuda bfloat16 decoder (K1, K2, K6) on the reference "
-                "features", 0.05, 0.97)
+        dec = gpu.decoder([xb1] + to_card(feats[:-1], torch.bfloat16),
+                          to_card(signal, torch.bfloat16))
+        ks, head = ("K7, K6", "weight maps") if key == "V" else ("K1, K2, K6", "signal")
+        compare(dec, ref_dec, f"cuda bfloat16 decoder ({ks}) on the reference "
+                f"features and {head}", 0.05, 0.97)
 
     fps = {}
     LAUNCHES.clear()
@@ -467,15 +497,15 @@ def phase_profile(key, gpu, inputs, fps, forwards=3):
 
 
 def kernels_line(rows, launches):
-    """One entry per kernel: HyperSeg-M's per-forward numbers where M runs
-    it, else HyperSeg-L's, each model's under `by_model`; launches summed
-    over both main paths."""
+    """One entry per kernel: the per-forward numbers of the first model (M,
+    L, V) that runs it, each model's under `by_model`; launches summed over
+    all main paths."""
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         per_model = {m: r for (m, n), r in rows.items() if n == name}
         if not per_model or not any(launches[m].get(name, 0) for m in MODELS):
             fail(f"{name}: not launched on any main path")
-        row = per_model.get("M", per_model.get("L"))    # HyperSeg-M's, where it runs
+        first = next(m for m in MODELS if m in per_model)
 
         def summary(r):
             return dict(ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
@@ -489,7 +519,7 @@ def kernels_line(rows, launches):
             launches_by_model={m: launches[m].get(name, 0) for m in MODELS},
             max_abs_err=max(r["max_abs_err"] for r in per_model.values()),
             f32_max_abs_err=max(r["f32_max_abs_err"] for r in per_model.values()),
-            model="M" if "M" in per_model else "L", **summary(row),
+            model=first, **summary(per_model[first]),
             by_model={m: summary(r) for m, r in per_model.items()}, passed=True))
     return kernels
 
@@ -513,7 +543,9 @@ def main():
 
     rows, launches, fps = {}, {}, {}
     for key in MODELS:
+        t0 = time.perf_counter()
         launches[key], fps[key] = run_model(key, rows)
+        print(f"model  {key} done in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
     kernels = kernels_line(rows, launches)
     print(json.dumps({"kernels": kernels,

@@ -13,6 +13,11 @@ find; inside, the code is plain PyTorch:
     CUDA tensor each kernel wrapper in `ops/kernels` launches its CUDA kernel
     (or raises); on a CPU tensor it runs the kernel's plain PyTorch twin.
 
+Ported so far: the eval forward of the v1_0 family
+(`models.hyperseg_v1_0`: HyperSeg-M Cityscapes, HyperSeg-L CamVid) and of the
+v0_1 family (`models.hyperseg_v0_1`: HyperSeg-L VOC), with a hand-written
+Hopper kernel for each of the JAX package's seven Pallas kernels (K1-K7).
+
 This package imports neither JAX nor `hyperseg_tpu`.
 """
 

@@ -1,4 +1,4 @@
-"""Dynamic multi-scale decoder of HyperSeg v1_0 (eval), NCHW.
+"""Dynamic multi-scale decoders of HyperSeg v1_0 and v0_1 (eval), NCHW.
 
 Counterpart of hyperseg_tpu/models/decoder.py (S2W, PatchConvUnit,
 InvResUnit, apply_signal2weights, MultiScaleDecoderV1; reference
@@ -20,6 +20,12 @@ levels 3-4, HyperSeg-L levels 3-4); otherwise (HyperSeg-L level 5, 32x32
 patches) the weight map is made by one matmul with the dense
 signal2weights matrix, as decoder.py:358-390 makes it in XLA, and K2 applies
 the unit.
+
+The v0_1 decoder (MultiScaleDecoderV0, HyperSeg-L VOC) takes its weight maps
+from the weight mapper, one (B, fh, fw, P) map per level. Its k=1 levels run
+as batched matmuls on the map; its v0_1 inverted residuals (V01InvResUnit)
+run K7 (ops/kernels/patch_invres.py `patch_invres_v01`), whose BN is over the
+full map and whose depthwise halo is the neighbouring patches' expand.
 """
 
 from __future__ import annotations
@@ -120,8 +126,24 @@ class PatchConvUnit(nn.Sequential):
             xp = P.extract_patches_with_halo(x, fh, fw, (self.pad, self.pad))
         else:
             xp = P.block_patches(x, fh, fw)
-        out = P.unblock_patches(P.patch_conv_valid(
-            xp, w, self.out_ch, (self.kernel, self.kernel), groups=self.groups))
+        return self._bn_act(P.unblock_patches(P.patch_conv_valid(
+            xp, w, self.out_ch, (self.kernel, self.kernel), groups=self.groups)))
+
+    def apply_map(self, x, w):
+        """The unit from a (B, fh, fw, hyper_params) weight map, each patch's
+        weights contiguous (v0_1). A dense 1x1 conv is one batched matmul of
+        each patch's (out_ch, in_ch) weights with its pixels, reading the
+        map in place."""
+        b, fh, fw, _ = w.shape
+        if self.kernel > 1 or self.groups > 1:
+            return self.apply_weights(x, w.permute(0, 3, 1, 2))
+        xp = P.block_patches(x, fh, fw)                 # (B, fh, fw, C, ph, pw)
+        ph, pw = xp.shape[4:]
+        wk = w.reshape(b, fh, fw, self.out_ch, self.in_ch).to(x.dtype)
+        out = torch.matmul(wk, xp.reshape(b, fh, fw, self.in_ch, ph * pw))
+        return self._bn_act(P.unblock_patches(out.view(b, fh, fw, self.out_ch, ph, pw)))
+
+    def _bn_act(self, out):
         if self.has_bn:
             out = self[-1](out)
         return F.ACTIVATIONS[self.act](out)
@@ -188,7 +210,74 @@ class InvResUnit(nn.Module):
             kernel=self.kernel)
 
 
-class MultiScaleDecoderV1(nn.Module):
+class V01InvResUnit(nn.Module):
+    """v0_1 inverted residual (hyperseg_v0_1.py:205-237): three independent
+    patch convs under `conv` - 1x1 expand (when expand != 1), kxk depthwise,
+    1x1 project - each folding back to the full map, full-map eval BN, relu6
+    after the first two, and a residual when in_ch == out_ch. Keys
+    `<unit>.conv.J.1.*` (BN); the weights come from the level's map."""
+
+    def __init__(self, in_ch, out_ch, hidden, *, kernel=3, expand=1, device=None):
+        super().__init__()
+        self.in_ch, self.out_ch, self.hidden, self.kernel = in_ch, out_ch, hidden, kernel
+        units = []
+        if expand != 1:
+            units.append(PatchConvUnit(in_ch, hidden, bn=True, act="relu6", device=device))
+        units.append(PatchConvUnit(hidden, hidden, kernel=kernel, groups=hidden,
+                                   pad=kernel // 2, bn=True, act="relu6", device=device))
+        units.append(PatchConvUnit(hidden, out_ch, bn=True, device=device))
+        self.conv = nn.Sequential(*units)
+
+    @property
+    def hyper_params(self) -> int:
+        return sum(u.hyper_params for u in self.conv)
+
+    @property
+    def uses_k7(self):
+        """Whether K7 takes the unit: the field checks of the JAX package's
+        V01InvResUnit._kernel_ok (decoder.py:305-326) that can fail here -
+        an expand conv present and a 3x3 depthwise; stride 1, reflect and
+        relu6 / relu6 / none hold by construction - and none of its TPU
+        gates."""
+        return len(self.conv) == 3 and self.kernel == 3
+
+    def forward(self, x, w):
+        """x: (B, in_ch, H, W); w: (B, fh, fw, hyper_params)."""
+        if self.uses_k7:
+            e, d, p = self.conv
+            return PI.patch_invres_v01(
+                x, w, hidden=self.hidden, out_ch=self.out_ch, bn1=e[-1].params,
+                bn2=d[-1].params, bn3=p[-1].params, eps=BN_EPS)
+        # any other shape: its patch convs in turn, as the JAX unit runs them
+        out, ofs = x, 0
+        for u in self.conv:
+            out = u.apply_map(out, w[..., ofs:ofs + u.hyper_params])
+            ofs += u.hyper_params
+        return out + x if self.in_ch == self.out_ch else out
+
+
+class _Decoder(nn.Module):
+    """What the decoders share: the coordinate grids, made once per (h, w,
+    dtype, device) - building one from numpy is a host-to-device copy that
+    stalls the host on the card (the reference caches them as buffers too,
+    hyperseg_v1_0.py:189-213) - and a level's input."""
+
+    def __init__(self):
+        super().__init__()
+        self._coords = {}
+
+    def _level_input(self, p, feat):
+        """cat(coordinates, feat, p upsampled to feat's size), or with p None
+        cat(coordinates, feat)."""
+        if p is not None:
+            feat = torch.cat([feat, F.resize_bilinear(p, feat.shape[2:])], 1)
+        key = (feat.shape[2], feat.shape[3], feat.dtype, feat.device)
+        if key not in self._coords:
+            self._coords[key] = F.image_coordinates(1, *key)
+        return torch.cat([self._coords[key].expand(feat.shape[0], -1, -1, -1), feat], 1)
+
+
+class MultiScaleDecoderV1(_Decoder):
     """Reference MultiScaleDecoder (hyperseg_v1_0.py:94-253).
 
     feat_channels: [in_nc] + backbone feature channels (finest -> coarsest,
@@ -209,10 +298,6 @@ class MultiScaleDecoderV1(nn.Module):
         assert len(ks) == levels and len(ll) == levels and len(er) == levels
         self.levels = levels
         self.num_classes = num_classes
-        # coordinate grids by (h, w, dtype, device), made once: building one
-        # from numpy is a host-to-device copy that stalls the host on the card
-        # (the reference caches them as buffers too, hyperseg_v1_0.py:189-213)
-        self._coords = {}
         rev_feats = list(feat_channels[::-1])
 
         level_units: List[List[nn.Module]] = []
@@ -263,23 +348,12 @@ class MultiScaleDecoderV1(nn.Module):
                 sig_index += ch
                 k += 1
 
-    def _coordinates(self, p):
-        key = (p.shape[2], p.shape[3], p.dtype, p.device)
-        if key not in self._coords:
-            self._coords[key] = F.image_coordinates(1, *key)
-        return self._coords[key].expand(p.shape[0], -1, -1, -1)
-
     def forward(self, xs, s):
         """xs: [input image, feat_s2, ..., feat_s16] (finest -> coarsest, head
         excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32."""
         p = None
         for lv in range(self.levels):
-            feat = xs[-lv - 1]
-            if p is None:
-                p = feat
-            else:
-                p = torch.cat([feat, F.resize_bilinear(p, feat.shape[2:])], 1)
-            p = torch.cat([self._coordinates(p), p], 1)
+            p = self._level_input(p, xs[-lv - 1])
             base = 0
             for u in getattr(self, f"level_{lv}"):
                 hi = min(base + u.hyper_params, s.shape[1])
@@ -288,3 +362,64 @@ class MultiScaleDecoderV1(nn.Module):
         if hasattr(self, "out_fc"):
             p = self.out_fc(p, s)
         return F.resize_bilinear(p, xs[0].shape[2:])
+
+
+class MultiScaleDecoderV0(_Decoder):
+    """Reference v0_1 MultiScaleDecoder (hyperseg_v0_1.py:91-202): each
+    level's units read the level's weight map from the weight mapper; a
+    level's output width is its feature's; no final upsample (the last level
+    runs at the input's size)."""
+
+    def __init__(self, feat_channels, num_classes=3, kernel_sizes=3, level_layers=1,
+                 expand_ratio=1, with_out_fc=False, out_kernel_size=1, dropout=None,
+                 device=None):
+        super().__init__()
+        levels = len(feat_channels)
+        ks = [kernel_sizes] * levels if isinstance(kernel_sizes, int) else list(kernel_sizes)
+        ll = [level_layers] * levels if isinstance(level_layers, int) else list(level_layers)
+        assert len(ks) == levels and len(ll) == levels
+        self.levels = levels
+        self.num_classes = num_classes
+        rev_feats = list(feat_channels[::-1])
+        prev = 0
+        for lv in range(levels):
+            ngf = rev_feats[lv]
+            prev += ngf
+            units = []
+            for layer in range(ll[lv]):
+                if (not with_out_fc) and lv == levels - 1 and layer == ll[lv] - 1:
+                    ngf = num_classes
+                in_ch = prev + 2
+                if ks[lv] > 1:
+                    units.append(V01InvResUnit(in_ch, ngf, int(round(in_ch * expand_ratio)),
+                                               kernel=ks[lv], expand=expand_ratio,
+                                               device=device))
+                else:
+                    units.append(PatchConvUnit(in_ch, ngf, kernel=ks[lv], pad=ks[lv] // 2,
+                                               bn=True, act="relu", device=device))
+                prev = ngf
+            self.add_module(f"level_{lv}", nn.ModuleList(units))
+        groups = [getattr(self, f"level_{lv}") for lv in range(levels)]
+        if with_out_fc:
+            self.out_fc = PatchConvUnit(prev, num_classes, kernel=out_kernel_size,
+                                        pad=out_kernel_size // 2,
+                                        dropout_slot=dropout is not None)
+            groups.append([self.out_fc])
+        self.param_groups = [sum(u.hyper_params for u in grp) for grp in groups]
+        self.hyper_params = sum(self.param_groups)
+
+    def forward(self, xs, weights):
+        """xs: [input image, feat_s2, ..., feat_s32] (finest -> coarsest,
+        head excluded), NCHW; weights: one (B, fh, fw, P_level) map per level
+        (and one for out_fc)."""
+        p = None
+        for lv in range(self.levels):
+            p = self._level_input(p, xs[-lv - 1])
+            base = 0
+            for u in getattr(self, f"level_{lv}"):
+                w = weights[lv][..., base:base + u.hyper_params]
+                p = u(p, w) if isinstance(u, V01InvResUnit) else u.apply_map(p, w)
+                base += u.hyper_params
+        if hasattr(self, "out_fc"):
+            p = self.out_fc.apply_map(p, weights[-1][..., :self.out_fc.hyper_params])
+        return p

@@ -1,12 +1,13 @@
-"""Signal-channel division arithmetic (the v1_0 variant).
+"""Signal-channel division arithmetic (the v1_0 and v0_1 variants).
 
 The hypernetwork signal is split across the decoder's weight generators in
 proportion to how many parameters each must produce. This integer division
-sizes every signal2weights convolution, so it must reproduce the
-reference's arithmetic exactly (hyperseg_v1_0.py:763-810): channels are
-counted in units of `min_unit`; outputs of equal size form a group and get
-identical shares; groups are served in decreasing order of total mass; the
-last group absorbs the remainder.
+sizes every signal2weights convolution (v1_0) and every head of the v0_1
+weight mapper, so it must reproduce the reference's arithmetic exactly
+(hyperseg_v1_0.py:763-810, hyperseg_v0_1.py:366-406): channels are counted
+in units of `min_unit`; outputs of equal size form a group and get identical
+shares; groups are served in decreasing order of total mass; the last group
+absorbs the remainder.
 """
 
 from __future__ import annotations
@@ -33,6 +34,15 @@ def _sorted_groups(out_features: Sequence[int]):
     return groups
 
 
+def _scatter(groups, group_units, n_out, min_unit):
+    """Each group's units split evenly over its members, in channels."""
+    out = np.zeros(n_out, dtype=int)
+    for (_, members), units in zip(groups, group_units):
+        for j in members:
+            out[j] = units // len(members) * min_unit
+    return out
+
+
 def divide_feature(in_feature: int, out_features: Sequence[int], min_unit: int = 8):
     """Channels of the signal for each output, in the order of out_features."""
     assert in_feature % min_unit == 0, (
@@ -55,9 +65,25 @@ def divide_feature(in_feature: int, out_features: Sequence[int], min_unit: int =
                 break
         else:
             group_units[-1] += remaining
+    return _scatter(groups, group_units, len(out_features), min_unit)
 
-    out = np.zeros(len(out_features), dtype=int)
-    for (_, members), n_units in zip(groups, group_units):
-        for j in members:
-            out[j] = n_units // len(members) * min_unit
-    return out
+
+def divide_feature_legacy_v01(in_feature: int, out_features: Sequence[int],
+                              min_unit: int = 8):
+    """The v0_1 variant: no unit granted up front, float shares floored to
+    the group size, the last group takes the whole remainder."""
+    assert in_feature % min_unit == 0, (
+        f"in_feature ({in_feature}) must be divisible by min_unit ({min_unit})")
+    units = in_feature // min_unit
+    groups = _sorted_groups(out_features)
+    ratio = float(units) / sum(out_features)
+
+    remaining = units
+    group_units = []
+    for feat, members in groups[:-1]:
+        n = len(members)
+        share = max(feat * n * ratio, 1) // n * n
+        group_units.append(int(share))
+        remaining -= share
+    group_units.append(int(remaining))
+    return _scatter(groups, group_units, len(out_features), min_unit)

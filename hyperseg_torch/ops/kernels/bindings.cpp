@@ -142,6 +142,33 @@ void patch_invres(const Tensor& x, const Tensor& wmap, int64_t hidden,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
+void patch_invres_v01(const Tensor& x, const Tensor& wmap, int64_t wstride,
+                      int64_t hidden, at::TensorList bn, double eps, int64_t band,
+                      Tensor& out) {
+  c10::cuda::CUDAGuard guard(x.device());
+  const DType dt = dtype_of(x);
+  check_like(x, x, "patch_invres_v01 x");
+  check_like(out, x, "patch_invres_v01 out");
+  // the map may be the first P entries of wider rows: (B, fh, fw, P) with
+  // strides (fh * fw * wstride, fw * wstride, wstride, 1)
+  TORCH_CHECK(wmap.is_cuda() && wmap.device() == x.device() &&
+                  wmap.scalar_type() == x.scalar_type() && wmap.dim() == 4,
+              "patch_invres_v01 w: a 4-d map like x");
+  int64_t want = 1;
+  for (int d = 3; d >= 0; --d) {
+    TORCH_CHECK(wmap.size(d) == 1 || wmap.stride(d) == want,
+                "patch_invres_v01 w: rows of wstride entries, patch-major");
+    want = d == 3 ? wstride : want * wmap.size(d);
+  }
+  TORCH_CHECK(bn.size() == 12, "patch_invres_v01: bn takes 3 x (weight, bias, mean, var)");
+  C10_CUDA_CHECK(hyperseg::launch_patch_invres_v01(
+      dt, x.data_ptr(), wmap.data_ptr(), wstride, bn_of(bn[0], bn[1], bn[2], bn[3]),
+      bn_of(bn[4], bn[5], bn[6], bn[7]), bn_of(bn[8], bn[9], bn[10], bn[11]),
+      static_cast<float>(eps), out.data_ptr(), x.size(0), x.size(1), x.size(2),
+      x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), band, stream_of(x)));
+  C10_CUDA_KERNEL_LAUNCH_CHECK();
+}
+
 void patch_invres_s2w(const Tensor& x, const Tensor& s, int64_t s_bstride,
                       const Tensor& w_s2w, int64_t groups, int64_t hidden,
                       at::TensorList bn, double eps, int64_t hidden_chunk,
@@ -183,6 +210,8 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
   m.def("resize_bilinear(Tensor x, int scale, Tensor(a!) out) -> ()");
   m.def("patch_invres(Tensor x, Tensor w, int hidden, Tensor[] bn, float eps, "
         "int band, Tensor(a!) out) -> ()");
+  m.def("patch_invres_v01(Tensor x, Tensor w, int w_stride, int hidden, Tensor[] bn, "
+        "float eps, int band, Tensor(a!) out) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {
@@ -193,4 +222,5 @@ TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {
   m.impl("mbconv_expand_dw", &mbconv_expand_dw);
   m.impl("resize_bilinear", &resize_bilinear);
   m.impl("patch_invres", &patch_invres);
+  m.impl("patch_invres_v01", &patch_invres_v01);
 }

@@ -81,4 +81,14 @@ cudaError_t launch_patch_invres(DType dt, const void* x, const void* wmap,
                                 int hidden, int out_ch, int band,
                                 cudaStream_t stream);
 
+// K7. As K2 with the v0_1 semantics: a depthwise halo pixel is expanded
+// with its owner patch's w1. wmap (B, fh, fw, wstride), each patch's first P
+// entries its weights; H, W >= 2.
+cudaError_t launch_patch_invres_v01(DType dt, const void* x, const void* wmap,
+                                    int64_t wstride, BNParams bn1, BNParams bn2,
+                                    BNParams bn3, float eps, void* out, int batch,
+                                    int cin, int height, int width, int fh, int fw,
+                                    int hidden, int out_ch, int band,
+                                    cudaStream_t stream);
+
 }  // namespace hyperseg

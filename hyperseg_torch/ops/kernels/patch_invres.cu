@@ -44,6 +44,21 @@
 // of ~100 KB, two to an SM. Bound as K1's stages 2-3: operations on the
 // CUDA cores in float32; bytes (x, w, out once) in bfloat16 against the
 // tensor cores.
+//
+// K7: the v0_1 inverted residual from given per-patch weights, NCHW.
+//
+// Replaces hyperseg_tpu/ops/pallas/patch_invres.py:784
+// (patch_inverted_residual_v01). The same arithmetic and blocks as K2, with
+// one difference: v0_1 folds each stage back to the full map, so a halo
+// pixel of the hidden map is its owner patch's expand, made with the owner's
+// w1 (the neighbour above, below, beside, or diagonal), not this patch's.
+// The block keeps only its own patch's weights in shared memory; a halo
+// pixel owned by another patch reads that patch's w1 rows from the weight
+// map in device memory (a level's map is a few MB, resident in the 50 MB L2),
+// applies bn1's scale after the sum, and lands in the same hidden tile. A
+// reflected pixel at the image border is owned by the patch it reflects
+// into. The map may be the first P entries of wider rows (`wstride`), as
+// the v0_1 weight mapper's heads leave it.
 #include "common.cuh"
 #include "kernels.h"
 
@@ -156,27 +171,73 @@ struct Unit {
   __device__ void expand(const float* xs, float* hs, int n, int c0, int nc) const {
     for (int i = threadIdx.x; i < (nc / kHT) * n; i += blockDim.x) {
       const int t = i / n, r = i - t * n;
-      const float* wc = w1 + c0 + t * kHT;
       float a[kHT];
-#pragma unroll
-      for (int j = 0; j < kHT; ++j) a[j] = 0.f;
-#pragma unroll 4
-      for (int c = 0; c < cin; ++c) {
-        const float v = xs[c * n + r];
-        const float4 wa = *reinterpret_cast<const float4*>(wc + c * hp);
-        const float4 wb = *reinterpret_cast<const float4*>(wc + c * hp + 4);
-        a[0] = fmaf(wa.x, v, a[0]);
-        a[1] = fmaf(wa.y, v, a[1]);
-        a[2] = fmaf(wa.z, v, a[2]);
-        a[3] = fmaf(wa.w, v, a[3]);
-        a[4] = fmaf(wb.x, v, a[4]);
-        a[5] = fmaf(wb.y, v, a[5]);
-        a[6] = fmaf(wb.z, v, a[6]);
-        a[7] = fmaf(wb.w, v, a[7]);
-      }
+      expand_shared(xs + r, n, c0 + t * kHT, a);
 #pragma unroll
       for (int j = 0; j < kHT; ++j)
         hs[(t * kHT + j) * n + r] = relu6(a[j] + b1[c0 + t * kHT + j]);
+    }
+  }
+
+  // a[j] = (s1-scaled w1 . x) of hidden channel h0 + j at the pixel whose
+  // cin values are xr[c * n].
+  __device__ void expand_shared(const float* xr, int n, int h0, float* a) const {
+    const float* wc = w1 + h0;
+#pragma unroll
+    for (int j = 0; j < kHT; ++j) a[j] = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < cin; ++c) {
+      const float v = xr[c * n];
+      const float4 wa = *reinterpret_cast<const float4*>(wc + c * hp);
+      const float4 wb = *reinterpret_cast<const float4*>(wc + c * hp + 4);
+      a[0] = fmaf(wa.x, v, a[0]);
+      a[1] = fmaf(wa.y, v, a[1]);
+      a[2] = fmaf(wa.z, v, a[2]);
+      a[3] = fmaf(wa.w, v, a[3]);
+      a[4] = fmaf(wb.x, v, a[4]);
+      a[5] = fmaf(wb.y, v, a[5]);
+      a[6] = fmaf(wb.z, v, a[6]);
+      a[7] = fmaf(wb.w, v, a[7]);
+    }
+  }
+
+  // K7's expand: relu6(bn1(expand)) of all hidden channels at the n pixels
+  // of xs [cin][n], rows `row` pixels wide, whose top-left pixel is map
+  // pixel (y0, x0) before the border reflect. A pixel owned by this patch
+  // (fy, fx) takes the shared w1 as `expand` does; any other pixel its
+  // owner's w1 (hidden, cin), read from wimg, the image's weight map of
+  // `wstride` entries per patch.
+  template <typename T>
+  __device__ void expand_v01(const float* xs, float* hs, int n, int row, const T* wimg,
+                             int64_t wstride, int fy, int fx, int y0, int x0, int height,
+                             int width, int ph, int pw, int fw) const {
+    for (int i = threadIdx.x; i < (hp / kHT) * n; i += blockDim.x) {
+      const int t = i / n, r = i - t * n;
+      const int yy = reflect(y0 + r / row, height), xx = reflect(x0 + r % row, width);
+      const int oy = yy / ph, ox = xx / pw;
+      float a[kHT];
+      if (oy == fy && ox == fx) {
+        expand_shared(xs + r, n, t * kHT, a);
+      } else {
+        // rows past `hidden` (padding channels) re-read the last row and
+        // are dropped by a zero scale
+        const T* wo = wimg + ((int64_t)oy * fw + ox) * wstride;
+        const T* wr[kHT];
+#pragma unroll
+        for (int j = 0; j < kHT; ++j) {
+          wr[j] = wo + (int64_t)min(t * kHT + j, hidden - 1) * cin;
+          a[j] = 0.f;
+        }
+        for (int c = 0; c < cin; ++c) {
+          const float v = xs[c * n + r];
+#pragma unroll
+          for (int j = 0; j < kHT; ++j) a[j] = fmaf(to_f(wr[j][c]), v, a[j]);
+        }
+#pragma unroll
+        for (int j = 0; j < kHT; ++j) a[j] *= t * kHT + j < hidden ? s1[t * kHT + j] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kHT; ++j) hs[(t * kHT + j) * n + r] = relu6(a[j] + b1[t * kHT + j]);
     }
   }
 
@@ -372,9 +433,11 @@ cudaError_t launch(const void* x, const void* s, int64_t s_bstride,
   return cudaSuccess;
 }
 
-template <typename T>
+// K2, and K7 with kV01: wmap holds `wstride` entries per patch, the first P
+// of them the patch's weights.
+template <typename T, bool kV01>
 __global__ void __launch_bounds__(256, 2)
-patch_invres_kernel(const T* __restrict__ x, const T* __restrict__ wmap,
+patch_invres_kernel(const T* __restrict__ x, const T* __restrict__ wmap, int64_t wstride,
                     BNParams bn1, BNParams bn2, BNParams bn3, float eps,
                     T* __restrict__ out, int cin, int height, int width, int fh,
                     int fw, int hidden, int out_ch, int band) {
@@ -398,12 +461,18 @@ patch_invres_kernel(const T* __restrict__ x, const T* __restrict__ wmap,
   __syncthreads();
 
   // 1. this patch's weights, contiguous in the map, BN scales folded in
-  const T* wp = wmap + ((size_t)(b * fh + fy) * fw + fx) * p;
+  const T* wimg = wmap + (int64_t)b * fh * fw * wstride;
+  const T* wp = wimg + ((int64_t)fy * fw + fx) * wstride;
   for (int q = tid; q < p; q += nt) u.put(q, to_f(wp[q]));
   __syncthreads();
 
-  // 2. expand + bn1 + relu6 of all hidden channels, halo rows included
-  u.expand(xs, hs, nb, 0, u.hp);
+  // 2. expand + bn1 + relu6 of all hidden channels, halo included: K2 with
+  // this patch's w1 throughout, K7 with each pixel's owner's
+  if (kV01)
+    u.expand_v01(xs, hs, nb, hw, wimg, wstride, fy, fx, fy * ph + r0 - 1, fx * pw - 1,
+                 height, width, ph, pw, fw);
+  else
+    u.expand(xs, hs, nb, 0, u.hp);
   __syncthreads();
 
   // 3. depthwise + project + bn3 (+ x), a pixel at a time
@@ -420,17 +489,17 @@ patch_invres_kernel(const T* __restrict__ x, const T* __restrict__ wmap,
   }
 }
 
-template <typename T>
-cudaError_t launch_k2(const void* x, const void* wmap, BNParams bn1, BNParams bn2,
-                      BNParams bn3, float eps, void* out, int batch, int cin,
-                      int height, int width, int fh, int fw, int hidden,
+template <typename T, bool kV01>
+cudaError_t launch_k2(const void* x, const void* wmap, int64_t wstride, BNParams bn1,
+                      BNParams bn2, BNParams bn3, float eps, void* out, int batch,
+                      int cin, int height, int width, int fh, int fw, int hidden,
                       int out_ch, int band, cudaStream_t stream) {
   const int ph = height / fh, pw = width / fw;
   const int nb = (band + 2) * (pw + 2);
   const int hp = (hidden + kHT - 1) / kHT * kHT, op = (out_ch + 3) / 4 * 4;
   const size_t smem = sizeof(float) * ((size_t)(cin + 9 + 2) * hp + hp * op + op +
                                        2 * hidden + out_ch + (size_t)(cin + hp) * nb);
-  auto kern = patch_invres_kernel<T>;
+  auto kern = patch_invres_kernel<T, kV01>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   // the whole shared carveout: the plan sizes blocks so that two fit
@@ -439,8 +508,8 @@ cudaError_t launch_k2(const void* x, const void* wmap, BNParams bn1, BNParams bn
                                (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   kern<<<dim3(fh * fw * (ph / band), batch), 256, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wmap), bn1, bn2, bn3, eps,
-      static_cast<T*>(out), cin, height, width, fh, fw, hidden, out_ch, band);
+      static_cast<const T*>(x), static_cast<const T*>(wmap), wstride, bn1, bn2, bn3,
+      eps, static_cast<T*>(out), cin, height, width, fh, fw, hidden, out_ch, band);
   return cudaSuccess;
 }
 
@@ -454,12 +523,30 @@ cudaError_t launch_patch_invres(DType dt, const void* x, const void* wmap,
                                 cudaStream_t stream) {
   if (out_ch > kMaxOut || band < 1 || (height / fh) % band || batch > 65535)
     return cudaErrorInvalidValue;
+  const int64_t p = hyper_params(cin, hidden, out_ch);
   if (dt == DType::kFloat32)
-    return launch_k2<float>(x, wmap, bn1, bn2, bn3, eps, out, batch, cin, height,
-                            width, fh, fw, hidden, out_ch, band, stream);
-  return launch_k2<__nv_bfloat16>(x, wmap, bn1, bn2, bn3, eps, out, batch, cin,
-                                  height, width, fh, fw, hidden, out_ch, band,
-                                  stream);
+    return launch_k2<float, false>(x, wmap, p, bn1, bn2, bn3, eps, out, batch, cin,
+                                   height, width, fh, fw, hidden, out_ch, band, stream);
+  return launch_k2<__nv_bfloat16, false>(x, wmap, p, bn1, bn2, bn3, eps, out, batch,
+                                         cin, height, width, fh, fw, hidden, out_ch,
+                                         band, stream);
+}
+
+cudaError_t launch_patch_invres_v01(DType dt, const void* x, const void* wmap,
+                                    int64_t wstride, BNParams bn1, BNParams bn2,
+                                    BNParams bn3, float eps, void* out, int batch,
+                                    int cin, int height, int width, int fh, int fw,
+                                    int hidden, int out_ch, int band,
+                                    cudaStream_t stream) {
+  if (out_ch > kMaxOut || band < 1 || (height / fh) % band || batch > 65535 ||
+      wstride < hyper_params(cin, hidden, out_ch) || height < 2 || width < 2)
+    return cudaErrorInvalidValue;
+  if (dt == DType::kFloat32)
+    return launch_k2<float, true>(x, wmap, wstride, bn1, bn2, bn3, eps, out, batch, cin,
+                                  height, width, fh, fw, hidden, out_ch, band, stream);
+  return launch_k2<__nv_bfloat16, true>(x, wmap, wstride, bn1, bn2, bn3, eps, out, batch,
+                                        cin, height, width, fh, fw, hidden, out_ch, band,
+                                        stream);
 }
 
 cudaError_t launch_patch_invres_s2w(DType dt, const void* x, const void* s,

@@ -1,9 +1,12 @@
-"""K1 and K2: the patch-wise hyper inverted residual, on the card.
+"""K1, K2 and K7: the patch-wise hyper inverted residuals, on the card.
 
 K1 `patch_invres_s2w` replaces hyperseg_tpu/ops/pallas/patch_invres.py:488
 `patch_inverted_residual_s2w_fused`: signal2weights and the unit, fused.
 K2 `patch_invres` replaces patch_invres.py:870 `patch_inverted_residual_fused`:
-the unit from a weight map made beforehand. Source: patch_invres.cu.
+the unit from a weight map made beforehand. K7 `patch_invres_v01` replaces
+patch_invres.py:784 `patch_inverted_residual_v01`: the v0_1 unit from a
+weight map, whose depthwise halo is the neighbouring patches' expand outputs.
+Source: patch_invres.cu.
 
 K1 holds a whole patch in one block; a patch of more pixels than threads
 keeps its whole hidden map in shared memory, which at HyperSeg-L's level 5
@@ -44,6 +47,13 @@ expands the band and its halo rows with this patch's w1, then runs
 depthwise + project one output pixel per thread at a time. The halo rows are
 expanded again by the neighbouring band: 10 rows expanded for 8 kept at
 32x32 patches. Bound: as K1's expand and project stages.
+
+K7: K2's blocks and plan, with each halo pixel expanded with the w1 of the
+patch that owns it, read from the weight map in device memory (the block
+holds only its own patch's weights). HyperSeg-L VOC runs it at 4x4 to 32x32
+patches; a 4x4 patch is one block of 16 pixels and 20 halo pixels, which
+leaves most of the block's threads idle in depthwise + project (a block
+over several patches is the remedy, not taken yet).
 """
 
 from __future__ import annotations
@@ -150,6 +160,64 @@ def patch_invres(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
     out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
     build.kernels().patch_invres(x, w, hidden, [*bn1, *bn2, *bn3], float(eps), band, out)
     LAUNCHES["patch_invres"] += 1
+    return out
+
+
+def patch_invres_v01_plain(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
+    """Plain twin of K7: the eager v0_1 unit (ops/patch.py) in float32 on
+    the weight map w (B, fh, fw, P)."""
+    out = P.patch_inverted_residual_v01(x.float(), w.float().permute(0, 3, 1, 2),
+                                        hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2,
+                                        bn3=bn3, eps=eps)
+    return out.to(x.dtype)
+
+
+def map_row_stride(w):
+    """Entries per patch of a (B, fh, fw, P) weight map whose patches' P
+    weights are contiguous and evenly spaced (the first P of wider rows, as
+    the v0_1 weight mapper's heads leave them), or None."""
+    if w.dim() != 4 or w.stride(3) != 1:
+        return None
+    row = next((w.stride(d) for d in (2, 1, 0) if w.shape[d] > 1), w.shape[3])
+    want = (w.shape[1] * w.shape[2] * row, w.shape[2] * row, row)
+    ok = row >= w.shape[3] and all(n == 1 or st == e for n, st, e in
+                                   zip(w.shape[:3], w.stride()[:3], want))
+    return row if ok else None
+
+
+def patch_invres_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
+    """x: (B, Cin, H, W); w: (B, fh, fw, P) per-patch weights laid out as
+    patch_invres's, each patch's P contiguous (the map may be the first P of
+    wider rows); bnN float32. The v0_1 unit: full-map BN, the depthwise halo
+    the neighbouring patches' expand outputs, reflect at the image border,
+    relu6, + x when Cin == out_ch. Returns (B, out_ch, H, W)."""
+    if x.device.type == "cpu":
+        return patch_invres_v01_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1,
+                                      bn2=bn2, bn3=bn3, eps=eps)
+    name = "patch_invres_v01"
+    build.check_activation(f"{name} x", x)
+    b, cin, h, wd = x.shape
+    if out_ch > MAX_OUT:
+        raise ValueError(f"{name}: {out_ch} output channels; at most {MAX_OUT}")
+    p = hyper_params(cin, hidden, out_ch)
+    row = map_row_stride(w)
+    if (w.device != x.device or w.dtype != x.dtype or row is None or w.shape[0] != b
+            or w.shape[3] != p):
+        raise ValueError(f"{name}: weight map {tuple(w.shape)} {w.dtype} is not a "
+                         f"(B, fh, fw, {p}) map of evenly spaced patches like x")
+    _, fh, fw, _ = w.shape
+    if h % fh or wd % fw or h < 2 or wd < 2:
+        raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches")
+    for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
+        build.check_bn(f"{name} bn", bn, c)
+    band, nbytes = k2_plan(cin, hidden, out_ch, h // fh, wd // fw)
+    if nbytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: needs {nbytes} B of shared memory per band, "
+                         f"more than {SMEM_LIMIT}")
+    out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
+    build.kernels().patch_invres_v01(x, w, row, hidden, [*bn1, *bn2, *bn3], float(eps),
+                                     band, out)
+    LAUNCHES["patch_invres_v01"] += 1
     return out
 
 

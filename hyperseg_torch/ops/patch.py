@@ -3,7 +3,7 @@
 The decoder generates a weight map on the stride-32 grid and applies it
 patch-wise: the map is split into an (fh, fw) grid of (ph, pw) patches, each
 convolved with its own filters. These functions are the CPU path of the
-decoder and the oracle of the fused kernel (ops/kernels/patch_invres.py).
+decoder and the oracle of the fused kernels (ops/kernels/patch_invres.py).
 
 Layouts:
   * maps are NCHW (B, C, H, W);
@@ -122,3 +122,28 @@ def patch_inverted_residual(x, w, *, hidden, out_ch, kernel, bn1, bn2, bn3,
     if cin == out_ch:
         out = out + x
     return out
+
+
+def patch_inverted_residual_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
+    """The v0_1 inverted residual from per-patch weights (eval BN,
+    hyperseg_v0_1.py:205-237): relu6(bn1(x.w1)) -> relu6(bn2(dw3x3(., w2)))
+    -> bn3(.w3), plus x when Cin == out_ch. Unlike the v1_0 unit, each stage
+    folds back to the full map: BN runs on the map, and the depthwise of a
+    patch reads its neighbours' expand outputs, made with their own w1, as
+    its halo; only the image border reflects.
+
+    x: (B, Cin, H, W); w: (B, P, fh, fw) laid out as in
+    patch_inverted_residual; bnN = (weight, bias, mean, var)."""
+    cin = x.shape[1]
+    fh, fw = w.shape[2], w.shape[3]
+    r1 = cin * hidden
+    r2 = r1 + hidden * 9
+    r3 = r2 + hidden * out_ch
+    h = unblock_patches(patch_pointwise(block_patches(x, fh, fw), w[:, :r1], hidden))
+    h = F.relu6(F.batch_norm(h, *bn1, eps=eps))
+    h = extract_patches_with_halo(h, fh, fw, (1, 1))
+    h = unblock_patches(patch_depthwise_valid(h, w[:, r1:r2], (3, 3)))
+    h = F.relu6(F.batch_norm(h, *bn2, eps=eps))
+    h = unblock_patches(patch_pointwise(block_patches(h, fh, fw), w[:, r2:r3], out_ch))
+    out = F.batch_norm(h, *bn3, eps=eps)
+    return out + x if cin == out_ch else out

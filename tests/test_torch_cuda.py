@@ -34,6 +34,15 @@ K5_CASES = [  # b, cin, mid, h, w, stride
     (1, 24, 144, 33, 70, 1),        # blocks 3-4, ragged tiles
     (1, 320, 1920, 16, 32, 1),      # block 22
     (1, 40, 240, 17, 31, 2),        # block 8 at odd sizes
+    (1, 384, 2304, 16, 16, 1),      # B3 block 25 at 512x512
+]
+K7_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out: HyperSeg-L VOC levels 2-5, ...
+    (8, 16, 16, 4, 4, 48, 96, 12),  # level 2 at 512x512, batch 8
+    (1, 3, 3, 8, 8, 22, 44, 8),
+    (2, 2, 3, 16, 16, 16, 32, 6),
+    (1, 2, 2, 32, 32, 11, 22, 21),
+    (1, 1, 3, 8, 8, 12, 24, 12),    # a single patch row, residual
+    (1, 3, 1, 8, 16, 12, 24, 7),    # a single patch column
 ]
 K6_CASES = [  # b, c, h, w, scale
     (2, 19, 64, 128, 2), (1, 16, 24, 32, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4)]
@@ -51,8 +60,8 @@ def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups):
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
     """Each CUDA kernel against its plain twin on the card, f32 and bf16:
-    K3, K4a, K4b, K1, and K2, K5, K6 at HyperSeg-L's and -M's widths and at
-    ragged sizes."""
+    K3, K4a, K4b, K1, and K2, K5, K6, K7 at HyperSeg-M's, -L's and -L VOC's
+    widths (B3's among them) and at ragged sizes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -73,6 +82,8 @@ def test_kernels_match_twins_on_card():
 
         x, w = r(2, 3, 64, 128), r(32, 3, 3, 3, scale=0.3)
         close(K3.stem(x, w, bn(32)), K3.stem_plain(x, w, bn(32)))
+        w = r(40, 3, 3, 3, scale=0.3)     # B3's 40 stem channels
+        close(K3.stem(x, w, bn(40)), K3.stem_plain(x, w, bn(40)))
         x, w = r(2, 16, 32, 64), r(16, 1, 3, 3, scale=0.3)
         h = K4.mbconv_dw(x, w, bn(16))
         close(h, K4.mbconv_dw_plain(x, w, bn(16)))
@@ -80,6 +91,9 @@ def test_kernels_match_twins_on_card():
         wp = r(16, 16, 1, 1, scale=0.3)
         close(K4.mbconv_project(h, se, wp, bn(16), x),
               K4.mbconv_project_plain(h, se, wp, bn(16), x))
+        h, se = r(2, 192, 32, 64), torch.rand(2, 192, generator=g).to(dev)
+        wp = r(32, 192, 1, 1, scale=192 ** -0.5)   # B3 blocks 3-4: 32 outputs
+        close(K4.mbconv_project(h, se, wp, bn(32)), K4.mbconv_project_plain(h, se, wp, bn(32)))
         for case in K1_CASES:
             b, fh, fw, ph, pw, cin, hidden, out, sig, groups = case
             xs, ss, ws, bns = _k1_inputs(5, *case)
@@ -105,3 +119,11 @@ def test_kernels_match_twins_on_card():
             xs = r(b, c, h, w)
             close(K6.resize_bilinear(xs, (s * h, s * w)),
                   K6.resize_bilinear_plain(xs, (s * h, s * w)))
+        for b, fh, fw, ph, pw, cin, hidden, out in K7_CASES:
+            p = K1.hyper_params(cin, hidden, out)
+            xs, ws = r(b, cin, fh * ph, fw * pw), r(b, fh, fw, p + 5, scale=0.1)
+            args = dict(hidden=hidden, out_ch=out, bn1=bn(hidden), bn2=bn(hidden),
+                        bn3=bn(out))
+            want = K1.patch_invres_v01_plain(xs, ws[..., :p], **args)
+            close(K1.patch_invres_v01(xs, ws[..., :p], **args), want)   # rows of p + 5
+            close(K1.patch_invres_v01(xs, ws[..., :p].contiguous(), **args), want)

@@ -6,11 +6,13 @@ tensors load straight into the port's B0 model (the config of
 test_golden.py); that test needs no JAX.
 
 The full-config goldens (`slow`: full resolution on the CPU) hold the port's
-HyperSeg-M Cityscapes and HyperSeg-L CamVid against the reference's logits in
-tests/golden/{hyperseg_m_cityscapes,hyperseg_l_camvid}.npz. Their parameters
+HyperSeg-M Cityscapes, HyperSeg-L CamVid and HyperSeg-L VOC against the
+reference's logits in
+tests/golden/{hyperseg_m_cityscapes,hyperseg_l_camvid,hyperseg_l_voc}.npz. Their parameters
 are rebuilt by make_goldens.build_ours (JAX, PRNGKey(0), the artifact's BN
 statistics, fp16-rounded) and cross with jax_to_torch_state_dict."""
 
+import importlib
 import os
 import sys
 
@@ -42,7 +44,8 @@ def test_golden_b0_logits():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["hyperseg_m_cityscapes", "hyperseg_l_camvid"])
+@pytest.mark.parametrize("name", ["hyperseg_m_cityscapes", "hyperseg_l_camvid",
+                                  "hyperseg_l_voc"])
 def test_config_golden(name):
     """The port's model of a shipped config, on the golden's parameters and
     input at the benchmark resolution, against the reference's logits, with
@@ -56,7 +59,8 @@ def test_config_golden(name):
                 if k.startswith("bn::")}
     _, params, x = G.build_ours(name, bn_stats=bn_stats)
     cfg = G.CONFIGS[name]
-    model = V1.hyperseg_efficientnet(cfg["backbone"], device="cpu", **cfg["kw"])
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg['module']}")
+    model = factory.hyperseg_efficientnet(cfg["backbone"], device="cpu", **cfg["kw"])
     model.load_state_dict(jax_to_torch_state_dict(params), strict=True)
     with torch.no_grad():
         got = model(torch.from_numpy(x.transpose(0, 3, 1, 2).copy())).numpy()

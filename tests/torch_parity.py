@@ -20,6 +20,11 @@ HYPERSEG_L_KW = dict(
     expand_ratio=2, with_out_fc=False, decoder_dropout=None,
     weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12,
 )
+# HyperSeg-L PASCAL VOC, 21 classes, 512x512 (tests/golden/make_goldens.py:62-69)
+HYPERSEG_L_VOC_KW = dict(
+    levels=3, kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2, with_out_fc=False,
+    decoder_dropout=None, weight_groups=16, num_classes=21,
+)
 
 
 def nchw(a):
