@@ -304,7 +304,8 @@ def check_calls(model, calls, dtype, rows):
         lib, lib_fn = c.library()
         lib_ms = cuda_ms(lib_fn) if lib_fn else None
         b_ms, by = bound_ms(c.moved(), c.flops(), dtype)
-        print(f"time   {model} {c.name:17s} kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+        print(f"time   {model} {c.name:17s} x {tuple(c.args[0].shape)} "
+              f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
               f"{lib or 'library'} {lib_ms if lib_ms is None else round(lib_ms, 4)} ms  "
               f"bound {b_ms:.4f} ms ({by})", flush=True)
         row["calls"] += 1

@@ -10,6 +10,7 @@
 #include <c10/cuda/CUDAStream.h>
 #include <torch/library.h>
 
+#include <cstring>
 #include <optional>
 
 #include "kernels.h"
@@ -47,6 +48,21 @@ cudaStream_t stream_of(const Tensor& t) {
   return c10::cuda::getCurrentCUDAStream(t.device().index()).stream();
 }
 
+// A shared-memory layout of N ints, as the Python plan gives it.
+template <typename Smem, size_t N>
+Smem smem_of(at::IntArrayRef layout, const char* name) {
+  static_assert(sizeof(Smem) == N * sizeof(int), "a layout is N ints");
+  TORCH_CHECK(layout.size() == N, name, ": layout takes ", N, " ints");
+  int v[N];
+  for (size_t i = 0; i < N; ++i) {
+    TORCH_CHECK(layout[i] >= 0 && layout[i] <= INT32_MAX, name, ": layout out of range");
+    v[i] = static_cast<int>(layout[i]);
+  }
+  Smem s;
+  std::memcpy(&s, v, sizeof(s));
+  return s;
+}
+
 void stem(const Tensor& x, const Tensor& w, const Tensor& g, const Tensor& b,
           const Tensor& m, const Tensor& v, double eps, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
@@ -76,7 +92,7 @@ void mbconv_dw(const Tensor& x, const Tensor& w, const Tensor& g, const Tensor& 
 void mbconv_project(const Tensor& h, const Tensor& se, const Tensor& w,
                     const Tensor& g, const Tensor& b, const Tensor& m,
                     const Tensor& v, const std::optional<Tensor>& residual,
-                    double eps, Tensor& out) {
+                    double eps, int64_t tile, at::IntArrayRef layout, Tensor& out) {
   c10::cuda::CUDAGuard guard(h.device());
   const DType dt = dtype_of(h);
   check_like(h, h, "mbconv_project h");
@@ -92,13 +108,15 @@ void mbconv_project(const Tensor& h, const Tensor& se, const Tensor& w,
   C10_CUDA_CHECK(hyperseg::launch_mbconv_project(
       dt, h.data_ptr(), se.data_ptr<float>(), w.data_ptr(), bn_of(g, b, m, v), res,
       static_cast<float>(eps), out.data_ptr(), h.size(0), h.size(1), w.size(0),
-      h.size(2) * h.size(3), stream_of(h)));
+      h.size(2) * h.size(3), tile,
+      smem_of<hyperseg::ProjectSmem, 6>(layout, "mbconv_project"), stream_of(h)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void mbconv_expand_dw(const Tensor& x, const Tensor& w_expand, at::TensorList bn,
                       const Tensor& w_dw, double eps, int64_t stride, int64_t pad_t,
-                      int64_t pad_l, int64_t tile_h, int64_t tile_w, Tensor& out) {
+                      int64_t pad_l, int64_t tile_h, int64_t tile_w, int64_t channels,
+                      at::IntArrayRef layout, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "mbconv_expand_dw x");
@@ -110,7 +128,8 @@ void mbconv_expand_dw(const Tensor& x, const Tensor& w_expand, at::TensorList bn
       dt, x.data_ptr(), w_expand.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
       w_dw.data_ptr(), bn_of(bn[4], bn[5], bn[6], bn[7]), static_cast<float>(eps),
       out.data_ptr(), x.size(0), x.size(1), out.size(1), x.size(2), x.size(3),
-      out.size(2), out.size(3), stride, pad_t, pad_l, tile_h, tile_w, stream_of(x)));
+      out.size(2), out.size(3), stride, pad_t, pad_l, tile_h, tile_w, channels,
+      smem_of<hyperseg::ExpandSmem, 7>(layout, "mbconv_expand_dw"), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -200,13 +219,13 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
         "Tensor bn_mean, Tensor bn_var, float eps, Tensor(a!) out) -> ()");
   m.def("mbconv_project(Tensor h, Tensor se, Tensor weight, Tensor bn_weight, "
         "Tensor bn_bias, Tensor bn_mean, Tensor bn_var, Tensor? residual, "
-        "float eps, Tensor(a!) out) -> ()");
+        "float eps, int tile, int[] layout, Tensor(a!) out) -> ()");
   m.def("patch_invres_s2w(Tensor x, Tensor s, int s_batch_stride, Tensor w_s2w, "
         "int groups, int hidden, Tensor[] bn, float eps, int hidden_chunk, "
         "int threads, Tensor(a!) out) -> ()");
   m.def("mbconv_expand_dw(Tensor x, Tensor w_expand, Tensor[] bn, Tensor w_dw, "
         "float eps, int stride, int pad_t, int pad_l, int tile_h, int tile_w, "
-        "Tensor(a!) out) -> ()");
+        "int channels, int[] layout, Tensor(a!) out) -> ()");
   m.def("resize_bilinear(Tensor x, int scale, Tensor(a!) out) -> ()");
   m.def("patch_invres(Tensor x, Tensor w, int hidden, Tensor[] bn, float eps, "
         "int band, Tensor(a!) out) -> ()");

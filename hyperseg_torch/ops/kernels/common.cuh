@@ -19,11 +19,64 @@ __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
 }
 
 __device__ __forceinline__ float swish(float v) { return v / (1.f + expf(-v)); }
+// swish as v / (1 + 2^(-v log2 e)) by ex2.approx.ftz and rcp.approx.ftz: a
+// relative error under 1e-5 wherever swish is a normal float32 (-0 below
+// v = -88), far under a bfloat16 output's rounding. Used by the bfloat16
+// kernels, where the exact swish's expf and IEEE division took much of the
+// time; the ftz forms also skip the subnormal handling of __expf and
+// __fdividef.
+__device__ __forceinline__ float swish_fast(float v) {
+  float e, r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-1.4426950408889634f * v));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(1.f + e));
+  return v * r;
+}
 __device__ __forceinline__ float relu6(float v) { return fminf(fmaxf(v, 0.f), 6.f); }
 
 // Eval BN folded to y = x * scale + bias, in float32.
 __device__ __forceinline__ float bn_scale(const float* w, const float* v, int c, float eps) {
   return w[c] * rsqrtf(v[c] + eps);
+}
+
+// sm_80+ building blocks: cp.async into shared memory, ldmatrix, and the
+// bf16 tensor-core product mma.m16n8k16 with float32 sums.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; bytes [src_bytes, 16) are zero-filled, and
+// src_bytes = 0 reads nothing (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix l / 8.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c (16 x 8, float32) += a (16 x 16, bf16, row-major fragment) * b (16 x 8,
+// bf16, column-major fragment).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 }  // namespace hyperseg

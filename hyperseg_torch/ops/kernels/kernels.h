@@ -32,25 +32,39 @@ cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w,
                              int channels, int height, int width,
                              cudaStream_t stream);
 
+// Shared memory of one K4b block as mbconv.py's project_plan lays it out:
+// pitches in elements, offsets and total in bytes.
+struct ProjectSmem {
+  int row, out_row, w_row, w_off, c_off, total;
+};
+
 // K4b. h (B, cin, hw); se float32 (B, cin); w (cout, cin); residual
-// (B, cout, hw) or null; out (B, cout, hw). cout <= 32.
+// (B, cout, hw) or null; out (B, cout, hw). cout <= 32; `tile` pixels a
+// block, 64 or 128.
 cudaError_t launch_mbconv_project(DType dt, const void* h, const float* se,
                                   const void* w, BNParams bn,
                                   const void* residual, float eps, void* out,
-                                  int batch, int cin, int cout, int hw,
-                                  cudaStream_t stream);
+                                  int batch, int cin, int cout, int hw, int tile,
+                                  ProjectSmem smem, cudaStream_t stream);
+
+// Shared memory of one K5 block as mbconv.py's expand_dw_layout lays it
+// out: pitches and the stage in elements, offsets and total in bytes.
+struct ExpandSmem {
+  int x_row, w_row, stage, stages, c_off, t_off, total;
+};
 
 // K5. x (B, cin, H, W); w_expand (mid, cin); w_dw (mid, 3, 3); out (B, mid,
 // out_h, out_w): depthwise stride 1 or 2 with zero pad (pad_t, pad_l) at the
 // top/left (the rest of the TF-SAME pad is implied by out_h, out_w). Tiles
-// of tile_h x tile_w output pixels; the tile's input window,
-// ((tile_h-1)*stride+3) x ((tile_w-1)*stride+3), holds at most 512 pixels.
+// of tile_h x tile_w output pixels (tile_w 8, 16 or 32) and `channels` (32
+// or 64) expanded channels a block, as mbconv.py's expand_dw_plan gives them.
 cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expand,
                                     BNParams bn0, const void* w_dw, BNParams bn1,
                                     float eps, void* out, int batch, int cin,
                                     int mid, int height, int width, int out_h,
                                     int out_w, int stride, int pad_t, int pad_l,
-                                    int tile_h, int tile_w, cudaStream_t stream);
+                                    int tile_h, int tile_w, int channels,
+                                    ExpandSmem smem, cudaStream_t stream);
 
 // K6. x (planes, H, W) -> out (planes, scale*H, scale*W); scale 2, 3 or 4.
 cudaError_t launch_resize_bilinear(DType dt, const void* x, void* out,

@@ -7,23 +7,35 @@
 //   out[b, o] = sum_c (W[o, c] * bn_scale[o] * se[b, c]) * h[b, c] + bn_bias[o]
 //               (+ residual[b, o]); the per-image weight is folded here.
 //
-// Bound: bytes, for both (9 MACs per output element; cin MACs per input
-// element). Each thread owns one pixel of one plane (K4a) or one pixel of
-// all output channels (K4b), so loads and stores are coalesced along W; the
-// nine K4a taps of neighbouring threads overlap and hit L1.
+// Bound: bytes, for both: 9 MACs per K4a output element, at most cout <= 32
+// MACs per K4b input element, far under the card's ~295 flops per byte.
+// K4a: each thread owns one pixel of one plane, loads and stores coalesced
+// along W; the nine taps of neighbouring threads overlap and hit L1.
+// K4b is a per-image GEMM whose time went to latency on an under-filled card
+// (one pixel a thread, serial 2-byte loads per channel). Now a block takes
+// 64 or 128 pixels (the plan fills 132 SMs twice where the map allows),
+// streams the h tile through a 4-stage ring of 16-byte cp.async copies in
+// chunks of 32 channels, and in bfloat16 runs mma.m16n8k16 on it; se[b] is
+// folded into W once per block in float32 and rounded once, bn in float32
+// in the epilogue, which stores 16 bytes a thread along pixels.
 //
 // K5 (expand_dw) replaces mbconv.py:231 (expand_dw_phase):
 //   e = swish(bn0(W_e . x)), zero outside the image (the depthwise pads the
 //   EXPANDED map with zeros, and the expand of a zero pad is swish(bias0),
 //   not 0), then out = swish(bn1(depthwise 3x3, stride 1 or 2, of e)).
 // Bound: bytes in bfloat16 against the tensor cores (cin MACs per expanded
-// element, e.g. 320 at B1 block 22), operations on the CUDA cores where the
-// products run in float32. The expanded map never reaches device memory: a
-// block takes one tile of output pixels and kCC expanded channels, expands
-// the tile's input window (halo included) into shared memory, each thread
-// holding 16 sums for two window pixels in registers, then runs the
-// depthwise with one output pixel of one channel a thread, stores coalesced
-// along W.
+// element, at most 384 on B3), operations in float32, whose expand runs on
+// the CUDA cores. The expanded map never reaches device memory: a block
+// takes one tile of output pixels and 32 or 64 expanded channels, stages the
+// tile's input window (halo included) through a cp.async ring, expands it
+// into shared memory (bfloat16: an mma GEMM; float32: FMAs, same tiling),
+// then runs the depthwise, each thread walking the rows of one column. More
+// channels a block where cin is large and the map small, so one staged
+// window serves more of them. Shared-memory layouts of K4b and K5 come from
+// the plans in mbconv.py, which hand them to the launch.
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
 #include "kernels.h"
 
@@ -32,6 +44,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxOut = 32;
+constexpr size_t kSmemLimit = 232448;  // bytes of shared memory one block may use
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -61,67 +74,183 @@ dw_kernel(const T* __restrict__ x, const T* __restrict__ w, BNParams bn,
   out[(size_t)plane * height * width + pix] = from_f<T>(swish(v));
 }
 
+// K4b: the per-image GEMM out[b] (cout x hw) = Wf[b] (cout x cin) . h[b]
+// (cin x hw), Wf[b] = W . diag(se[b]). A block takes TP pixels of one image
+// and every output channel.
+constexpr int kProjThreads = 128;  // four warps
+constexpr int kProjKC = 32;        // input channels per pipeline stage
+constexpr int kProjStages = 4;     // stages of the cp.async ring
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kVec = 16 / sizeof(T);  // elements of T in one 16-byte copy
+
+// bf16: mma.m16n8k16 with the h tile as A (ldmatrix.trans from its
+// channel-major rows; each warp 16 * TP / 64 pixels) and Wf as B (cout
+// padded to 8 per n-tile); float32: FMAs on the CUDA cores, one pixel and
+// kMaxOut * TP / 128 outputs a thread. Both stage h through the same ring of
+// 16-byte cp.async copies (`vec`: hw a multiple of 16 bytes and aligned
+// pointers), or element by element where a plane's rows are not aligned.
+template <typename T, int TP>
+__global__ void __launch_bounds__(kProjThreads)
 project_kernel(const T* __restrict__ h, const float* __restrict__ se,
                const T* __restrict__ w, BNParams bn, const T* __restrict__ res,
-               float eps, T* __restrict__ out, int cin, int cout, int hw) {
+               float eps, T* __restrict__ out, int cin, int cout, int hw, int vec,
+               ProjectSmem lay) {
+  constexpr bool kMma = !std::is_same<T, float>::value;
+  constexpr int V = kVec<T>;
+  constexpr int MT = TP / 64;                    // bf16: m-tiles of 16 pixels per warp
+  constexpr int G = kProjThreads / TP;           // float32: threads per pixel
+  constexpr int CPG = kMaxOut / G;               // float32: outputs per thread
   extern __shared__ float4 smem4[];
-  const int op = (cout + 3) / 4 * 4;
-  float* wf = reinterpret_cast<float*>(smem4);  // [cin][op]: W * bn scale * se[b]
-  float* bias = wf + cin * op;                   // [cout]
-  const int b = blockIdx.y;
-  for (int i = threadIdx.x; i < cin * op; i += blockDim.x) {
-    const int c = i / op, o = i - c * op;
-    wf[i] = o < cout ? to_f(w[o * cin + c]) * bn_scale(bn.w, bn.v, o, eps) * se[b * cin + c]
-                     : 0.f;
-  }
-  for (int o = threadIdx.x; o < cout; o += blockDim.x)
-    bias[o] = bn.b[o] - bn.m[o] * bn_scale(bn.w, bn.v, o, eps);
-  __syncthreads();
+  char* base = reinterpret_cast<char*>(smem4);
+  T* ring = reinterpret_cast<T*>(base);
+  float* otile = reinterpret_cast<float*>(base);  // after the products
+  char* wbase = base + lay.w_off;
+  float* sc = reinterpret_cast<float*>(base + lay.c_off);
+  float* bi = sc + kMaxOut;
 
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= hw) return;
-  float acc[kMaxOut];
+  const int tid = threadIdx.x, b = blockIdx.y, p0 = blockIdx.x * TP;
+  const int nchunks = (cin + kProjKC - 1) / kProjKC, cin_pad = nchunks * kProjKC;
+  const T* hb = h + (size_t)b * cin * hw;
+
+  auto load = [&](int chunk) {
+    T* dst = ring + (size_t)(chunk % kProjStages) * kProjKC * lay.row;
+    for (int i = tid; i < kProjKC * (TP / V); i += kProjThreads) {
+      const int r = i / (TP / V), q = i - r * (TP / V);
+      const int c = chunk * kProjKC + r, p = p0 + q * V;
+      T* d = dst + r * lay.row + q * V;
+      if (vec) {
+        const bool ok = c < cin && p < hw;
+        cp_async16(d, ok ? hb + (size_t)c * hw + p : hb, ok ? 16 : 0);
+      } else {
+        for (int e = 0; e < V; ++e)
+          d[e] = c < cin && p + e < hw ? hb[(size_t)c * hw + p + e] : from_f<T>(0.f);
+      }
+    }
+  };
+  for (int s = 0; s < kProjStages - 1; ++s) {
+    if (s < nchunks) load(s);
+    cp_async_commit();
+  }
+
+  // fold se[b] into W in float32 while the first tiles are in flight; rows
+  // of W are read along cin (coalesced). bf16 rounds the product once.
+  const int rows = kMma ? (cout + 7) / 8 * 8 : kMaxOut;
+  for (int i = tid; i < rows * cin_pad; i += kProjThreads) {
+    const int o = i / cin_pad, c = i - o * cin_pad;
+    const float v = o < cout && c < cin ? to_f(w[o * cin + c]) * se[b * cin + c] : 0.f;
+    if constexpr (kMma)
+      reinterpret_cast<T*>(wbase)[o * lay.w_row + c] = from_f<T>(v);
+    else
+      reinterpret_cast<float*>(wbase)[c * lay.w_row + o] = v;
+  }
+  if (tid < kMaxOut) {
+    const float s = tid < cout ? bn_scale(bn.w, bn.v, tid, eps) : 0.f;
+    sc[tid] = s;
+    bi[tid] = tid < cout ? bn.b[tid] - bn.m[tid] * s : 0.f;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const int ntiles = (cout + 7) / 8;
+  const int p = tid % TP, o0 = tid / TP * CPG;  // float32: this thread's pixel, outputs
+  float acc[MT][kMaxOut / 8][4] = {};
+  float facc[CPG] = {};
+  for (int j = 0; j < nchunks; ++j) {
+    cp_async_wait<kProjStages - 2>();
+    __syncthreads();
+    if (j + kProjStages - 1 < nchunks) load(j + kProjStages - 1);
+    cp_async_commit();
+    const T* st = ring + (size_t)(j % kProjStages) * kProjKC * lay.row;
+    const int k0 = j * kProjKC;
+    if constexpr (kMma) {
+      const T* wsm = reinterpret_cast<const T*>(wbase);
 #pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) acc[o] = 0.f;
-  const T* hp = h + (size_t)b * cin * hw + pix;
-  // kUnroll channels' loads in flight before their products (blocks 2-4
-  // have 96-144 input channels); a tail of fewer channels loads zeros
-  constexpr int kUnroll = 8;
-  for (int c = 0; c < cin; c += kUnroll) {
-    float v[kUnroll];
+      for (int ks = 0; ks < kProjKC / 16; ++ks) {
+        unsigned a[MT][4];
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j)
-      v[j] = c + j < cin ? to_f(hp[(size_t)(c + j) * hw]) : 0.f;
+        for (int mt = 0; mt < MT; ++mt)
+          ldmatrix_x4_trans(a[mt], st + (ks * 16 + (q >> 1) * 8 + r8) * lay.row +
+                                       (warp * MT + mt) * 16 + (q & 1) * 8);
 #pragma unroll
-    for (int j = 0; j < kUnroll; ++j) {
-      if (c + j >= cin) break;
-      const float4* wr = reinterpret_cast<const float4*>(wf + (c + j) * op);
+        for (int nt = 0; nt < kMaxOut / 8; ++nt) {
+          if (nt < ntiles) {
+            const T* wr = wsm + (nt * 8 + g) * lay.w_row + k0 + ks * 16 + 2 * t;
+            const unsigned b0 = *reinterpret_cast<const unsigned*>(wr);
+            const unsigned b1 = *reinterpret_cast<const unsigned*>(wr + 8);
 #pragma unroll
-      for (int o4 = 0; o4 < kMaxOut / 4; ++o4) {
-        if (4 * o4 < op) {
+            for (int mt = 0; mt < MT; ++mt) mma_bf16(acc[mt][nt], a[mt], b0, b1);
+          }
+        }
+      }
+    } else {
+      const float* wf = reinterpret_cast<const float*>(wbase) + k0 * lay.w_row + o0;
+#pragma unroll 4
+      for (int k = 0; k < kProjKC; ++k) {
+        const float v = to_f(st[k * lay.row + p]);
+        const float4* wr = reinterpret_cast<const float4*>(wf + k * lay.w_row);
+#pragma unroll
+        for (int o4 = 0; o4 < CPG / 4; ++o4) {
           const float4 wv = wr[o4];
-          acc[4 * o4] = fmaf(wv.x, v[j], acc[4 * o4]);
-          acc[4 * o4 + 1] = fmaf(wv.y, v[j], acc[4 * o4 + 1]);
-          acc[4 * o4 + 2] = fmaf(wv.z, v[j], acc[4 * o4 + 2]);
-          acc[4 * o4 + 3] = fmaf(wv.w, v[j], acc[4 * o4 + 3]);
+          facc[4 * o4] = fmaf(wv.x, v, facc[4 * o4]);
+          facc[4 * o4 + 1] = fmaf(wv.y, v, facc[4 * o4 + 1]);
+          facc[4 * o4 + 2] = fmaf(wv.z, v, facc[4 * o4 + 2]);
+          facc[4 * o4 + 3] = fmaf(wv.w, v, facc[4 * o4 + 3]);
         }
       }
     }
   }
-  T* optr = out + (size_t)b * cout * hw + pix;
-  const T* rp = res ? res + (size_t)b * cout * hw + pix : nullptr;
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // epilogue: the sums through shared memory, then bn, residual and 16-byte
+  // stores along pixels
+  if constexpr (kMma) {
 #pragma unroll
-  for (int o = 0; o < kMaxOut; ++o) {
-    if (o < cout) {
-      float v = acc[o] + bias[o];
-      if (rp) v += to_f(rp[(size_t)o * hw]);
-      optr[(size_t)o * hw] = from_f<T>(v);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kMaxOut / 8; ++nt) {
+        if (nt < ntiles) {
+          const int px = (warp * MT + mt) * 16 + g, o = nt * 8 + 2 * t;
+          otile[o * lay.out_row + px] = acc[mt][nt][0];
+          otile[(o + 1) * lay.out_row + px] = acc[mt][nt][1];
+          otile[o * lay.out_row + px + 8] = acc[mt][nt][2];
+          otile[(o + 1) * lay.out_row + px + 8] = acc[mt][nt][3];
+        }
+      }
+  } else {
+#pragma unroll
+    for (int o = 0; o < CPG; ++o) otile[(o0 + o) * lay.out_row + p] = facc[o];
+  }
+  __syncthreads();
+  T* ob = out + (size_t)b * cout * hw;
+  const T* rb = res ? res + (size_t)b * cout * hw : nullptr;
+  for (int i = tid; i < cout * (TP / V); i += kProjThreads) {
+    const int o = i / (TP / V), qq = i - o * (TP / V), px = p0 + qq * V;
+    if (px >= hw) continue;
+    const float* sv = otile + o * lay.out_row + qq * V;
+    float v[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = sv[e] * sc[o] + bi[o];
+    T* op = ob + (size_t)o * hw + px;
+    const T* rp = rb ? rb + (size_t)o * hw + px : nullptr;
+    if (vec) {  // hw is a multiple of V: the chunk is whole
+      if (rp) {
+        alignas(16) T r[V];
+        *reinterpret_cast<uint4*>(r) = *reinterpret_cast<const uint4*>(rp);
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[e] += to_f(r[e]);
+      }
+      alignas(16) T y[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) y[e] = from_f<T>(v[e]);
+      *reinterpret_cast<uint4*>(op) = *reinterpret_cast<const uint4*>(y);
+    } else {
+      for (int e = 0; e < V && px + e < hw; ++e)
+        op[e] = from_f<T>(v[e] + (rp ? to_f(rp[e]) : 0.f));
     }
   }
 }
-
 template <typename T>
 void launch_dw(const void* x, const void* w, BNParams bn, float eps, void* out,
                int batch, int channels, int height, int width,
@@ -132,59 +261,164 @@ void launch_dw(const void* x, const void* w, BNParams bn, float eps, void* out,
       static_cast<T*>(out), channels, height, width);
 }
 
-template <typename T>
-cudaError_t launch_project(const void* h, const float* se, const void* w,
-                           BNParams bn, const void* res, float eps, void* out,
-                           int batch, int cin, int cout, int hw,
-                           cudaStream_t stream) {
-  const dim3 grid((hw + kThreads - 1) / kThreads, batch);
-  const size_t smem = sizeof(float) * ((size_t)cin * ((cout + 3) / 4 * 4) + cout);
-  const cudaError_t err = cudaFuncSetAttribute(
-      project_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T, int TP>
+cudaError_t launch_project_tile(const void* h, const float* se, const void* w,
+                                BNParams bn, const void* res, float eps, void* out,
+                                int batch, int cin, int cout, int hw, ProjectSmem lay,
+                                cudaStream_t stream) {
+  if ((size_t)lay.total > kSmemLimit) return cudaErrorInvalidValue;
+  auto kern = project_kernel<T, TP>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return err;
-  project_kernel<T><<<grid, kThreads, smem, stream>>>(
+  const int vec = hw % kVec<T> == 0 && aligned16(h) && aligned16(out) && (!res || aligned16(res));
+  const dim3 grid((hw + TP - 1) / TP, batch);
+  kern<<<grid, kProjThreads, lay.total, stream>>>(
       static_cast<const T*>(h), se, static_cast<const T*>(w), bn,
-      static_cast<const T*>(res), eps, static_cast<T*>(out), cin, cout, hw);
+      static_cast<const T*>(res), eps, static_cast<T*>(out), cin, cout, hw, vec, lay);
   return cudaSuccess;
 }
 
-constexpr int kCC = 32;   // expanded channels per block
-constexpr int kHalf = kCC / 2;        // expanded channels per thread
-constexpr int kLanes = kThreads / 2;  // threads of one channel half
-constexpr int kPix = 2;               // window pixels per thread
-
-// Threads [0, 128) expand channels [0, 16) of the block, threads [128, 256)
-// channels [16, 32) (four whole warps each, so weight reads stay
-// broadcasts); each thread takes kPix window pixels (lane, lane + 128),
-// keeps 16 sums for each in registers, and reads each pixel's input
-// channels straight from device memory (neighbouring threads, neighbouring
-// pixels; the other half's reads of the same pixels hit L1), with the
-// block's kCC x cin expand weights in shared memory, so its channel loop
-// has no barrier.
 template <typename T>
+cudaError_t launch_project(const void* h, const float* se, const void* w,
+                           BNParams bn, const void* res, float eps, void* out,
+                           int batch, int cin, int cout, int hw, int tile,
+                           ProjectSmem lay, cudaStream_t stream) {
+  if (tile == 64)
+    return launch_project_tile<T, 64>(h, se, w, bn, res, eps, out, batch, cin, cout, hw, lay,
+                                      stream);
+  if (tile == 128)
+    return launch_project_tile<T, 128>(h, se, w, bn, res, eps, out, batch, cin, cout, hw, lay,
+                                       stream);
+  return cudaErrorInvalidValue;
+}
+
+// K5: a block takes a tile of output pixels and CC (32 or 64) expanded
+// channels. Its input window is staged as whole 8-pixel chunks of each row:
+// columns [gx0 - off, gx0 - off + rw), off = gx0 mod 8, the same for every
+// tile since tile_w is a multiple of 8. The expand is the GEMM e (CC x staged
+// pixels) = W_e (CC x cin) . x window (cin x staged pixels), K in chunks of
+// 32 through a ring of cp.async stages that carry both operands' chunks;
+// bfloat16 by mma.m16n8k16 with W_e as A (ldmatrix from [channel][cin] rows)
+// and the window as B (ldmatrix.trans from its [cin][pixel] rows); float32
+// by FMAs on the CUDA cores (its gate admits no TF32 rounding), each thread
+// summing the elements an mma fragment would hold, so both share the
+// epilogue. The staged pixels left and right of the window are multiplied
+// and dropped. Shared memory as mbconv.py's expand_dw_layout gives it.
+constexpr int kExpKC = 32;     // input channels per pipeline stage
+constexpr int kExpStages = 4;  // stages of the cp.async ring, at most
+constexpr int kExpNW = 8;      // n-tiles (8 staged pixels) per warp at most
+static_assert(kThreads / 8 == kExpKC, "a window chunk row is loaded by 8 threads");
+
+__device__ __forceinline__ void cp_async_wait_upto(int n) {  // n < kExpStages pending
+  if (n <= 0)
+    cp_async_wait<0>();
+  else if (n == 1)
+    cp_async_wait<1>();
+  else if (n == 2)
+    cp_async_wait<2>();
+  else
+    cp_async_wait<3>();
+}
+
+// swish in the kernel's precision: float32's exact one, or for bfloat16 the
+// fast one (a few float32 ulps off, far under the output's rounding)
+template <typename T>
+__device__ __forceinline__ float swish_of(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return swish(v);
+  else
+    return swish_fast(v);
+}
+
+template <typename T, int CC>
 __global__ void __launch_bounds__(kThreads, 2)
 expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0,
-                 const T* __restrict__ wd, BNParams bn1, float eps,
-                 T* __restrict__ out, int cin, int mid, int height, int width,
-                 int out_h, int out_w, int stride, int pad_t, int pad_l,
-                 int tile_h, int tile_w, int tiles_x) {
-  extern __shared__ float4 smem4[];  // 16-byte aligned for the float4 reads
-  float* ws = reinterpret_cast<float*>(smem4);  // [cin][kCC] expand * bn0 scale
-  float* s0 = ws + cin * kCC;        // [kCC]
-  float* b0 = s0 + kCC;              // [kCC]
-  float* wdw = b0 + kCC;             // [kCC][9] depthwise * bn1 scale
-  float* b1 = wdw + kCC * 9;         // [kCC]
-  float* es = b1 + kCC;              // [kCC][npix] expanded window
+                 const T* __restrict__ wd, BNParams bn1, float eps, T* __restrict__ out,
+                 int cin, int mid, int height, int width, int out_h, int out_w, int stride,
+                 int pad_t, int pad_l, int tile_h, int tile_w_log2, int tiles_x, int vec_x,
+                 int vec_w, ExpandSmem lay) {
+  constexpr bool kMma = !std::is_same<T, float>::value;
+  constexpr int V = kVec<T>;              // elements of T in one 16-byte copy
+  constexpr int WM = CC / 32;             // warps along channels, 32 channels each
+  constexpr int WN = kThreads / 32 / WM;  // warps along staged pixels
+  extern __shared__ float4 smem4[];
+  const int tile_w = 1 << tile_w_log2;
   const int win_h = (tile_h - 1) * stride + 3, win_w = (tile_w - 1) * stride + 3;
-  const int npix = win_h * win_w;
+  const int npix = win_h * win_w, off = (8 - pad_l % 8) % 8;
+  const int rw8 = (off + win_w + 7) / 8, ntot = win_h * rw8;  // staged 8-pixel chunks
+  const int nchunks = (cin + kExpKC - 1) / kExpKC, ns = lay.stages;
+  char* base = reinterpret_cast<char*>(smem4);
+  T* ring = reinterpret_cast<T*>(base);
+  float* es = reinterpret_cast<float*>(base);  // [CC][npix], after the products
+  float* s0 = reinterpret_cast<float*>(base + lay.c_off);
+  float* b0 = s0 + CC;
+  float* b1 = b0 + CC;
+  float* wdw = b1 + CC;  // [CC][9] depthwise * bn1 scale
+  // per 8-pixel chunk p of the staged window: its image row and column, its
+  // row's start in the window (wy * win_w) and its column in the window
+  int4* tab = reinterpret_cast<int4*>(base + lay.t_off);
 
-  const int tid = threadIdx.x, nt = blockDim.x;
+  const int tid = threadIdx.x;
   const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
-  const int c0 = blockIdx.y * kCC, b = blockIdx.z;
+  const int c0 = blockIdx.y * CC, b = blockIdx.z;
   const int oy0 = ty * tile_h, ox0 = tx * tile_w;
   const int gy0 = oy0 * stride - pad_t, gx0 = ox0 * stride - pad_l;
+  const int ax0 = gx0 - off;  // a multiple of 8
+  const size_t plane = (size_t)height * width;
+  const T* xb = x + (size_t)b * cin * plane;
+  const T zero = from_f<T>(0.f);
+  for (int p = tid; p < ntot; p += kThreads) {
+    const int wy = p / rw8, cx = p - wy * rw8;
+    tab[p] = make_int4(gy0 + wy, ax0 + cx * 8, wy * win_w, cx * 8 - off);
+  }
+  __syncthreads();
 
-  for (int c = tid; c < kCC; c += nt) {
+  // chunk `chunk` of the window and of the block's W_e rows into its stage;
+  // the window's channel rows 8 threads each, 16 bytes a copy
+  auto load = [&](int chunk) {
+    T* dst = ring + (size_t)(chunk % ns) * lay.stage;
+    const int k0 = chunk * kExpKC, r = tid >> 3, c = k0 + r;
+    T* drow = dst + r * lay.x_row;
+    const T* xc = xb + c * plane;
+    for (int p = tid & 7; p < ntot; p += 8) {
+      const int4 e = tab[p];
+      T* d = drow + p * 8;
+      const bool row_ok = c < cin && e.x >= 0 && e.x < height;
+      if (vec_x) {  // width is a multiple of V: a copy is all inside or all outside
+#pragma unroll
+        for (int v = 0; v < 8; v += V) {
+          const bool ok = row_ok && e.y + v >= 0 && e.y + v < width;
+          cp_async16(d + v, ok ? xc + (size_t)e.x * width + e.y + v : xb, ok ? 16 : 0);
+        }
+      } else {
+        for (int k = 0; k < 8; ++k) {
+          const int gx = e.y + k;
+          d[k] = row_ok && gx >= 0 && gx < width ? xc[(size_t)e.x * width + gx] : zero;
+        }
+      }
+    }
+    T* dw = dst + kExpKC * lay.x_row;
+    for (int i = tid; i < CC * (kExpKC / V); i += kThreads) {
+      const int c = i / (kExpKC / V), k = (i - c * (kExpKC / V)) * V;
+      const int gc = c0 + c, gk = k0 + k;
+      T* d = dw + c * lay.w_row + k;
+      if (vec_w) {  // cin is a multiple of V
+        const bool ok = gc < mid && gk < cin;
+        cp_async16(d, ok ? we + (size_t)gc * cin + gk : we, ok ? 16 : 0);
+      } else {
+        for (int e = 0; e < V; ++e)
+          d[e] = gc < mid && gk + e < cin ? we[(size_t)gc * cin + gk + e] : zero;
+      }
+    }
+  };
+  for (int s = 0; s < ns - 1; ++s) {
+    load(s);
+    cp_async_commit();
+  }
+  for (int c = tid; c < CC; c += kThreads) {
     const int g = c0 + c;
     float sc0 = 0.f, bi0 = 0.f, sc1 = 0.f, bi1 = 0.f;
     if (g < mid) {
@@ -198,104 +432,188 @@ expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0
     b1[c] = bi1;
     for (int t = 0; t < 9; ++t) wdw[c * 9 + t] = g < mid ? to_f(wd[g * 9 + t]) * sc1 : 0.f;
   }
-  __syncthreads();
-  // rows of W_e are read along cin (coalesced) and stored transposed
-  for (int i = tid; i < kCC * cin; i += nt) {
-    const int c = i / cin, k = i - c * cin;
-    ws[k * kCC + c] = c0 + c < mid ? to_f(we[(size_t)(c0 + c) * cin + k]) * s0[c] : 0.f;
-  }
-  __syncthreads();
 
-  // 1. expand: 16 sums for each of this thread's window pixels
-  const int half = tid / kLanes, lane = tid - half * kLanes;
-  const size_t hw = (size_t)height * width;
-  const T* xb = x + (size_t)b * cin * hw;
-  const T* xp[kPix];
-  bool inside[kPix];
+  // 1. expand: warp (wm, wn) sums channels [32 wm, 32 wm + 32) for the
+  // n-tiles wn, wn + WN, ... of the staged window; element [mt][i][2 hh + e]
+  // is channel 32 wm + 16 mt + 8 hh + g at staged pixel 8 n + 2 t + e
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3, q = lane >> 3, r8 = lane & 7;
+  const int wm = warp / WN, wn = warp - wm * WN;
+  float acc[2][kExpNW][4] = {};
+  for (int j = 0; j < nchunks; ++j) {
+    __syncthreads();  // every warp is done with the stage the next load refills
+    if (j + ns - 1 < nchunks) load(j + ns - 1);
+    cp_async_commit();
+    cp_async_wait_upto(ns - 1);  // chunk j has landed
+    __syncthreads();
+    const T* st = ring + (size_t)(j % ns) * lay.stage;
+    const T* sw = st + kExpKC * lay.x_row;
+    if constexpr (kMma) {
+      unsigned a[2][2][4];  // [k16 step][m-tile]
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    const int p = lane + j * kLanes;
-    const int gy = gy0 + p / win_w, gx = gx0 + p % win_w;
-    inside[j] = p < npix && gy >= 0 && gy < height && gx >= 0 && gx < width;
-    xp[j] = xb + (inside[j] ? (size_t)gy * width + gx : 0);  // a pixel outside reads pixel 0
-  }
-  float acc[kPix][kHalf];
+      for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-  for (int j = 0; j < kPix; ++j)
+        for (int mt = 0; mt < 2; ++mt)
+          ldmatrix_x4(a[ks][mt], sw + (wm * 32 + mt * 16 + (q & 1) * 8 + r8) * lay.w_row +
+                                     ks * 16 + (q >> 1) * 8);
 #pragma unroll
-    for (int c = 0; c < kHalf; ++c) acc[j][c] = 0.f;
-  const float* wh = ws + half * kHalf;
-#pragma unroll 4
-  for (int k = 0; k < cin; ++k) {
-    float v[kPix];
+      for (int i = 0; i < kExpNW; ++i) {
+        const int n = wn + i * WN;
+        if (n < ntot) {
+          unsigned bq[4];  // k rows 0-7, 8-15, 16-23, 24-31 of the chunk
+          ldmatrix_x4_trans(bq, st + (q * 8 + r8) * lay.x_row + n * 8);
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) v[j] = to_f(xp[j][k * hw]);
-    const float4* wr = reinterpret_cast<const float4*>(wh + k * kCC);
+          for (int ks = 0; ks < 2; ++ks)
 #pragma unroll
-    for (int c4 = 0; c4 < kHalf / 4; ++c4) {
-      const float4 w4 = wr[c4];
+            for (int mt = 0; mt < 2; ++mt)
+              mma_bf16(acc[mt][i], a[ks][mt], bq[2 * ks], bq[2 * ks + 1]);
+        }
+      }
+    } else {
+      const T* wrow = sw + (wm * 32 + g) * lay.w_row;
+#pragma unroll 2
+      for (int k = 0; k < kExpKC; ++k) {
+        float wv[2][2];
 #pragma unroll
-      for (int j = 0; j < kPix; ++j) {
-        acc[j][4 * c4] = fmaf(w4.x, v[j], acc[j][4 * c4]);
-        acc[j][4 * c4 + 1] = fmaf(w4.y, v[j], acc[j][4 * c4 + 1]);
-        acc[j][4 * c4 + 2] = fmaf(w4.z, v[j], acc[j][4 * c4 + 2]);
-        acc[j][4 * c4 + 3] = fmaf(w4.w, v[j], acc[j][4 * c4 + 3]);
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) wv[mt][hh] = wrow[(mt * 16 + hh * 8) * lay.w_row + k];
+        const T* xr = st + k * lay.x_row + 2 * t;
+#pragma unroll
+        for (int i = 0; i < kExpNW; ++i) {
+          const int n = wn + i * WN;
+          if (n < ntot) {
+            const float2 xv = *reinterpret_cast<const float2*>(xr + n * 8);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int hh = 0; hh < 2; ++hh) {
+                acc[mt][i][2 * hh] = fmaf(wv[mt][hh], xv.x, acc[mt][i][2 * hh]);
+                acc[mt][i][2 * hh + 1] = fmaf(wv[mt][hh], xv.y, acc[mt][i][2 * hh + 1]);
+              }
+          }
+        }
       }
     }
   }
+  __syncthreads();
+
+  // bn0 + swish into the float32 expanded window; 0 outside the image (the
+  // depthwise pads the EXPANDED map with zeros)
+  float sc[2][2], bi[2][2];  // this thread's four channels: [m-tile][row half]
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    const int p = lane + j * kLanes;
-    if (p < npix) {
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-      for (int c = 0; c < kHalf; ++c) {
-        const int cc = half * kHalf + c;
-        es[cc * npix + p] = inside[j] ? swish(acc[j][c] + b0[cc]) : 0.f;
-      }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int ch = wm * 32 + mt * 16 + hh * 8 + g;
+      sc[mt][hh] = s0[ch];
+      bi[mt][hh] = b0[ch];
+    }
+#pragma unroll
+  for (int i = 0; i < kExpNW; ++i) {
+    const int n = wn + i * WN;
+    if (n >= ntot) break;
+    const int4 tb = tab[n];
+    const bool row_in = tb.x >= 0 && tb.x < height;
+    float* er = es + (wm * 32 + g) * npix + tb.z;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int wx = tb.w + 2 * t + e, gx = tb.y + 2 * t + e;
+      if (wx < 0 || wx >= win_w) continue;
+      const bool inside = row_in && gx >= 0 && gx < width;
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          er[(mt * 16 + hh * 8) * npix + wx] =
+              inside ? swish_of<T>(acc[mt][i][2 * hh + e] * sc[mt][hh] + bi[mt][hh]) : 0.f;
     }
   }
   __syncthreads();
 
-  // 2. depthwise 3x3 + bn1 + swish, one output pixel of one channel a thread
-  const int tpix = tile_h * tile_w;
-  T* ob = out + ((size_t)b * mid + c0) * out_h * out_w;
-  for (int i = tid; i < kCC * tpix; i += nt) {
-    const int c = i / tpix, r = i - c * tpix;
-    const int py = r / tile_w, px = r - py * tile_w;
-    const int oy = oy0 + py, ox = ox0 + px;
-    if (c0 + c >= mid || oy >= out_h || ox >= out_w) continue;
-    const float* er = es + c * npix + py * stride * win_w + px * stride;
-    const float* wk = wdw + c * 9;
-    float d = 0.f;
+  // 2. depthwise 3x3 + bn1 + swish: each thread walks the rows of a column
+  // of one channel's tile, keeping the window rows it shares with the next
+  // output row in registers (stride 1: two of three, stride 2: one)
+  T* ob = out + ((size_t)b * mid + c0) * out_h * out_w + (size_t)oy0 * out_w + ox0;
+  const int rows = out_h - oy0 < tile_h ? out_h - oy0 : tile_h;
+  for (int q = tid; q < CC * tile_w; q += kThreads) {
+    const int c = q >> tile_w_log2, px = q & (tile_w - 1);
+    if (c0 + c >= mid || ox0 + px >= out_w) continue;
+    const float* e = es + c * npix + px * stride;
+    float wk[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) wk[k] = wdw[c * 9 + k];
+    const float bias = b1[c];
+    T* o = ob + (size_t)c * out_h * out_w + px;
+    float win[3][3];
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) d = fmaf(er[dy * win_w + dx], wk[dy * 3 + dx], d);
-    ob[((size_t)c * out_h + oy) * out_w + ox] = from_f<T>(swish(d + b1[c]));
+      for (int dx = 0; dx < 3; ++dx) win[dy][dx] = e[dy * win_w + dx];
+    for (int py = 0;;) {
+      float d = bias;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) d = fmaf(win[dy][dx], wk[dy * 3 + dx], d);
+      o[(size_t)py * out_w] = from_f<T>(swish_of<T>(d));
+      if (++py >= rows) break;
+      const float* er = e + (py * stride + 2) * win_w;  // the new bottom row
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        if (stride == 1) {
+          win[0][dx] = win[1][dx];
+          win[1][dx] = win[2][dx];
+        } else {
+          win[0][dx] = win[2][dx];
+          win[1][dx] = er[dx - win_w];
+        }
+        win[2][dx] = er[dx];
+      }
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch_expand_dw(const void* x, const void* we, BNParams bn0,
-                             const void* wd, BNParams bn1, float eps, void* out,
-                             int batch, int cin, int mid, int height, int width,
-                             int out_h, int out_w, int stride, int pad_t,
-                             int pad_l, int tile_h, int tile_w,
+template <typename T, int CC>
+cudaError_t launch_expand_dw(const void* x, const void* we, BNParams bn0, const void* wd,
+                             BNParams bn1, float eps, void* out, int batch, int cin, int mid,
+                             int height, int width, int out_h, int out_w, int stride,
+                             int pad_t, int pad_l, int tile_h, int tile_w, ExpandSmem lay,
                              cudaStream_t stream) {
-  const int npix = ((tile_h - 1) * stride + 3) * ((tile_w - 1) * stride + 3);
-  const size_t smem = sizeof(float) * ((size_t)kCC * (cin + npix) + 12 * kCC);
-  if (npix > kPix * kLanes || smem > 232448) return cudaErrorInvalidValue;
-  auto kern = expand_dw_kernel<T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr int WN = kThreads / 32 / (CC / 32);
+  int log2w = 3;
+  while ((1 << log2w) < tile_w) ++log2w;
+  const int win_w = (tile_w - 1) * stride + 3, off = (8 - pad_l % 8) % 8;
+  const int staged8 = ((tile_h - 1) * stride + 3) * ((off + win_w + 7) / 8);
+  if ((1 << log2w) != tile_w || log2w > 5 || staged8 > kExpNW * WN ||
+      lay.x_row < 8 * staged8 || lay.stages < 1 || lay.stages > kExpStages ||
+      (size_t)lay.total > kSmemLimit)
+    return cudaErrorInvalidValue;
+  auto kern = expand_dw_kernel<T, CC>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return err;
   const int tiles_y = (out_h + tile_h - 1) / tile_h, tiles_x = (out_w + tile_w - 1) / tile_w;
-  const dim3 grid(tiles_y * tiles_x, (mid + kCC - 1) / kCC, batch);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(we), bn0,
-      static_cast<const T*>(wd), bn1, eps, static_cast<T*>(out), cin, mid,
-      height, width, out_h, out_w, stride, pad_t, pad_l, tile_h, tile_w, tiles_x);
+  const dim3 grid(tiles_y * tiles_x, (mid + CC - 1) / CC, batch);
+  const int vec_x = width % kVec<T> == 0 && aligned16(x);
+  const int vec_w = cin % kVec<T> == 0 && aligned16(we);
+  kern<<<grid, kThreads, lay.total, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(we), bn0, static_cast<const T*>(wd), bn1,
+      eps, static_cast<T*>(out), cin, mid, height, width, out_h, out_w, stride, pad_t, pad_l,
+      tile_h, log2w, tiles_x, vec_x, vec_w, lay);
   return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t launch_expand_dw_cc(int channels, const void* x, const void* we, BNParams bn0,
+                                const void* wd, BNParams bn1, float eps, void* out, int batch,
+                                int cin, int mid, int height, int width, int out_h, int out_w,
+                                int stride, int pad_t, int pad_l, int tile_h, int tile_w,
+                                ExpandSmem lay, cudaStream_t stream) {
+  if (channels != 32 && channels != 64) return cudaErrorInvalidValue;
+  return (channels == 64 ? launch_expand_dw<T, 64> : launch_expand_dw<T, 32>)(
+      x, we, bn0, wd, bn1, eps, out, batch, cin, mid, height, width, out_h, out_w, stride,
+      pad_t, pad_l, tile_h, tile_w, lay, stream);
 }
 
 }  // namespace
@@ -305,18 +623,15 @@ cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expan
                                     float eps, void* out, int batch, int cin,
                                     int mid, int height, int width, int out_h,
                                     int out_w, int stride, int pad_t, int pad_l,
-                                    int tile_h, int tile_w, cudaStream_t stream) {
+                                    int tile_h, int tile_w, int channels,
+                                    ExpandSmem smem, cudaStream_t stream) {
   if (stride < 1 || stride > 2 || tile_h < 1 || tile_w < 1 || batch > 65535 ||
-      (mid + kCC - 1) / kCC > 65535)
+      (mid + 31) / 32 > 65535)
     return cudaErrorInvalidValue;
-  if (dt == DType::kFloat32)
-    return launch_expand_dw<float>(x, w_expand, bn0, w_dw, bn1, eps, out, batch,
-                                   cin, mid, height, width, out_h, out_w, stride,
-                                   pad_t, pad_l, tile_h, tile_w, stream);
-  return launch_expand_dw<__nv_bfloat16>(x, w_expand, bn0, w_dw, bn1, eps, out,
-                                         batch, cin, mid, height, width, out_h,
-                                         out_w, stride, pad_t, pad_l, tile_h,
-                                         tile_w, stream);
+  return (dt == DType::kFloat32 ? launch_expand_dw_cc<float>
+                                : launch_expand_dw_cc<__nv_bfloat16>)(
+      channels, x, w_expand, bn0, w_dw, bn1, eps, out, batch, cin, mid, height, width, out_h,
+      out_w, stride, pad_t, pad_l, tile_h, tile_w, smem, stream);
 }
 
 cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w,
@@ -334,14 +649,14 @@ cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w,
 cudaError_t launch_mbconv_project(DType dt, const void* h, const float* se,
                                   const void* w, BNParams bn,
                                   const void* residual, float eps, void* out,
-                                  int batch, int cin, int cout, int hw,
-                                  cudaStream_t stream) {
-  if (cout > kMaxOut) return cudaErrorInvalidValue;
+                                  int batch, int cin, int cout, int hw, int tile,
+                                  ProjectSmem smem, cudaStream_t stream) {
+  if (cout > kMaxOut || batch > 65535) return cudaErrorInvalidValue;
   if (dt == DType::kFloat32)
     return launch_project<float>(h, se, w, bn, residual, eps, out, batch, cin,
-                                 cout, hw, stream);
+                                 cout, hw, tile, smem, stream);
   return launch_project<__nv_bfloat16>(h, se, w, bn, residual, eps, out, batch,
-                                       cin, cout, hw, stream);
+                                       cin, cout, hw, tile, smem, stream);
 }
 
 }  // namespace hyperseg

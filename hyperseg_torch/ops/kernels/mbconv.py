@@ -15,23 +15,34 @@ SE's global pooling and its tiny MLP run between the two as torch ops, as
 they run as XLA ops around the TPU kernels. Source: mbconv.cu.
 
 Bound on the H100: bytes, for K4a and K4b. The depthwise does 9 MACs per
-output element and the projection C (16 or 32) MACs per input element,
-orders of magnitude under the card's flop/byte balance. So each kernel reads
-its input once, coalesced along W, keeps per-channel constants in shared
-memory or registers, and writes its output once.
+output element and the projection at most 32 MACs per input element, orders
+of magnitude under the card's flop/byte balance. So each kernel reads its
+input once, coalesced along W, and writes its output once. What held K4b
+back was latency on an under-filled card, so a block takes a tile of 64 or
+128 pixels (`project_plan`: 128 only where the grid still fills the 132 SMs
+twice), streams it through a ring of 16-byte cp.async copies, and in
+bfloat16 multiplies on the tensor cores (mma).
 
-K5 does cin MACs per expanded element (16 to 320 on B1): in bfloat16 that is
-still under the tensor cores' balance, so bytes bound it, but its products
-run on the CUDA cores in float32, where operations do. A block takes a tile
-of output pixels (`expand_dw_plan`) and 32 expanded channels, with those
-channels' expand weights in shared memory; each thread reads the input
-channels of two pixels of the tile's input window (halo included)
-and expands them for 16 of the channels into shared memory, then the block runs the depthwise from
-there. Only x, the weights and the (B, mid, H/s, W/s) output touch device
-memory.
+K5 does cin MACs per expanded element (16 to 384): in bfloat16 that is under
+the tensor cores' balance, so bytes bound it; in float32, whose expand runs
+on the CUDA cores, operations do. One kernel serves both: a block takes a
+tile of output pixels and 32 or 64 expanded channels (`expand_dw_plan`),
+stages the tile's input window (halo included) in shared memory through a
+cp.async ring, expands it there (bfloat16: an mma GEMM over the window's
+whole 8-pixel chunks; float32: FMAs on the same tiling), and runs the
+depthwise from the expanded window. Only x, the weights and the (B, mid,
+H/s, W/s) output touch device memory. The plan gives a block more channels
+where cin is large and the map small, so one staged window serves more of
+them, and enough blocks to fill the card.
+
+The plans also lay out each block's shared memory (`project_plan`,
+`expand_dw_layout`) and hand the layout to the launch: the kernels compute
+no offsets of their own.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as TF
@@ -42,10 +53,18 @@ from hyperseg_torch.ops.kernels import build
 
 MAX_PROJECT_OUT = 32   # output channels held in registers by mbconv_project
 SMEM_LIMIT = 232448    # bytes of shared memory one block may use
-EXPAND_MAX_WINDOW = 256  # input-window pixels of one mbconv_expand_dw tile
-EXPAND_CHANNELS = 32     # expanded channels per mbconv_expand_dw block
-EXPAND_MIN_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+SMS = 132              # streaming multiprocessors of the H100
+MIN_BLOCKS = 2 * SMS   # a grid that fills every SM twice
+PROJECT_TILES = (128, 64)  # pixels per mbconv_project block
+PROJECT_KC, PROJECT_STAGES = 32, 4     # channels per cp.async stage, stages
+EXPAND_CHANNELS = (32, 64)  # expanded channels per mbconv_expand_dw block
+EXPAND_KC, EXPAND_STAGES = 32, 4       # channels per cp.async stage, stages at most
+EXPAND_WARPS = 8                       # warps of a mbconv_expand_dw block
 EXPAND_PADS = {1: ((1, 1), (1, 1)), 2: ((0, 1), (0, 1))}  # depthwise pad by stride
+
+
+def _up(n, m):
+    return -(-n // m) * m
 
 
 def mbconv_dw_plain(x, weight, bn, eps=1e-3):
@@ -77,6 +96,32 @@ def mbconv_project_plain(h, se, weight, bn, residual=None, eps=1e-3):
     return y.to(h.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def project_plan(cin, hw, batch, itemsize):
+    """(tile, layout) of one mbconv_project launch, cached per shape.
+
+    tile: pixels a block, 128, or 64 where 128 would leave the grid under
+    MIN_BLOCKS. layout: the block's shared memory as the kernel takes it
+    (ProjectSmem in kernels.h): (row, out_row, w_row, w_off, c_off, total),
+    pitches in elements, offsets and total in bytes. From byte 0 the ring of
+    PROJECT_STAGES h tiles [PROJECT_KC][row] (16 bytes of pad a row, so the
+    8 rows of an ldmatrix hit 8 bank groups), which the float32 output tile
+    [MAX_PROJECT_OUT][out_row] reuses after the products; at w_off the folded
+    weights, bfloat16 [MAX_PROJECT_OUT][w_row] or float32 [cin][w_row]; at
+    c_off bn scale and bias, float32 [MAX_PROJECT_OUT] each."""
+    big = PROJECT_TILES[0]
+    tile = big if -(-hw // big) * batch >= MIN_BLOCKS else PROJECT_TILES[1]
+    row, out_row = tile + 16 // itemsize, tile + 4
+    cin_pad = _up(cin, PROJECT_KC)
+    w_off = _up(max(itemsize * PROJECT_STAGES * PROJECT_KC * row,
+                    4 * MAX_PROJECT_OUT * out_row), 16)
+    if itemsize == 2:
+        w_row, c_off = cin_pad + 8, w_off + 2 * MAX_PROJECT_OUT * (cin_pad + 8)
+    else:
+        w_row, c_off = MAX_PROJECT_OUT, w_off + 4 * cin_pad * MAX_PROJECT_OUT
+    return tile, (row, out_row, w_row, w_off, c_off, c_off + 4 * 2 * MAX_PROJECT_OUT)
+
+
 def mbconv_project(h, se, weight, bn, residual=None, eps=1e-3):
     """h: (B, C, H, W); se: float32 (B, C) sigmoid scales; weight:
     (CO, C, 1, 1); bn float32 (CO,) x 4; residual: (B, CO, H, W) or None."""
@@ -93,8 +138,12 @@ def mbconv_project(h, se, weight, bn, residual=None, eps=1e-3):
     build.check_bn("mbconv_project bn", bn, co)
     if residual is not None:
         build.check("mbconv_project residual", residual, h.dtype, (b, co, hh, ww))
+    tile, layout = project_plan(c, hh * ww, b, h.element_size())
+    if layout[-1] > SMEM_LIMIT:
+        raise ValueError(f"mbconv_project: {c} input channels need {layout[-1]} B of "
+                         f"shared memory per block, more than {SMEM_LIMIT}")
     out = torch.empty((b, co, hh, ww), device=h.device, dtype=h.dtype)
-    build.kernels().mbconv_project(h, se, weight, *bn, residual, float(eps), out)
+    build.kernels().mbconv_project(h, se, weight, *bn, residual, float(eps), tile, layout, out)
     LAUNCHES["mbconv_project"] += 1
     return out
 
@@ -105,26 +154,94 @@ def expand_dw_out_hw(h, w, stride):
     return (h + pt + pb - 3) // stride + 1, (w + pl + pr - 3) // stride + 1
 
 
-def expand_dw_plan(out_h, out_w, stride, mid=EXPAND_CHANNELS, batch=1):
-    """(tile_h, tile_w) of output pixels per block: among windows of at most
-    EXPAND_MAX_WINDOW pixels (two for each of a block's 128 threads per
-    channel half) and rows of 16 or 32 pixels (stores of at least 32 bytes),
-    the tile whose windows cover the map in the fewest blocks, that count
-    scaled up by how far the grid falls short of EXPAND_MIN_BLOCKS (small
-    maps with many channels: more, smaller tiles); ties go to the wider
-    tile."""
-    best = None
-    for tw in (32, 16):
-        for th in range(1, 65):
-            window = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3)
-            if window > EXPAND_MAX_WINDOW:
-                break
-            tiles = -(-out_h // th) * -(-out_w // tw)
-            blocks = tiles * -(-mid // EXPAND_CHANNELS) * batch
-            cost = tiles * max(1.0, EXPAND_MIN_BLOCKS / blocks)
-            if best is None or cost < best[0]:
-                best = (cost, th, tw)
-    return best[1], best[2]
+def expand_dw_window(stride, tile_h, tile_w):
+    """(rows, columns) of the input window of a tile of output pixels."""
+    return (tile_h - 1) * stride + 3, (tile_w - 1) * stride + 3
+
+
+def expand_dw_staged(stride, tile_h, tile_w):
+    """Input pixels a block stages: each window row as whole 8-pixel chunks,
+    starting at the window's column rounded down to 8."""
+    pad_l = EXPAND_PADS[stride][1][0]
+    win_h, win_w = expand_dw_window(stride, tile_h, tile_w)
+    return win_h * _up((8 - pad_l % 8) % 8 + win_w, 8)
+
+
+def expand_dw_max_staged(channels):
+    """Staged pixels a block takes: 8 n-tiles of 8 pixels for each of the
+    warps along pixels (32 channels a warp along channels)."""
+    return 8 * 8 * (EXPAND_WARPS // (channels // 32))
+
+
+def expand_dw_layout(cin, stride, tile_h, tile_w, channels, itemsize):
+    """Shared memory of one mbconv_expand_dw block as the kernel takes it
+    (ExpandSmem in kernels.h): (x_row, w_row, stage, stages, c_off, t_off,
+    total), pitches and the stage in elements of x's dtype, offsets and total
+    in bytes. From byte 0 a ring of `stages` stages (one per chunk of
+    EXPAND_KC input channels, at most EXPAND_STAGES), each the window chunk
+    [EXPAND_KC][x_row] then the W_e chunk [channels][w_row]; rows are an odd
+    count of 16 bytes (bfloat16), so the 8 rows of an ldmatrix hit 8 bank
+    groups. The float32 expanded window [channels][window pixels] reuses the
+    ring after the products. At c_off s0, b0, b1 [channels] and the
+    depthwise taps [channels][9], float32; at t_off one int4 for each 8-pixel
+    chunk of the staged window."""
+    win_h, win_w = expand_dw_window(stride, tile_h, tile_w)
+    staged = expand_dw_staged(stride, tile_h, tile_w)
+    x_row = staged + (8 if staged // 8 % 2 == 0 else 0)
+    w_row = EXPAND_KC + 16 // itemsize
+    stage = EXPAND_KC * x_row + channels * w_row
+    stages = min(EXPAND_STAGES, -(-cin // EXPAND_KC))
+    c_off = _up(max(itemsize * stages * stage, 4 * channels * win_h * win_w), 16)
+    t_off = c_off + 4 * 12 * channels
+    return x_row, w_row, stage, stages, c_off, t_off, t_off + 16 * (staged // 8)
+
+
+def expand_dw_candidates(out_h, out_w, stride, cin, itemsize=2):
+    """The plans the kernel takes, as (tile_h, tile_w, channels, layout):
+    rows of 8, 16 or 32 output pixels (not more than twice the map's width),
+    a staged window that fits the block's warps, and shared memory within
+    SMEM_LIMIT."""
+    for cc in EXPAND_CHANNELS:
+        for tw in (32, 16, 8):
+            if tw > 8 and tw >= 2 * _up(out_w, 8):
+                continue
+            for th in range(1, min(out_h, 64) + 1):
+                if expand_dw_staged(stride, th, tw) > expand_dw_max_staged(cc):
+                    break
+                layout = expand_dw_layout(cin, stride, th, tw, cc, itemsize)
+                if layout[-1] > SMEM_LIMIT:
+                    break
+                yield th, tw, cc, layout
+
+
+@functools.lru_cache(maxsize=None)
+def expand_dw_plan(out_h, out_w, stride, cin, mid, batch=1, itemsize=2):
+    """(tile_h, tile_w, channels, layout) of one mbconv_expand_dw launch,
+    cached per shape, by a fixed rule among `expand_dw_candidates`:
+
+    - 64 channels a block where cin >= 192 and the map is at most 32x32 (one
+      staged window then serves more of the many channels), else 32;
+    - rows of 32 output pixels, or 16 or 8 where the map is narrower;
+    - the tallest tile that fits, unless its grid has fewer than MIN_BLOCKS
+      blocks (two a SM, as many as the card holds at once): then the tile
+      whose grid comes nearest MIN_BLOCKS without passing it.
+
+    `mbconv_sweep --plans` times every candidate against the rule's pick."""
+    cc = EXPAND_CHANNELS[1] if cin >= 192 and out_h * out_w <= 32 * 32 else EXPAND_CHANNELS[0]
+    tw = next(w for w in (32, 16, 8) if w == 8 or w < 2 * _up(out_w, 8))
+    fits = [(th, lay) for th, w, c, lay in expand_dw_candidates(out_h, out_w, stride, cin,
+                                                                 itemsize) if (w, c) == (tw, cc)]
+    if not fits:
+        raise ValueError(f"mbconv_expand_dw: {cin} input channels leave no tile within "
+                         f"{SMEM_LIMIT} B of shared memory")
+
+    def blocks(th):
+        return -(-out_h // th) * -(-out_w // tw) * -(-mid // cc) * batch
+    th, layout = fits[-1]
+    if blocks(th) < MIN_BLOCKS:
+        th, layout = max((f for f in fits if blocks(f[0]) <= MIN_BLOCKS),
+                         key=lambda f: (blocks(f[0]), f[0]))
+    return th, tw, cc, layout
 
 
 def mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
@@ -152,15 +269,10 @@ def mbconv_expand_dw(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
     oh, ow = expand_dw_out_hw(h, w, stride)
     if oh < 1 or ow < 1:
         raise ValueError(f"mbconv_expand_dw: input {h}x{w} too small for stride {stride}")
-    th, tw = expand_dw_plan(oh, ow, stride, mid, b)
-    window = ((th - 1) * stride + 3) * ((tw - 1) * stride + 3)
-    nbytes = 4 * EXPAND_CHANNELS * (cin + window + 12)
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"mbconv_expand_dw: {cin} input channels need {nbytes} B of "
-                         f"shared memory per block, more than {SMEM_LIMIT}")
+    th, tw, cc, layout = expand_dw_plan(oh, ow, stride, cin, mid, b, x.element_size())
     (pt, _), (pl, _) = EXPAND_PADS[stride]
     out = torch.empty((b, mid, oh, ow), device=x.device, dtype=x.dtype)
     build.kernels().mbconv_expand_dw(x, w_expand, [*bn0, *bn1], w_dw, float(eps),
-                                     stride, pt, pl, th, tw, out)
+                                     stride, pt, pl, th, tw, cc, layout, out)
     LAUNCHES["mbconv_expand_dw"] += 1
     return out

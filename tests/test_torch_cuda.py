@@ -35,6 +35,15 @@ K5_CASES = [  # b, cin, mid, h, w, stride
     (1, 320, 1920, 16, 32, 1),      # block 22
     (1, 40, 240, 17, 31, 2),        # block 8 at odd sizes
     (1, 384, 2304, 16, 16, 1),      # B3 block 25 at 512x512
+    (1, 232, 1392, 16, 16, 1),      # B3 block 24
+    (2, 24, 144, 31, 45, 2),        # B3 block 2's widths, stride 2 at odd sizes
+    (1, 40, 240, 9, 70, 2),         # rows of 70 pixels: not whole 16-byte chunks
+]
+K4B_CASES = [  # b, cin, cout, h, w, residual
+    (1, 96, 24, 64, 128, False),    # B1 block 2
+    (1, 144, 24, 64, 128, True),    # B1 blocks 3-4
+    (2, 144, 24, 33, 35, True),     # per-image se, 1155 pixels: not a multiple of 8
+    (3, 40, 24, 20, 40, False),     # B3 block 0, a ragged channel chunk
 ]
 K7_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out: HyperSeg-L VOC levels 2-5, ...
     (8, 16, 16, 4, 4, 48, 96, 12),  # level 2 at 512x512, batch 8
@@ -94,6 +103,12 @@ def test_kernels_match_twins_on_card():
         h, se = r(2, 192, 32, 64), torch.rand(2, 192, generator=g).to(dev)
         wp = r(32, 192, 1, 1, scale=192 ** -0.5)   # B3 blocks 3-4: 32 outputs
         close(K4.mbconv_project(h, se, wp, bn(32)), K4.mbconv_project_plain(h, se, wp, bn(32)))
+        for b, cin, cout, h, w, with_res in K4B_CASES:
+            hs, se = r(b, cin, h, w), torch.rand(b, cin, generator=g).to(dev)
+            wp = r(cout, cin, 1, 1, scale=cin ** -0.5)
+            res = r(b, cout, h, w) if with_res else None
+            close(K4.mbconv_project(hs, se, wp, bn(cout), res),
+                  K4.mbconv_project_plain(hs, se, wp, bn(cout), res))
         for case in K1_CASES:
             b, fh, fw, ph, pw, cin, hidden, out, sig, groups = case
             xs, ss, ws, bns = _k1_inputs(5, *case)
@@ -127,3 +142,33 @@ def test_kernels_match_twins_on_card():
             want = K1.patch_invres_v01_plain(xs, ws[..., :p], **args)
             close(K1.patch_invres_v01(xs, ws[..., :p], **args), want)   # rows of p + 5
             close(K1.patch_invres_v01(xs, ws[..., :p].contiguous(), **args), want)
+
+
+@pytest.mark.cuda
+def test_expand_dw_negative_tail_on_card():
+    """K5 where the expand's pre-activations lie in swish's negative tail
+    (-4 to -12, swish 1e-4 to 7e-2 of its input): a centre-tap depthwise
+    passes each expanded value through, and every output element is held to
+    the twin's relative to its own size, within its dtype's rounding. An
+    activation accurate only in absolute terms fails here; the max-magnitude
+    gate of the test above cannot see it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(1)
+    b, cin, mid, h, w = 1, 40, 96, 17, 33
+    ones, zeros = torch.ones(mid, device="cuda"), torch.zeros(mid, device="cuda")
+    bn0 = (ones, (-4 - 8 * torch.rand(mid, generator=g)).cuda(), zeros, ones)
+    bn1 = (ones, zeros, zeros, ones)
+    for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -6)):
+        x = (torch.randn(b, cin, h, w, generator=g) * 0.1).to("cuda", dt)
+        we = (torch.randn(mid, cin, 1, 1, generator=g) * cin ** -0.5).to("cuda", dt)
+        wd = torch.zeros(mid, 1, 3, 3)
+        wd[:, :, 1, 1] = 1.0
+        wd = wd.to("cuda", dt)
+        for stride in (1, 2):
+            got = K4.mbconv_expand_dw(x, we, bn0, wd, bn1, stride).float()
+            want = K4.mbconv_expand_dw_plain(x, we, bn0, wd, bn1, stride).float()
+            assert (want < 0).all()
+            err = ((got - want).abs() / want.abs()).max().item()
+            assert err <= rel, (dt, stride, err)
