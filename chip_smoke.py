@@ -15,8 +15,9 @@ Phases (any failure exits non-zero before the result lines):
         path's own shapes), and in bfloat16 the kernel, its twin and one
         PyTorch library call are timed with CUDA events over a warm loop,
         beside the least time the card could take (bytes or operations);
-        for HyperSeg-L, K1 and K2 are also timed against each other at the
-        levels K1 takes;
+        K1's generation kernel is held against decoder.weight_map on each
+        K1 call's inputs, and in bfloat16 each K1 call's time is split into
+        generation and unit;
      b. the card's float32 kernel path against the reference (HyperSeg-M at
         batch 1 and 8, the others at batch 1); bfloat16 stage by stage
         (backbone features, decoder on the reference features and signal or
@@ -70,7 +71,7 @@ MODELS = {
              expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
         (512, 1024), 10378108,    # bench.py:92, total
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 2, "patch_invres": 0, "resize_bilinear": 5,
+         "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1, 8)),
     "L": Model(
@@ -82,7 +83,7 @@ MODELS = {
              weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
         (768, 1024), 10036096,    # the JAX count_params (tests/test_torch_hyperseg_l.py)
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 2, "patch_invres": 1, "resize_bilinear": 5,
+         "patch_invres_s2w": 3, "patch_invres": 3, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1,)),
     "V": Model(
@@ -318,42 +319,39 @@ def check_calls(model, calls, dtype, rows):
             row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
 
 
-def k1_vs_k2(calls, timed):
-    """K1 against K2 on the same units, where K1 runs: K2 from the weight
-    map that the decoder would make (decoder.weight_map's matmul). In
-    float32 the two outputs must agree; in bfloat16 the weight map is rounded
-    to bfloat16, which calibrated BN amplifies, so they are only timed: K1,
-    K2 alone, and the matmul + K2."""
-    from hyperseg_torch.models.decoder import s2w_dense_matrix
+def k1_generation(model, calls, dtype):
+    """K1's generation kernel against decoder.weight_map, its plain twin, on
+    each K1 call's own inputs: the same products summed in float32 in
+    another order, so within 1e-5 of the largest magnitude in both dtypes.
+    In bfloat16 also each K1 call's time: generation, the unit on its map,
+    and the whole wrapper."""
+    from hyperseg_torch.models.decoder import S2W, weight_map
     from hyperseg_torch.ops.kernels import patch_invres as PI
 
     for i, c in enumerate(x for x in calls if x.name == "patch_invres_s2w"):
         x, sl, w_s2w = c.args
         kw = {k: v for k, v in c.kw.items() if k != "groups"}
-        p = PI.hyper_params(x.shape[1], kw["hidden"], kw["out_ch"])
-        dense = s2w_dense_matrix(w_s2w, c.kw["groups"])[:, :p].to(sl.dtype)
+        groups, p = c.kw["groups"], PI.hyper_params(x.shape[1], kw["hidden"], kw["out_ch"])
+        route = S2W(signal_ch=sl.shape[1], signal_index=0, groups=groups,
+                    out_ch=w_s2w.shape[0], hyper_params=p)
 
-        def wmap():
-            return torch.matmul(sl.permute(0, 2, 3, 1), dense)
-        wm = wmap()
-        if not timed:
-            k1, k2 = c.kernel(), PI.patch_invres(x, wm, **kw)
-            torch.cuda.synchronize()
-            err = (k1.float() - k2.float()).abs().max().item()
-            # two float32 sums for the weights (grouped conv in K1, a dense
-            # matmul here), then the same unit: reassociation, amplified by
-            # the calibrated BN
-            tol = 1e-4 * max(1.0, k1.float().abs().max().item())
-            print(f"k1_vs_k2 L unit {i} x {tuple(x.shape)} float32: outputs differ by "
-                  f"{err:.3e} (tol {tol:.3e})", flush=True)
-            if not err <= tol:
-                fail(f"K1 and K2 disagree on L's k=3 unit {i}")
-            continue
-        t1 = cuda_ms(c.kernel)
-        t2 = cuda_ms(lambda: PI.patch_invres(x, wm, **kw))
-        t2m = cuda_ms(lambda: PI.patch_invres(x, wmap(), **kw))
-        print(f"k1_vs_k2 L unit {i} x {tuple(x.shape)} bfloat16: K1 {t1:.4f} ms, "
-              f"K2 {t2:.4f} ms, weight map + K2 {t2m:.4f} ms", flush=True)
+        def generate():
+            return PI.s2w_generate(sl, w_s2w, groups=groups, p=p)
+        got, want = generate(), weight_map(sl.float(), route, w_s2w.float())
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+        print(f"k1_generation {model} unit {i} {str(dtype):15s} map {tuple(got.shape)} vs "
+              f"weight_map max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"K1's generation disagrees with decoder.weight_map in {dtype} ({model})")
+        if dtype == torch.bfloat16:
+            t_gen = cuda_ms(generate)
+            t_unit = cuda_ms(lambda: PI.patch_invres(x, got, **kw))
+            print(f"k1_split {model} unit {i} x {tuple(x.shape)}: generation {t_gen:.4f} ms, "
+                  f"unit {t_unit:.4f} ms, K1 {cuda_ms(c.kernel):.4f} ms", flush=True)
 
 
 def to_card(t, dtype):
@@ -411,8 +409,7 @@ def run_model(key, rows):
         with recording() as calls:
             gpu(x1.cuda())
         check_calls(key, calls, torch.float32, rows)
-        if key == "L":
-            k1_vs_k2(calls, timed=False)
+        k1_generation(key, calls, torch.float32)
         del calls
         for b in cfg.f32_batches:
             compare(gpu(x8[:b].cuda()), ref[:b], f"cuda float32 b{b} logits vs cpu plain",
@@ -424,8 +421,7 @@ def run_model(key, rows):
         with recording() as calls:
             gpu(xb1)
         check_calls(key, calls, torch.bfloat16, rows)
-        if key == "L":
-            k1_vs_k2(calls, timed=True)
+        k1_generation(key, calls, torch.bfloat16)
         del calls
         # bfloat16 stage by stage: the calibrated random-weight net amplifies
         # rounding through its depth (docs/PARITY.md), so each stage runs on

@@ -14,12 +14,8 @@ vector per patch. Checkpoint-parity quirks reproduced:
 
 k=1 units (levels 0-2) run as batched per-patch matmuls, as the JAX package
 runs them outside any kernel. k=3 inverted-residual units run K1
-(ops/kernels/patch_invres.py), which generates the weights and applies the
-unit in one kernel, where K1's one block per patch fits (`k1_fits`: HyperSeg-M
-levels 3-4, HyperSeg-L levels 3-4); otherwise (HyperSeg-L level 5, 32x32
-patches) the weight map is made by one matmul with the dense
-signal2weights matrix, as decoder.py:358-390 makes it in XLA, and K2 applies
-the unit.
+(ops/kernels/patch_invres.py `patch_invres_s2w`) at every level: the weight
+map as one grouped GEMM, then the unit on it.
 
 The v0_1 decoder (MultiScaleDecoderV0, HyperSeg-L VOC) takes its weight maps
 from the weight mapper, one (B, fh, fw, P) map per level. Its k=1 levels run
@@ -74,7 +70,9 @@ def s2w_dense_matrix(weight, groups):
 def weight_map(s, route: S2W, weight):
     """A unit's weight map (B, fh, fw, hyper_params), each patch's weights
     contiguous: the routed slice, patch-major, times the dense
-    signal2weights matrix clipped to hyper_params (decoder.py:373-390)."""
+    signal2weights matrix clipped to hyper_params (decoder.py:373-390). The
+    plain twin of K1's generation kernel (ops/kernels/patch_invres.py
+    `s2w_generate`)."""
     sl = s[:, route.signal_index:route.signal_index + route.signal_ch]
     dense = s2w_dense_matrix(weight, route.groups)[:, :route.hyper_params]
     return torch.matmul(sl.permute(0, 2, 3, 1), dense.to(sl.dtype))
@@ -179,29 +177,14 @@ class InvResUnit(nn.Module):
     def apply_weights(self, x, w):
         """The unit from a given weight map w: (B, hyper_params, fh, fw), as
         the JAX InvResUnit.apply: K2 on the card, its twin on the CPU."""
-        return self._k2(x, w.permute(0, 2, 3, 1).contiguous())
-
-    def _k2(self, x, w):
-        """K2 on a (B, fh, fw, hyper_params) weight map."""
         return PI.patch_invres(
-            x, w, hidden=self.hidden, out_ch=self.out_ch, kernel=self.kernel,
-            bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params,
-            eps=BN_EPS)
-
-    def uses_k1(self, x_hw, s_hw):
-        """The dispatch rule: K1 when its one block per patch fits
-        (PI.k1_fits) for a map x_hw split by the signal grid s_hw, else K2.
-        Measured at HyperSeg-L's level 4, where both run, in PERF.md."""
-        (h, w), (fh, fw) = x_hw, s_hw
-        return PI.k1_fits(self.in_ch, self.hidden, self.out_ch, h // fh, w // fw,
-                          self.route.signal_ch)
+            x, w.permute(0, 2, 3, 1).contiguous(), hidden=self.hidden,
+            out_ch=self.out_ch, kernel=self.kernel, bn1=self.bn1.params,
+            bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS)
 
     def forward(self, x, s):
-        """Generate-and-apply from the level's signal slice s: K1, or the
-        weight map and K2 (`uses_k1`)."""
+        """Generate-and-apply from the level's signal slice s: K1."""
         r = self.route
-        if not self.uses_k1(x.shape[2:], s.shape[2:]):
-            return self._k2(x, weight_map(s, r, self.signal2weights.weight))
         sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
         return PI.patch_invres_s2w(
             x, sl, self.signal2weights.weight, groups=r.groups,

@@ -145,19 +145,24 @@ void resize_bilinear(const Tensor& x, int64_t scale, Tensor& out) {
 }
 
 void patch_invres(const Tensor& x, const Tensor& wmap, int64_t hidden,
-                  at::TensorList bn, double eps, int64_t band, Tensor& out) {
+                  at::TensorList bn, double eps, int64_t band, at::IntArrayRef layout,
+                  Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "patch_invres x");
-  check_like(wmap, x, "patch_invres w");
   check_like(out, x, "patch_invres out");
+  // the map is x's dtype, or float32 (K1's generated map)
+  TORCH_CHECK(wmap.is_cuda() && wmap.device() == x.device() && wmap.is_contiguous(),
+              "patch_invres w: contiguous, on x's device");
+  const DType wdt = dtype_of(wmap);
+  TORCH_CHECK(wdt == dt || wdt == DType::kFloat32, "patch_invres w: x's dtype or float32");
   TORCH_CHECK(bn.size() == 12, "patch_invres: bn takes 3 x (weight, bias, mean, var)");
   C10_CUDA_CHECK(hyperseg::launch_patch_invres(
-      dt, x.data_ptr(), wmap.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
+      dt, wdt, x.data_ptr(), wmap.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
       bn_of(bn[4], bn[5], bn[6], bn[7]), bn_of(bn[8], bn[9], bn[10], bn[11]),
       static_cast<float>(eps), out.data_ptr(), x.size(0), x.size(1), x.size(2),
       x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), band,
-      stream_of(x)));
+      smem_of<hyperseg::InvresSmem, 12>(layout, "patch_invres"), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -188,25 +193,20 @@ void patch_invres_v01(const Tensor& x, const Tensor& wmap, int64_t wstride,
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void patch_invres_s2w(const Tensor& x, const Tensor& s, int64_t s_bstride,
-                      const Tensor& w_s2w, int64_t groups, int64_t hidden,
-                      at::TensorList bn, double eps, int64_t hidden_chunk,
-                      int64_t threads, Tensor& out) {
-  c10::cuda::CUDAGuard guard(x.device());
-  const DType dt = dtype_of(x);
-  check_like(x, x, "patch_invres_s2w x");
-  check_like(w_s2w, x, "patch_invres_s2w w_s2w");
-  check_like(out, x, "patch_invres_s2w out");
-  TORCH_CHECK(s.is_cuda() && s.device() == x.device() && s.scalar_type() == x.scalar_type(),
-              "patch_invres_s2w s: must match x");
-  TORCH_CHECK(bn.size() == 12, "patch_invres_s2w: bn takes 3 x (weight, bias, mean, var)");
-  C10_CUDA_CHECK(hyperseg::launch_patch_invres_s2w(
-      dt, x.data_ptr(), s.data_ptr(), s_bstride, w_s2w.data_ptr(),
-      bn_of(bn[0], bn[1], bn[2], bn[3]), bn_of(bn[4], bn[5], bn[6], bn[7]),
-      bn_of(bn[8], bn[9], bn[10], bn[11]), static_cast<float>(eps), out.data_ptr(),
-      x.size(0), x.size(1), x.size(2), x.size(3), s.size(2), s.size(3), s.size(1),
-      groups, w_s2w.size(0), hidden, out.size(1), hidden_chunk, threads,
-      stream_of(x)));
+void s2w_generate(const Tensor& s, int64_t s_bstride, const Tensor& w_s2w, int64_t groups,
+                  Tensor& out) {
+  c10::cuda::CUDAGuard guard(s.device());
+  const DType dt = dtype_of(s);
+  check_like(w_s2w, s, "s2w_generate w_s2w");
+  TORCH_CHECK(out.is_cuda() && out.device() == s.device() && out.is_contiguous() &&
+                  out.scalar_type() == at::kFloat && out.dim() == 4,
+              "s2w_generate out: a contiguous float32 (B, fh, fw, P) map on s's device");
+  TORCH_CHECK(groups > 0 && s.size(1) % groups == 0 && w_s2w.size(0) % groups == 0,
+              "s2w_generate: groups must divide the signal and the weight");
+  C10_CUDA_CHECK(hyperseg::launch_s2w_generate(
+      dt, s.data_ptr(), s_bstride, w_s2w.data_ptr(), out.data_ptr<float>(), s.size(0),
+      s.size(2) * s.size(3), groups, s.size(1) / groups, w_s2w.size(0) / groups, out.size(3),
+      stream_of(s)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -220,15 +220,14 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
   m.def("mbconv_project(Tensor h, Tensor se, Tensor weight, Tensor bn_weight, "
         "Tensor bn_bias, Tensor bn_mean, Tensor bn_var, Tensor? residual, "
         "float eps, int tile, int[] layout, Tensor(a!) out) -> ()");
-  m.def("patch_invres_s2w(Tensor x, Tensor s, int s_batch_stride, Tensor w_s2w, "
-        "int groups, int hidden, Tensor[] bn, float eps, int hidden_chunk, "
-        "int threads, Tensor(a!) out) -> ()");
+  m.def("s2w_generate(Tensor s, int s_batch_stride, Tensor w_s2w, int groups, "
+        "Tensor(a!) out) -> ()");
   m.def("mbconv_expand_dw(Tensor x, Tensor w_expand, Tensor[] bn, Tensor w_dw, "
         "float eps, int stride, int pad_t, int pad_l, int tile_h, int tile_w, "
         "int channels, int[] layout, Tensor(a!) out) -> ()");
   m.def("resize_bilinear(Tensor x, int scale, Tensor(a!) out) -> ()");
   m.def("patch_invres(Tensor x, Tensor w, int hidden, Tensor[] bn, float eps, "
-        "int band, Tensor(a!) out) -> ()");
+        "int band, int[] layout, Tensor(a!) out) -> ()");
   m.def("patch_invres_v01(Tensor x, Tensor w, int w_stride, int hidden, Tensor[] bn, "
         "float eps, int band, Tensor(a!) out) -> ()");
 }
@@ -237,7 +236,7 @@ TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {
   m.impl("stem", &stem);
   m.impl("mbconv_dw", &mbconv_dw);
   m.impl("mbconv_project", &mbconv_project);
-  m.impl("patch_invres_s2w", &patch_invres_s2w);
+  m.impl("s2w_generate", &s2w_generate);
   m.impl("mbconv_expand_dw", &mbconv_expand_dw);
   m.impl("resize_bilinear", &resize_bilinear);
   m.impl("patch_invres", &patch_invres);

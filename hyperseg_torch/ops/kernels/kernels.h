@@ -71,28 +71,28 @@ cudaError_t launch_resize_bilinear(DType dt, const void* x, void* out,
                                    int planes, int height, int width, int scale,
                                    cudaStream_t stream);
 
-// K1. x (B, cin, H, W); s: signal slice, element (b, c, fy, fx) at
-// s + b*s_bstride + (c*fh + fy)*fw + fx, c < sig; w_s2w (n_out, sig/groups);
-// out (B, out_ch, H, W). out_ch <= 32; `threads` a multiple of 32, at most
-// 256; `hidden_chunk` a multiple of 8, and at least the hidden width rounded
-// up to 8 unless a patch has at most `threads` pixels.
-cudaError_t launch_patch_invres_s2w(DType dt, const void* x, const void* s,
-                                    int64_t s_bstride, const void* w_s2w,
-                                    BNParams bn1, BNParams bn2, BNParams bn3,
-                                    float eps, void* out, int batch, int cin,
-                                    int height, int width, int fh, int fw,
-                                    int sig, int groups, int n_out, int hidden,
-                                    int out_ch, int hidden_chunk, int threads,
-                                    cudaStream_t stream);
+// K1's generation. s: signal slice, element (b, c, patch) at
+// s + b*s_bstride + c*fhw + patch, c < groups*fan_in; w_s2w (groups*opg,
+// fan_in); out float32 (B, fhw, p), out[b, patch, g*opg + j] = sum_c
+// s[b, g*fan_in + c, patch] * w_s2w[g*opg + j, c] for g*opg + j < p.
+cudaError_t launch_s2w_generate(DType dt, const void* s, int64_t s_bstride, const void* w_s2w,
+                                float* out, int batch, int fhw, int groups, int fan_in,
+                                int opg, int p, cudaStream_t stream);
 
-// K2. x (B, cin, H, W); wmap (B, fh, fw, P) per-patch weights w1 (hidden,
-// cin) | w2 (hidden, 3, 3) | w3 (out_ch, hidden); out (B, out_ch, H, W).
-// out_ch <= 32; `band` rows of a patch per block, a divisor of H / fh.
-cudaError_t launch_patch_invres(DType dt, const void* x, const void* wmap,
-                                BNParams bn1, BNParams bn2, BNParams bn3,
-                                float eps, void* out, int batch, int cin,
-                                int height, int width, int fh, int fw,
-                                int hidden, int out_ch, int band,
+// Shared memory of one K1/K2 unit block as patch_invres.py's unit_layout
+// lays it out: pitches in elements, offsets and total in bytes.
+struct InvresSmem {
+  int x_row, h_row, w1_row, w3_row, o_row, h_off, w1_off, w3_off, w2_off, v_off, t_off, total;
+};
+
+// K2, and K1's unit. x (B, cin, H, W) of type dt; wmap (B, fh, fw, P) of
+// type wdt (dt, or float32) per-patch weights w1 (hidden, cin) | w2 (hidden,
+// 3, 3) | w3 (out_ch, hidden); out (B, out_ch, H, W). out_ch <= 32, hidden
+// <= 512; `band` rows of a patch per block, a divisor of H / fh.
+cudaError_t launch_patch_invres(DType dt, DType wdt, const void* x, const void* wmap,
+                                BNParams bn1, BNParams bn2, BNParams bn3, float eps,
+                                void* out, int batch, int cin, int height, int width, int fh,
+                                int fw, int hidden, int out_ch, int band, InvresSmem lay,
                                 cudaStream_t stream);
 
 // K7. As K2 with the v0_1 semantics: a depthwise halo pixel is expanded

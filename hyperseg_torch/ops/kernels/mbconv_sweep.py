@@ -26,7 +26,7 @@ import torch.nn.functional as TF
 from hyperseg_torch.models.backbones.efficientnet import EfficientNet
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.ops.kernels import mbconv as K4
-from hyperseg_torch.ops.kernels.k1_sweep import cuda_ms
+from hyperseg_torch.ops.kernels.invres_sweep import cuda_ms
 
 MODELS = {  # name: backbone, input (H, W)
     "M": ("efficientnet-b1", (512, 1024)),

@@ -1,62 +1,50 @@
 """K1, K2 and K7: the patch-wise hyper inverted residuals, on the card.
 
 K1 `patch_invres_s2w` replaces hyperseg_tpu/ops/pallas/patch_invres.py:488
-`patch_inverted_residual_s2w_fused`: signal2weights and the unit, fused.
-K2 `patch_invres` replaces patch_invres.py:870 `patch_inverted_residual_fused`:
+`patch_inverted_residual_s2w_fused`: signal2weights and the unit. K2
+`patch_invres` replaces patch_invres.py:870 `patch_inverted_residual_fused`:
 the unit from a weight map made beforehand. K7 `patch_invres_v01` replaces
 patch_invres.py:784 `patch_inverted_residual_v01`: the v0_1 unit from a
 weight map, whose depthwise halo is the neighbouring patches' expand outputs.
 Source: patch_invres.cu.
 
-K1 holds a whole patch in one block; a patch of more pixels than threads
-keeps its whole hidden map in shared memory, which at HyperSeg-L's level 5
-(32x32 patches, 21 -> 42 -> 12) is more than a block may have. `k1_fits`
-says whether K1 takes a unit; the decoder sends the others to K2, which
-tiles a patch into bands of rows.
+K1 is two launches behind one wrapper. `s2w_generate` makes the (B, fh, fw,
+P) weight map in float32 as one grouped GEMM on the tensor cores: per weight
+group, (patches x fan_in) . (fan_in x n_out/groups), clipped to P - the
+grouped form, not the block-diagonal dense matrix, which would cost
+`groups`x the MACs. A block takes 64 patches, so each tile of the
+signal2weights weight is read once per 64 patches. Then K2's unit runs on
+that map, through the module's `patch_invres`; the map stays float32, so the
+unit folds BN into each weight and rounds it once.
 
-K1:
+K2's unit: one block per band of rows of a patch (`unit_plan`). It stages
+the band's haloed window (the neighbours' pixels inside the map, reflected
+only at the image border) in 8-pixel chunks from the column rounded down to
+8, folds the BN scales into the patch's weights, and runs expand (a GEMM on
+the tensor cores in bfloat16; K padded to 16, N to 16), relu6, depthwise 3x3
+(CUDA cores, float32), relu6, project (a second GEMM) and bn3 (+ x when
+Cin == out_ch). The hidden map stays whole in shared memory, in float32: a
+bfloat16 map, rounded once more before the depthwise, fails the bfloat16
+gate against the twin under calibrated BN. float32 runs the same blocks
+with FMAs.
 
-One thread block per patch (b, fy, fx). The block
-  1. generates its P weights into shared memory from its signal slice with
-     the grouped signal2weights conv weight (out_ch, sig/groups) - the grouped
-     form, not the block-diagonal dense matrix, which would cost `groups`x the
-     MACs (28k MACs per patch at HyperSeg-M level 3, 337k at level 4); eight
-     lanes share each row of that weight, so its reads are coalesced;
-  2. loads its (ph+2) x (pw+2) haloed patch: the neighbours' pixels inside
-     the map, reflected only at the image border;
-  3. runs expand -> bn1 -> relu6 (halo included) -> depthwise 3x3 -> bn2 ->
-     relu6 -> project -> bn3 (+ x when Cin == out_ch), BN folded in float32
-     into the generated weights, over chunks of the hidden channels sized
-     so that two blocks share an SM (`plan`).
-The generated weights and the hidden map never leave shared memory.
+Bound on the H100: bytes. At HyperSeg-M level 4 a 16x16 patch takes ~1.6
+MMAC (generation 0.34, expand 0.75, depthwise 0.16, project 0.33) on ~27 KB
+of bf16 input and output, ~116 flop per byte, under the tensor cores' ~295
+flop/byte balance.
 
-Bound on the H100: at HyperSeg-M level 4 a 16x16 patch takes ~1.6 MMAC
-(generation 0.34, expand 0.75, depthwise 0.16, project 0.33) on ~27 KB of
-bf16 input and output, ~116 flop per byte: in bf16 that is under the tensor
-cores' ~295 flop/byte balance, so the least time is set by bytes. The kernel
-runs the products on the CUDA cores in float32 from shared memory, where
-operations bind it; moving the expand and project products onto the tensor
-cores is later work.
-
-K2: one block per band of rows of a patch (`k2_plan`: as many rows as give
-at most 256 pixels, in at most SMEM_BUDGET of shared memory, so two blocks
-share an SM). The block loads the band with a one-pixel halo (neighbours'
-pixels inside the map, reflected at the image border) and the patch's P
-weights, contiguous in the (B, fh, fw, P) map, folds the BN scales into them,
-expands the band and its halo rows with this patch's w1, then runs
-depthwise + project one output pixel per thread at a time. The halo rows are
-expanded again by the neighbouring band: 10 rows expanded for 8 kept at
-32x32 patches. Bound: as K1's expand and project stages.
-
-K7: K2's blocks and plan, with each halo pixel expanded with the w1 of the
-patch that owns it, read from the weight map in device memory (the block
-holds only its own patch's weights). HyperSeg-L VOC runs it at 4x4 to 32x32
-patches; a 4x4 patch is one block of 16 pixels and 20 halo pixels, which
-leaves most of the block's threads idle in depthwise + project (a block
-over several patches is the remedy, not taken yet).
+K7: one block per band of rows (`v01_plan`), float32 products on the CUDA
+cores; each halo pixel is expanded with the w1 of the patch that owns it,
+read from the weight map in device memory (the block holds only its own
+patch's weights). HyperSeg-L VOC runs it at 4x4 to 32x32 patches; a 4x4
+patch is one block of 16 pixels and 20 halo pixels, which leaves most of the
+block's threads idle in depthwise + project (a block over several patches
+is the remedy, not taken yet).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as TF
@@ -65,11 +53,14 @@ from hyperseg_torch.ops import patch as P
 from hyperseg_torch.ops.kernels import LAUNCHES
 from hyperseg_torch.ops.kernels import build
 
-MAX_OUT = 32                 # output channels held in registers per pixel
-MAX_THREADS = 256            # the kernel's launch bound
+MAX_OUT = 32                 # output channels a unit block holds per pixel
+MAX_HIDDEN = 512             # hidden channels of the unit: one pair a thread
 SMEM_LIMIT = 232448          # bytes of shared memory one block may use
 SMEM_BUDGET = 113 * 1024     # per block, so that two blocks share an SM
-HIDDEN_TILE = 8              # hidden channels per thread in the expand stage
+SMS = 132                    # streaming multiprocessors of the H100
+MIN_BLOCKS = 2 * SMS         # a grid that fills every SM twice
+V01_THREADS = 256            # K7's threads a block
+V01_HIDDEN_TILE = 8          # K7: hidden channels per thread in the expand stage
 
 
 def hyper_params(cin, hidden, out_ch, kernel=3):
@@ -81,40 +72,84 @@ def _round_up(v, m):
     return -(-v // m) * m
 
 
-def plan(cin, hidden, out_ch, ph, pw, sig, budget=SMEM_BUDGET):
-    """(threads, hidden_chunk, shared-memory bytes) of one block; the
-    shared-memory layout is patch_invres.cu's. The hidden map is kept in
-    chunks of `hidden_chunk` channels, as large as `budget` allows, split
-    evenly; a patch of more pixels than threads keeps it whole."""
-    n_pix, nh = ph * pw, (ph + 2) * (pw + 2)
-    threads = MAX_THREADS if n_pix >= MAX_THREADS else MAX_THREADS // 2
-    hp, op = _round_up(hidden, HIDDEN_TILE), _round_up(out_ch, 4)
-    fixed = (cin + 11) * hp + hp * op + op + 2 * hidden + out_ch + sig + cin * nh
-    chunk = hp
-    if n_pix <= threads:
-        fit = max(HIDDEN_TILE, (budget // 4 - fixed) // nh // HIDDEN_TILE * HIDDEN_TILE)
-        if fit < hp:
-            chunk = _round_up(-(-hp // -(-hp // fit)), HIDDEN_TILE)
-    return threads, chunk, 4 * (fixed + chunk * nh)
+def row_chunks(pw):
+    """8-pixel chunks of a staged row of a patch's pw columns, from its first
+    column rounded down to 8: pw / 8 where every patch starts on a multiple
+    of 8, else enough for any start."""
+    return pw // 8 if pw % 8 == 0 else (pw + 14) // 8
 
 
-def k1_fits(cin, hidden, out_ch, ph, pw, sig):
-    """Whether K1 takes a unit: its one block per patch fits SMEM_LIMIT."""
-    return plan(cin, hidden, out_ch, ph, pw, sig)[2] <= SMEM_LIMIT
+def staged_chunks(pw, band):
+    """8-pixel chunks a unit block stages: its band + 2 rows of the patch's
+    columns, then the halo columns (the window's first and last) of those
+    rows packed 8 to a chunk; an even count, so they make whole 16-pixel
+    m-tiles."""
+    return _round_up((band + 2) * row_chunks(pw) + -(-2 * (band + 2) // 8), 2)
 
 
-def k2_plan(cin, hidden, out_ch, ph, pw, budget=SMEM_BUDGET):
-    """(band rows, shared-memory bytes) of one K2 block; the layout is
-    patch_invres.cu's. The band is the largest divisor of ph with at most
-    MAX_THREADS pixels whose block fits `budget`, else 1 row."""
-    hp, op = _round_up(hidden, HIDDEN_TILE), _round_up(out_ch, 4)
+def unit_layout(cin, hidden, out_ch, pw, band, itemsize):
+    """Shared memory of one K1/K2 unit block as patch_invres.cu takes it
+    (InvresSmem in kernels.h): (x_row, h_row, w1_row, w3_row, o_row, h_off,
+    w1_off, w3_off, w2_off, v_off, t_off, total), pitches in elements,
+    offsets and total in bytes. kp and hk are cin and hidden rounded up to
+    16, op is out_ch rounded up to 8. From byte 0 the staged window
+    [kp][x_row] (rows an odd count of 16 bytes, so an ldmatrix's 8 rows hit
+    8 bank groups), later the depthwise output [pixel][h_row]; at h_off
+    the patch's P weights as the map holds them (float32 at most), later
+    the float32 hidden map [window pixel][h_row], later the float32 output
+    tile [op][o_row]; the folded w1 [hk][w1_row] and w3 [op][w3_row] in x's
+    type; w2 [hk][9], the biases b1, b2 [hk], b3 [op] and the scales s1, s2
+    [hk], s3 [op] in float32; one int4 per staged chunk."""
+    pad = 16 // itemsize
+    kp, hk, op = _round_up(cin, 16), _round_up(hidden, 16), _round_up(out_ch, 8)
+    nch = staged_chunks(pw, band)
+    # h_row = hk + 8: an odd count of 16 bytes in bfloat16 (ldmatrix), and
+    # 8 or 24 mod 32 words, so 8-byte stores of 4 rows of the float32 map
+    # hit 32 banks
+    x_row, h_row, w1_row, w3_row, o_row = 8 * nch + 8, hk + 8, kp + pad, hk + pad, band * pw + 4
+    window = (band + 2) * (pw + 2)
+    h_off = _round_up(itemsize * max(kp * x_row, _round_up(band * pw, 16) * h_row), 16)
+    w1_off = _round_up(h_off + max(4 * window * h_row, 4 * op * o_row,
+                                   4 * hyper_params(cin, hidden, out_ch)), 16)
+    w3_off = _round_up(w1_off + itemsize * hk * w1_row, 16)
+    w2_off = _round_up(w3_off + itemsize * op * w3_row, 16)
+    v_off = _round_up(w2_off + 4 * 9 * hk, 16)
+    t_off = _round_up(v_off + 4 * 2 * (2 * hk + op), 16)
+    return (x_row, h_row, w1_row, w3_row, o_row, h_off, w1_off, w3_off, w2_off, v_off, t_off,
+            t_off + 16 * nch)
+
+
+@functools.lru_cache(maxsize=None)
+def unit_plan(cin, hidden, out_ch, ph, pw, patches, itemsize=2):
+    """(band, layout) of one K1/K2 unit launch over `patches` patches of
+    ph x pw (all images), cached per shape: the tallest band (a divisor of
+    ph) whose grid keeps MIN_BLOCKS blocks with two blocks to an SM (within
+    SMEM_BUDGET); the shortest such band where none keeps MIN_BLOCKS; one
+    block to an SM (within SMEM_LIMIT) only where no band fits two.
+    `invres_sweep --plans` times every band against the pick."""
+    fits = [(r, lay) for r in range(1, ph + 1) if ph % r == 0
+            for lay in [unit_layout(cin, hidden, out_ch, pw, r, itemsize)]
+            if lay[-1] <= SMEM_LIMIT]
+    if not fits:
+        raise ValueError(f"patch_invres: a {ph}x{pw} patch of {cin} -> {hidden} -> {out_ch} "
+                         f"channels leaves no band within {SMEM_LIMIT} B of shared memory")
+    pool = [f for f in fits if f[1][-1] <= SMEM_BUDGET] or fits
+    keep = [f for f in pool if patches * (ph // f[0]) >= MIN_BLOCKS]
+    return keep[-1] if keep else pool[0]
+
+
+def v01_plan(cin, hidden, out_ch, ph, pw, budget=SMEM_BUDGET):
+    """(band rows, shared-memory bytes) of one K7 block; the layout is
+    patch_invres.cu's `Unit`. The band is the largest divisor of ph with at
+    most V01_THREADS pixels whose block fits `budget`, else 1 row."""
+    hp, op = _round_up(hidden, V01_HIDDEN_TILE), _round_up(out_ch, 4)
 
     def nbytes(band):
         nb = (band + 2) * (pw + 2)
         return 4 * ((cin + 11) * hp + hp * op + op + 2 * hidden + out_ch + (cin + hp) * nb)
 
     fits = [r for r in range(1, ph + 1)
-            if ph % r == 0 and r * pw <= MAX_THREADS and nbytes(r) <= budget]
+            if ph % r == 0 and r * pw <= V01_THREADS and nbytes(r) <= budget]
     band = max(fits, default=1)
     return band, nbytes(band)
 
@@ -129,10 +164,10 @@ def patch_invres_plain(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=
 
 
 def patch_invres(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
-    """x: (B, Cin, H, W); w: (B, fh, fw, P) per-patch weights, P =
-    hyper_params(Cin, hidden, out_ch) in the order w1 (hidden, Cin) | w2
-    (hidden, 3, 3) | w3 (out_ch, hidden); bnN float32 (weight, bias,
-    running_mean, running_var). Reflect halo, stride 1, relu6, + x when
+    """x: (B, Cin, H, W); w: (B, fh, fw, P) per-patch weights, x's dtype or
+    float32, P = hyper_params(Cin, hidden, out_ch) in the order w1 (hidden,
+    Cin) | w2 (hidden, 3, 3) | w3 (out_ch, hidden); bnN float32 (weight,
+    bias, running_mean, running_var). Reflect halo, stride 1, relu6, + x when
     Cin == out_ch. Returns (B, out_ch, H, W)."""
     if x.device.type == "cpu":
         return patch_invres_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1,
@@ -142,23 +177,25 @@ def patch_invres(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
     b, cin, h, wd = x.shape
     if kernel != 3:
         raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3")
-    if out_ch > MAX_OUT:
-        raise ValueError(f"{name}: {out_ch} output channels; at most {MAX_OUT}")
+    if out_ch > MAX_OUT or hidden > MAX_HIDDEN:
+        raise ValueError(f"{name}: {hidden} hidden, {out_ch} output channels; at most "
+                         f"{MAX_HIDDEN}, {MAX_OUT}")
     if w.dim() != 4 or w.shape[0] != b:
         raise ValueError(f"{name}: weight map {tuple(w.shape)} is not (B, fh, fw, P)")
     _, fh, fw, p = w.shape
-    build.check(f"{name} w", w, x.dtype, (b, fh, fw, hyper_params(cin, hidden, out_ch)))
+    if w.dtype not in (x.dtype, torch.float32):
+        raise ValueError(f"{name}: weight map {w.dtype}; x's dtype or float32")
+    build.check(f"{name} w", w, w.dtype, (b, fh, fw, hyper_params(cin, hidden, out_ch)))
     if h % fh or wd % fw or h // fh < 2 or wd // fw < 2:
         raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches "
                          "of at least 2x2")
     for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
         build.check_bn(f"{name} bn", bn, c)
-    band, nbytes = k2_plan(cin, hidden, out_ch, h // fh, wd // fw)
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {nbytes} B of shared memory per band, "
-                         f"more than {SMEM_LIMIT}")
+    band, layout = unit_plan(cin, hidden, out_ch, h // fh, wd // fw, b * fh * fw,
+                             x.element_size())
     out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
-    build.kernels().patch_invres(x, w, hidden, [*bn1, *bn2, *bn3], float(eps), band, out)
+    build.kernels().patch_invres(x, w, hidden, [*bn1, *bn2, *bn3], float(eps), band, layout,
+                                 out)
     LAUNCHES["patch_invres"] += 1
     return out
 
@@ -210,7 +247,7 @@ def patch_invres_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
         raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches")
     for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
         build.check_bn(f"{name} bn", bn, c)
-    band, nbytes = k2_plan(cin, hidden, out_ch, h // fh, wd // fw)
+    band, nbytes = v01_plan(cin, hidden, out_ch, h // fh, wd // fw)
     if nbytes > SMEM_LIMIT:
         raise ValueError(f"{name}: needs {nbytes} B of shared memory per band, "
                          f"more than {SMEM_LIMIT}")
@@ -221,13 +258,49 @@ def patch_invres_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
     return out
 
 
+def s2w_generate_plain(s, w_s2w, *, groups, p):
+    """Plain twin of K1's generation: the grouped 1x1 conv in float32,
+    clipped to p, as a (B, fh, fw, p) map."""
+    w = TF.conv2d(s.float(), w_s2w.float(), groups=groups)[:, :p]
+    return w.permute(0, 2, 3, 1).contiguous()
+
+
+def s2w_generate(s, w_s2w, *, groups, p):
+    """K1's weight map: s (B, sig, fh, fw), a channel slice of a contiguous
+    NCHW signal taken as it is; w_s2w (n_out, sig // groups, 1, 1), n_out >=
+    p and a multiple of groups. Returns the float32 (B, fh, fw, p) map of the
+    grouped 1x1 conv, clipped to p."""
+    if s.device.type == "cpu":
+        return s2w_generate_plain(s, w_s2w, groups=groups, p=p)
+    name = "patch_invres_s2w"
+    if (s.device.type != "cuda" or s.dim() != 4
+            or s.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} is not a float32 or "
+                         "bfloat16 (B, sig, fh, fw) CUDA tensor")
+    if s.requires_grad and torch.is_grad_enabled():
+        raise ValueError(f"{name}: the kernel is eval-only; run under torch.no_grad()")
+    b, sig, fh, fw = s.shape
+    if s.stride()[1:] != (fh * fw, fw, 1):
+        raise ValueError(f"{name}: the signal must be a channel slice of a "
+                         "contiguous NCHW tensor")
+    n_out = w_s2w.shape[0]
+    build.check(f"{name} w_s2w", w_s2w, s.dtype, (n_out, sig // groups, 1, 1))
+    if sig % groups or n_out % groups or n_out < p:
+        raise ValueError(f"{name}: signal2weights weight {tuple(w_s2w.shape)} does not "
+                         f"fit sig={sig}, groups={groups}, P={p}")
+    out = torch.empty((b, fh, fw, p), device=s.device, dtype=torch.float32)
+    build.kernels().s2w_generate(s, s.stride(0), w_s2w, groups, out)
+    LAUNCHES["patch_invres_s2w"] += 1
+    return out
+
+
 def patch_invres_s2w_plain(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2,
                            bn3, eps=1e-5, kernel=3):
     """Plain twin: generate the weight map with the grouped 1x1 conv, clip it
     to P, and run the eager unit (ops/patch.py), all in float32."""
-    p = hyper_params(x.shape[1], hidden, out_ch, kernel)
-    w = TF.conv2d(s.float(), w_s2w.float(), groups=groups)[:, :p]
-    out = P.patch_inverted_residual(x.float(), w, hidden=hidden, out_ch=out_ch,
+    w = s2w_generate_plain(s, w_s2w, groups=groups,
+                           p=hyper_params(x.shape[1], hidden, out_ch, kernel))
+    out = P.patch_inverted_residual(x.float(), w.permute(0, 3, 1, 2), hidden=hidden, out_ch=out_ch,
                                     kernel=kernel, bn1=bn1, bn2=bn2, bn3=bn3,
                                     eps=eps)
     return out.to(x.dtype)
@@ -239,41 +312,18 @@ def patch_invres_s2w(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2, bn3,
     (a channel slice of a contiguous NCHW signal is taken as it is);
     w_s2w: (n_out, sig // groups, 1, 1), n_out >= P and a multiple of groups;
     bnN: float32 (weight, bias, running_mean, running_var). Reflect halo,
-    stride 1. Returns (B, out_ch, H, W)."""
+    stride 1. Returns (B, out_ch, H, W). On the card: the generation kernel,
+    then K2's unit on its float32 map (the module's `patch_invres`)."""
     if x.device.type == "cpu":
         return patch_invres_s2w_plain(x, s, w_s2w, groups=groups, hidden=hidden,
                                       out_ch=out_ch, bn1=bn1, bn2=bn2, bn3=bn3,
                                       eps=eps, kernel=kernel)
     name = "patch_invres_s2w"
     build.check_activation(f"{name} x", x)
-    b, cin, h, w = x.shape
+    if s.device != x.device or s.dtype != x.dtype or s.dim() != 4 or s.shape[0] != x.shape[0]:
+        raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} does not match x")
     if kernel != 3:
         raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3")
-    if out_ch > MAX_OUT:
-        raise ValueError(f"{name}: {out_ch} output channels; at most {MAX_OUT}")
-    if s.device != x.device or s.dtype != x.dtype or s.dim() != 4 or s.shape[0] != b:
-        raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} does not match x")
-    _, sig, fh, fw = s.shape
-    if s.stride()[1:] != (fh * fw, fw, 1):
-        raise ValueError(f"{name}: the signal must be a channel slice of a "
-                         "contiguous NCHW tensor")
-    if h % fh or w % fw or h < 2 or w < 2:
-        raise ValueError(f"{name}: map {h}x{w} does not split into {fh}x{fw} patches")
-    p = hyper_params(cin, hidden, out_ch, kernel)
-    n_out = w_s2w.shape[0]
-    build.check(f"{name} w_s2w", w_s2w, x.dtype, (n_out, sig // groups, 1, 1))
-    if sig % groups or n_out % groups or n_out < p:
-        raise ValueError(f"{name}: signal2weights weight {tuple(w_s2w.shape)} does not "
-                         f"fit sig={sig}, groups={groups}, P={p}")
-    for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
-        build.check_bn(f"{name} bn", bn, c)
-    threads, chunk, nbytes = plan(cin, hidden, out_ch, h // fh, w // fw, sig)
-    if nbytes > SMEM_LIMIT:
-        raise ValueError(f"{name}: needs {nbytes} B of shared memory per patch, "
-                         f"more than {SMEM_LIMIT}")
-    out = torch.empty((b, out_ch, h, w), device=x.device, dtype=x.dtype)
-    build.kernels().patch_invres_s2w(x, s, s.stride(0), w_s2w, groups, hidden,
-                                     [*bn1, *bn2, *bn3], float(eps), chunk, threads,
-                                     out)
-    LAUNCHES["patch_invres_s2w"] += 1
-    return out
+    w = s2w_generate(s, w_s2w, groups=groups, p=hyper_params(x.shape[1], hidden, out_ch))
+    return patch_invres(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2, bn3=bn3,
+                        eps=eps)

@@ -20,6 +20,8 @@ K1_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out, sig, groups
     (1, 2, 2, 16, 16, 34, 68, 19, 80, 4),   # level-4 widths, 16x16 patches
     (1, 2, 2, 8, 8, 16, 32, 16, 32, 2),     # residual (cin == out)
     (1, 1, 2, 32, 32, 8, 16, 8, 16, 2),     # more pixels than threads, residual
+    (1, 1, 2, 32, 32, 21, 42, 12, 128, 8),  # HyperSeg-L level-5 widths: fan-in 16
+    (8, 2, 2, 16, 16, 34, 68, 19, 320, 4),  # level-4 widths at batch 8: fan-in 80
 ]
 
 
@@ -57,20 +59,28 @@ K6_CASES = [  # b, c, h, w, scale
     (2, 19, 64, 128, 2), (1, 16, 24, 32, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4)]
 
 
-def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups):
+def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups, calibrated=False):
+    """x, s, w_s2w and three BNs; `calibrated`: running variances of 1e-3 to
+    1e-2 and matching means, BN scales of 10-30 as BN calibration leaves them,
+    which amplify any second rounding of the folded weights."""
     rng = np.random.RandomState(seed)
     n_out = -(-K1.hyper_params(cin, hidden, out) // groups) * groups
     x = rng.randn(b, cin, fh * ph, fw * pw).astype(np.float32)
     s = (rng.randn(b, sig, fh, fw) * 0.3).astype(np.float32)
     w = (rng.randn(n_out, sig // groups, 1, 1) * 0.05).astype(np.float32)
-    return x, s, w, [bn_params(rng, c) for c in (hidden, hidden, out)]
+    bns = [bn_params(rng, c) for c in (hidden, hidden, out)]
+    if calibrated:
+        bns = [(wt, bi, m * 0.1, (rng.rand(len(v)) * 9e-3 + 1e-3).astype(np.float32))
+               for wt, bi, m, v in bns]
+    return x, s, w, bns
 
 
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
     """Each CUDA kernel against its plain twin on the card, f32 and bf16:
     K3, K4a, K4b, K1, and K2, K5, K6, K7 at HyperSeg-M's, -L's and -L VOC's
-    widths (B3's among them) and at ragged sizes."""
+    widths (B3's among them) and at ragged sizes; K1 also with calibrated-size
+    BN scales, K2 also on a float32 map with a bfloat16 x."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -109,9 +119,9 @@ def test_kernels_match_twins_on_card():
             res = r(b, cout, h, w) if with_res else None
             close(K4.mbconv_project(hs, se, wp, bn(cout), res),
                   K4.mbconv_project_plain(hs, se, wp, bn(cout), res))
-        for case in K1_CASES:
+        for case, calibrated in [(c, False) for c in K1_CASES] + [(K1_CASES[1], True)]:
             b, fh, fw, ph, pw, cin, hidden, out, sig, groups = case
-            xs, ss, ws, bns = _k1_inputs(5, *case)
+            xs, ss, ws, bns = _k1_inputs(5, *case, calibrated=calibrated)
             args = dict(groups=groups, hidden=hidden, out_ch=out,
                         bn1=tuple(t(v).to(dev) for v in bns[0]),
                         bn2=tuple(t(v).to(dev) for v in bns[1]),
@@ -125,6 +135,9 @@ def test_kernels_match_twins_on_card():
             args = dict(hidden=hidden, out_ch=out, bn1=bn(hidden), bn2=bn(hidden),
                         bn3=bn(out))
             close(K1.patch_invres(xs, ws, **args), K1.patch_invres_plain(xs, ws, **args))
+            if dt == torch.bfloat16:   # K1's float32 map with a bfloat16 x
+                wf = ws.float()
+                close(K1.patch_invres(xs, wf, **args), K1.patch_invres_plain(xs, wf, **args))
         for b, cin, mid, h, w, stride in K5_CASES:
             xs = r(b, cin, h, w)
             we, wd = r(mid, cin, 1, 1, scale=cin ** -0.5), r(mid, 1, 3, 3, scale=0.3)

@@ -1,4 +1,4 @@
-"""K2 (patch_invres) and the decoder's choice between K1 and K2.
+"""K2 (patch_invres) and the dense-matrix weight map.
 
 K2's twin - what the wrapper runs for a CPU tensor - is compared with the
 Pallas kernel it replaces (hyperseg_tpu/ops/pallas/patch_invres.py
@@ -11,12 +11,11 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from hyperseg_torch.models import hyperseg_v1_0 as V1
 from hyperseg_torch.models.decoder import S2W, InvResUnit, weight_map
 from hyperseg_torch.ops.kernels import LAUNCHES
 from hyperseg_torch.ops.kernels import patch_invres as PI
 
-from torch_parity import HYPERSEG_L_KW, HYPERSEG_M_KW, bn_params, nchw, nhwc, t
+from torch_parity import bn_params, nchw, nhwc, t
 
 K2_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out
     (1, 2, 2, 32, 32, 21, 42, 12),   # HyperSeg-L level 5: 32x32 patches
@@ -93,32 +92,6 @@ def test_weight_map_matches_jax_signal2weights():
     got = weight_map(t(s), route, t(wt))
     assert got.is_contiguous() and got.shape == (2, 3, 4, p)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
-
-
-def _k1_units(model, in_hw):
-    """For each k=3 unit of the decoder, whether it runs K1 at input size
-    in_hw: level l's map is at stride 32 / 2^l, the signal grid at 32."""
-    dec = model.decoder
-    h, w = in_hw
-    return {lv: u.uses_k1((h * 2 ** lv // 32, w * 2 ** lv // 32), (h // 32, w // 32))
-            for lv in range(dec.levels) for u in getattr(dec, f"level_{lv}")
-            if isinstance(u, InvResUnit)}
-
-
-def test_k1_k2_dispatch():
-    """HyperSeg-L runs K1 at levels 3-4 and K2 at level 5 (32x32 patches,
-    whose one block per patch K1 cannot hold); HyperSeg-M runs K1 at both of
-    its k=3 levels. The rule is K1.plan's shared memory against its limit."""
-    lm = V1.hyperseg_efficientnet("efficientnet-b1", device="cpu", **HYPERSEG_L_KW)
-    assert _k1_units(lm, (768, 1024)) == {3: True, 4: True, 5: False}
-    assert _k1_units(lm, (128, 256)) == {3: True, 4: True, 5: False}
-    mm = V1.hyperseg_efficientnet("efficientnet-b1", device="cpu", **HYPERSEG_M_KW)
-    assert _k1_units(mm, (512, 1024)) == {3: True, 4: True}
-    assert not PI.k1_fits(21, 42, 12, 32, 32, 128)
-    assert PI.k1_fits(22, 44, 16, 16, 16, 128)
-    # K2 takes level 5 in bands of 8 rows, two blocks to an SM
-    band, nbytes = PI.k2_plan(21, 42, 12, 32, 32)
-    assert band == 8 and 2 * nbytes <= 228 * 1024
 
 
 def test_k2_wrapper_refuses_what_it_cannot_take():
