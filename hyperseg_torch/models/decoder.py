@@ -15,7 +15,8 @@ vector per patch. Checkpoint-parity quirks reproduced:
 k=1 units (levels 0-2) run as batched per-patch matmuls, as the JAX package
 runs them outside any kernel. k=3 inverted-residual units run K1
 (ops/kernels/patch_invres.py `patch_invres_s2w`) at every level: the weight
-map as one grouped GEMM, then the unit on it.
+map as one grouped GEMM, then the unit on it. K1 takes a 3x3 or a 5x5
+depthwise (no shipped config has a 5x5).
 
 The v0_1 decoder (MultiScaleDecoderV0, HyperSeg-L VOC) takes its weight maps
 from the weight mapper, one (B, fh, fw, P) map per level. Its k=1 levels run

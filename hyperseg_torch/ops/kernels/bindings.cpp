@@ -145,8 +145,8 @@ void resize_bilinear(const Tensor& x, int64_t scale, Tensor& out) {
 }
 
 void patch_invres(const Tensor& x, const Tensor& wmap, int64_t hidden,
-                  at::TensorList bn, double eps, int64_t band, at::IntArrayRef layout,
-                  Tensor& out) {
+                  at::TensorList bn, double eps, int64_t kernel, int64_t band,
+                  at::IntArrayRef layout, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "patch_invres x");
@@ -161,14 +161,14 @@ void patch_invres(const Tensor& x, const Tensor& wmap, int64_t hidden,
       dt, wdt, x.data_ptr(), wmap.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
       bn_of(bn[4], bn[5], bn[6], bn[7]), bn_of(bn[8], bn[9], bn[10], bn[11]),
       static_cast<float>(eps), out.data_ptr(), x.size(0), x.size(1), x.size(2),
-      x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), band,
+      x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), kernel, band,
       smem_of<hyperseg::InvresSmem, 12>(layout, "patch_invres"), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
 void patch_invres_v01(const Tensor& x, const Tensor& wmap, int64_t wstride,
                       int64_t hidden, at::TensorList bn, double eps, int64_t band,
-                      Tensor& out) {
+                      at::IntArrayRef layout, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "patch_invres_v01 x");
@@ -189,7 +189,8 @@ void patch_invres_v01(const Tensor& x, const Tensor& wmap, int64_t wstride,
       dt, x.data_ptr(), wmap.data_ptr(), wstride, bn_of(bn[0], bn[1], bn[2], bn[3]),
       bn_of(bn[4], bn[5], bn[6], bn[7]), bn_of(bn[8], bn[9], bn[10], bn[11]),
       static_cast<float>(eps), out.data_ptr(), x.size(0), x.size(1), x.size(2),
-      x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), band, stream_of(x)));
+      x.size(3), wmap.size(1), wmap.size(2), hidden, out.size(1), band,
+      smem_of<hyperseg::V01Smem, 17>(layout, "patch_invres_v01"), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -227,9 +228,9 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
         "int channels, int[] layout, Tensor(a!) out) -> ()");
   m.def("resize_bilinear(Tensor x, int scale, Tensor(a!) out) -> ()");
   m.def("patch_invres(Tensor x, Tensor w, int hidden, Tensor[] bn, float eps, "
-        "int band, int[] layout, Tensor(a!) out) -> ()");
+        "int kernel, int band, int[] layout, Tensor(a!) out) -> ()");
   m.def("patch_invres_v01(Tensor x, Tensor w, int w_stride, int hidden, Tensor[] bn, "
-        "float eps, int band, Tensor(a!) out) -> ()");
+        "float eps, int band, int[] layout, Tensor(a!) out) -> ()");
 }
 
 TORCH_LIBRARY_IMPL(hyperseg_kernels, CUDA, m) {

@@ -1,39 +1,49 @@
 """Time K1 (patch_invres_s2w) and K2's unit on one GPU at every k=3 decoder
-unit of HyperSeg-M (1024x512) and HyperSeg-L CamVid (768x1024), one line per
-unit.
+unit of HyperSeg-M (1024x512) and HyperSeg-L CamVid (768x1024), and K7
+(patch_invres_v01) at every v0_1 unit of HyperSeg-L VOC (512x512), one line
+per unit.
 
-    python -m hyperseg_torch.ops.kernels.invres_sweep [--batch 1] [--plans]
+    python -m hyperseg_torch.ops.kernels.invres_sweep [--model M|L|V] [--batch 1] [--plans]
 
 Each unit gets its call's shapes from the model's decoder (built on the meta
-device, no forward), random bfloat16 inputs, and a line with the mean device
+device, no forward) and random bfloat16 inputs. A K1 line has the mean device
 time (CUDA events over a warm loop) of K1's generation kernel alone, of the
-unit alone on the generated float32 map, and of the whole wrapper, each
+unit alone on the generated float32 map, and of the whole wrapper; a K7 line
+the time of K7 on a weight map laid out as the v0_1 weight mapper leaves it
+(the first P of rows rounded up to the 16 weight groups). Each time stands
 beside the least time the card could take (bytes over 3.35 TB/s or flops
-over 989 TFLOP/s), and the wrapper's largest difference from its plain
-twin. With --plans, the unit instead runs at every band it takes for each
-call, against the band `unit_plan` picks.
+over 989 TFLOP/s), and each line ends with the wrapper's largest difference
+from its plain twin. With --plans, the unit (K1/K2) or K7 instead runs at
+every band it takes for each call, against the band its plan picks.
 """
 
 import argparse
 
 import torch
 
+from hyperseg_torch.models import hyperseg_v0_1, hyperseg_v1_0
 from hyperseg_torch.models.backbones.efficientnet import EfficientNet
-from hyperseg_torch.models.decoder import InvResUnit
-from hyperseg_torch.models.hyperseg_v1_0 import build_hypergen
+from hyperseg_torch.models.decoder import InvResUnit, V01InvResUnit
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.ops.kernels import patch_invres as PI
 
-MODELS = {  # name: factory kwargs, input (H, W)
-    "M": (dict(levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
+MODELS = {  # name: factory module, backbone, factory kwargs, input (H, W)
+    "M": (hyperseg_v1_0, "efficientnet-b1",
+          dict(levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
                kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
                expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
           (512, 1024)),
-    "L": (dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3, 3),
+    "L": (hyperseg_v1_0, "efficientnet-b1",
+          dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3, 3),
                level_channels=[64, 32, 16, 16, 16, 16], expand_ratio=2,
                with_out_fc=False, decoder_dropout=None,
                weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
           (768, 1024)),
+    "V": (hyperseg_v0_1, "efficientnet-b3",
+          dict(levels=3, kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2,
+               with_out_fc=False, decoder_dropout=None, weight_groups=16,
+               num_classes=21),
+          (512, 512)),
 }
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12   # H100 SXM HBM3, dense bf16
 
@@ -55,16 +65,17 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def calls(model):
-    """The K1 calls of one forward, in order: (level, unit, (H, W), (fh, fw)),
-    unit the decoder's InvResUnit (route attached), (H, W) its map."""
-    kw, (height, width) = MODELS[model]
+    """The K1 (M, L) or K7 (V) calls of one forward, in order: (level, unit,
+    (H, W), (fh, fw)), unit the decoder's InvResUnit (route attached) or
+    V01InvResUnit, (H, W) its map."""
+    factory, backbone, kw, (height, width) = MODELS[model]
     kw = dict(kw)
     levels, scale = kw.pop("levels"), kw.pop("out_feat_scale", 0.25)
-    backbone = EfficientNet("efficientnet-b1", out_feat_scale=scale, device="meta")
-    dec = build_hypergen(backbone, wm_levels=levels, device="meta", **kw).decoder
+    backbone = EfficientNet(backbone, out_feat_scale=scale, device="meta")
+    dec = factory.build_hypergen(backbone, wm_levels=levels, device="meta", **kw).decoder
     return [(lv, u, (height * 2 ** lv // 32, width * 2 ** lv // 32), (height // 32, width // 32))
             for lv in range(dec.levels) for u in getattr(dec, f"level_{lv}")
-            if isinstance(u, InvResUnit)]
+            if isinstance(u, InvResUnit) or (isinstance(u, V01InvResUnit) and u.uses_k7)]
 
 
 def unit_flops(b, cin, hidden, out_ch, hw, grid):
@@ -80,24 +91,36 @@ def _bound(nbytes, flops):
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+def _rnd(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
+
+
+def _bn(gen, c):
+    return tuple(t.to("cuda") for t in (torch.rand(c, generator=gen) + 0.5,
+                                        torch.randn(c, generator=gen) * 0.1,
+                                        torch.randn(c, generator=gen) * 0.1,
+                                        torch.rand(c, generator=gen) + 0.5))
+
+
 def _inputs(u, hw, grid, batch, gen):
-    dev, dt = "cuda", torch.bfloat16
     r = u.route
-
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev, dt)
-
-    def bn(c):
-        return tuple(t.to(dev) for t in (torch.rand(c, generator=gen) + 0.5,
-                                         torch.randn(c, generator=gen) * 0.1,
-                                         torch.randn(c, generator=gen) * 0.1,
-                                         torch.rand(c, generator=gen) + 0.5))
-    x = rnd(batch, u.in_ch, *hw)
-    s = rnd(batch, r.signal_ch, *grid, scale=0.5)
-    ws = rnd(r.out_ch, r.signal_ch // r.groups, 1, 1, scale=(r.groups / r.signal_ch) ** 0.5)
-    args = dict(hidden=u.hidden, out_ch=u.out_ch, bn1=bn(u.hidden), bn2=bn(u.hidden),
-                bn3=bn(u.out_ch))
+    x = _rnd(gen, batch, u.in_ch, *hw)
+    s = _rnd(gen, batch, r.signal_ch, *grid, scale=0.5)
+    ws = _rnd(gen, r.out_ch, r.signal_ch // r.groups, 1, 1, scale=(r.groups / r.signal_ch) ** 0.5)
+    args = dict(hidden=u.hidden, out_ch=u.out_ch, bn1=_bn(gen, u.hidden), bn2=_bn(gen, u.hidden),
+                bn3=_bn(gen, u.out_ch))
     return x, s, ws, args
+
+
+def _k7_inputs(u, hw, grid, batch, gen):
+    """x, K7's weight map - the first P of rows rounded up to HyperSeg-L
+    VOC's weight groups, as the v0_1 mapper's heads leave it - and the BNs."""
+    p, groups = u.hyper_params, MODELS["V"][2]["weight_groups"]
+    x = _rnd(gen, batch, u.in_ch, *hw)
+    w = _rnd(gen, batch, *grid, -(-p // groups) * groups, scale=0.1)[..., :p]
+    args = dict(hidden=u.hidden, out_ch=u.out_ch, bn1=_bn(gen, u.hidden), bn2=_bn(gen, u.hidden),
+                bn3=_bn(gen, u.out_ch))
+    return x, w, args
 
 
 def _nbytes(*ts):
@@ -146,37 +169,75 @@ def band_table(u, hw, grid, batch, gen):
             if layout[-1] > PI.SMEM_LIMIT:
                 continue
             table.append((cuda_ms(lambda: build.kernels().patch_invres(
-                x, wmap, u.hidden, bns, 1e-5, band, layout, out)), band))
+                x, wmap, u.hidden, bns, 1e-5, 3, band, layout, out)), band))
     pick = PI.unit_plan(u.in_ch, u.hidden, u.out_ch, ph, pw, batch * fh * fw)[0]
+    return sorted(table), pick
+
+
+def time_k7(u, hw, grid, batch, gen):
+    """A K7 line's numbers: {"k7": (ms, bound ms, bound by)}, max abs err."""
+    x, w, args = _k7_inputs(u, hw, grid, batch, gen)
+    bns = [t for k in ("bn1", "bn2", "bn3") for t in args[k]]
+    with torch.no_grad():
+        out = PI.patch_invres_v01(x, w, **args)
+        err = (out.float() - PI.patch_invres_v01_plain(x, w, **args).float()).abs().max().item()
+        flops = 2 * x.numel() // u.in_ch * u.hidden * (u.in_ch + 9 + u.out_ch)
+        parts = {"k7": (cuda_ms(lambda: PI.patch_invres_v01(x, w, **args)),
+                        *_bound(_nbytes(x, w, out, *bns), flops))}
+    return parts, err
+
+
+def band_table_k7(u, hw, grid, batch, gen):
+    """K7 at every band it takes for one call, fastest first: [(ms, band)],
+    and the band v01_plan picks."""
+    x, w, args = _k7_inputs(u, hw, grid, batch, gen)
+    (h, wd), (fh, fw) = hw, grid
+    ph, pw = h // fh, wd // fw
+    bns = [t for k in ("bn1", "bn2", "bn3") for t in args[k]]
+    out = torch.empty(batch, u.out_ch, h, wd, device="cuda", dtype=torch.bfloat16)
+    row = PI.map_row_stride(w)
+    table = []
+    with torch.no_grad():
+        for band in (n for n in range(1, ph + 1) if ph % n == 0):
+            layout = PI.v01_layout(u.in_ch, u.hidden, u.out_ch, ph, pw, fh, fw, band, 2)
+            if layout[-1] > PI.SMEM_LIMIT:
+                continue
+            table.append((cuda_ms(lambda: build.kernels().patch_invres_v01(
+                x, w, row, u.hidden, bns, 1e-5, band, layout, out)), band))
+    pick = PI.v01_plan(u.in_ch, u.hidden, u.out_ch, ph, pw, fh, fw, batch)[0]
     return sorted(table), pick
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--model", choices=sorted(MODELS), action="append",
+                    help="the model whose calls to time; repeat for several (default: all)")
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--plans", action="store_true",
-                    help="time the unit at every band it takes, against the plan's pick")
+                    help="time the kernel at every band it takes, against the plan's pick")
     args = ap.parse_args()
     build.kernels()
     gen = torch.Generator().manual_seed(0)
-    for model in MODELS:
+    for model in args.model or MODELS:
         sums = {}
         for lv, u, hw, grid in calls(model):
             shape = (args.batch, u.in_ch, *hw)
+            k7 = isinstance(u, V01InvResUnit)
             if args.plans:
-                table, pick = band_table(u, hw, grid, args.batch, gen)
+                table, pick = (band_table_k7 if k7 else band_table)(u, hw, grid, args.batch, gen)
                 rank = next(i for i, t in enumerate(table) if t[1] == pick)
                 print(f"invres_sweep plans {model} level {lv} x {shape}: pick band {pick} "
                       f"{table[rank][0]:.4f} ms (rank {rank + 1} of {len(table)}); every band "
                       "ms: " + " ".join(f"{b} {ms:.4f}" for ms, b in table), flush=True)
                 continue
-            parts, err = time_call(u, hw, grid, args.batch, gen)
+            parts, err = (time_k7 if k7 else time_call)(u, hw, grid, args.batch, gen)
             for k, (ms, bound, _) in parts.items():
                 s = sums.setdefault(k, [0.0, 0.0])
                 s[0] += ms
                 s[1] += bound
+            fan_in = "" if k7 else f", fan_in {u.route.signal_ch // u.route.groups}"
             print(f"invres_sweep {model} level {lv} x {shape} {u.in_ch} -> {u.hidden} -> "
-                  f"{u.out_ch}, patches {grid}, fan_in {u.route.signal_ch // u.route.groups}: "
+                  f"{u.out_ch}, patches {grid}{fan_in}: "
                   + "  ".join(f"{k} {ms:.4f} ms (bound {b:.4f}, {by})"
                               for k, (ms, b, by) in parts.items())
                   + f"  max_abs_err {err:.3e}", flush=True)

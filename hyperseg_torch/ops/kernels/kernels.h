@@ -87,22 +87,31 @@ struct InvresSmem {
 
 // K2, and K1's unit. x (B, cin, H, W) of type dt; wmap (B, fh, fw, P) of
 // type wdt (dt, or float32) per-patch weights w1 (hidden, cin) | w2 (hidden,
-// 3, 3) | w3 (out_ch, hidden); out (B, out_ch, H, W). out_ch <= 32, hidden
-// <= 512; `band` rows of a patch per block, a divisor of H / fh.
+// kernel, kernel) | w3 (out_ch, hidden); out (B, out_ch, H, W). kernel 3 or
+// 5, out_ch <= 32, hidden <= 512; `band` rows of a patch per block, a
+// divisor of H / fh.
 cudaError_t launch_patch_invres(DType dt, DType wdt, const void* x, const void* wmap,
                                 BNParams bn1, BNParams bn2, BNParams bn3, float eps,
                                 void* out, int batch, int cin, int height, int width, int fh,
-                                int fw, int hidden, int out_ch, int band, InvresSmem lay,
-                                cudaStream_t stream);
+                                int fw, int hidden, int out_ch, int kernel, int band,
+                                InvresSmem lay, cudaStream_t stream);
+
+// Shared memory of one K7 block as patch_invres.py's v01_layout lays it
+// out: pitches and counts in elements, offsets and total in bytes. `slots`
+// w1 copies (the block's own patch and each foreign owner) and `tiles`
+// foreign 16-pixel tiles are the most any block of the launch needs.
+struct V01Smem {
+  int x_row, h_row, d_row, w1_row, w3_row, o_row, f_row, slots, tiles, h_off, w1_off, w3_off,
+      w2_off, v_off, f_off, t_off, total;
+};
 
 // K7. As K2 with the v0_1 semantics: a depthwise halo pixel is expanded
-// with its owner patch's w1. wmap (B, fh, fw, wstride), each patch's first P
-// entries its weights; H, W >= 2.
-cudaError_t launch_patch_invres_v01(DType dt, const void* x, const void* wmap,
-                                    int64_t wstride, BNParams bn1, BNParams bn2,
-                                    BNParams bn3, float eps, void* out, int batch,
-                                    int cin, int height, int width, int fh, int fw,
-                                    int hidden, int out_ch, int band,
+// with its owner patch's w1. wmap (B, fh, fw, wstride) of x's type, each
+// patch's first P entries its weights; H, W >= 2.
+cudaError_t launch_patch_invres_v01(DType dt, const void* x, const void* wmap, int64_t wstride,
+                                    BNParams bn1, BNParams bn2, BNParams bn3, float eps,
+                                    void* out, int batch, int cin, int height, int width, int fh,
+                                    int fw, int hidden, int out_ch, int band, V01Smem lay,
                                     cudaStream_t stream);
 
 }  // namespace hyperseg

@@ -25,6 +25,13 @@ K1_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out, sig, groups
 ]
 
 
+K1_5X5_CASES = [  # as K1_CASES, a 5x5 depthwise: K1, and K2 on the same shapes
+    (1, 2, 2, 8, 8, 12, 24, 12, 64, 4),     # residual
+    (2, 2, 3, 16, 16, 34, 68, 19, 80, 4),   # HyperSeg-M level-4 widths, batch 2
+    (1, 1, 2, 32, 32, 21, 42, 12, 128, 8),  # HyperSeg-L level-5 widths: bands of rows
+    (1, 2, 3, 6, 12, 5, 10, 3, 16, 2),      # windows off 16-byte boundaries
+    (1, 3, 3, 2, 2, 8, 16, 8, 32, 2),       # 2x2 patches: the halo spans two patches
+]
 K2_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out
     (1, 2, 3, 32, 32, 21, 42, 12),  # HyperSeg-L level 5: bands of 8 rows
     (2, 2, 2, 16, 16, 22, 44, 16),  # level 4
@@ -52,35 +59,49 @@ K7_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out: HyperSeg-L VOC levels 2-5, 
     (1, 3, 3, 8, 8, 22, 44, 8),
     (2, 2, 3, 16, 16, 16, 32, 6),
     (1, 2, 2, 32, 32, 11, 22, 21),
+    (1, 6, 6, 32, 32, 11, 22, 21),  # level 5 at the plan's band of 8 rows
+    (1, 16, 16, 32, 32, 11, 22, 21),  # level 5 at 512x512: one block a patch
     (1, 1, 3, 8, 8, 12, 24, 12),    # a single patch row, residual
     (1, 3, 1, 8, 16, 12, 24, 7),    # a single patch column
+]
+K7_CALIBRATED = [  # level 2's and level 5's widths under calibrated-size BN scales, at the
+    (1, 9, 9, 4, 4, 48, 96, 12),    # plan's bands of 2, 8 and 32 rows
+    (1, 6, 6, 32, 32, 11, 22, 21),
+    (1, 16, 16, 32, 32, 11, 22, 21),
 ]
 K6_CASES = [  # b, c, h, w, scale
     (2, 19, 64, 128, 2), (1, 16, 24, 32, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4)]
 
 
-def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups, calibrated=False):
-    """x, s, w_s2w and three BNs; `calibrated`: running variances of 1e-3 to
-    1e-2 and matching means, BN scales of 10-30 as BN calibration leaves them,
-    which amplify any second rounding of the folded weights."""
-    rng = np.random.RandomState(seed)
-    n_out = -(-K1.hyper_params(cin, hidden, out) // groups) * groups
-    x = rng.randn(b, cin, fh * ph, fw * pw).astype(np.float32)
-    s = (rng.randn(b, sig, fh, fw) * 0.3).astype(np.float32)
-    w = (rng.randn(n_out, sig // groups, 1, 1) * 0.05).astype(np.float32)
-    bns = [bn_params(rng, c) for c in (hidden, hidden, out)]
+def _bns(rng, channels, calibrated):
+    """Eval BNs; `calibrated`: running variances of 1e-3 to 1e-2 and matching
+    means, BN scales of 10-30 as BN calibration leaves them, which amplify
+    any second rounding of the weights."""
+    bns = [bn_params(rng, c) for c in channels]
     if calibrated:
         bns = [(wt, bi, m * 0.1, (rng.rand(len(v)) * 9e-3 + 1e-3).astype(np.float32))
                for wt, bi, m, v in bns]
-    return x, s, w, bns
+    return bns
+
+
+def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups, calibrated=False,
+               kernel=3):
+    """x, s, w_s2w and three BNs (`_bns`)."""
+    rng = np.random.RandomState(seed)
+    n_out = -(-K1.hyper_params(cin, hidden, out, kernel) // groups) * groups
+    x = rng.randn(b, cin, fh * ph, fw * pw).astype(np.float32)
+    s = (rng.randn(b, sig, fh, fw) * 0.3).astype(np.float32)
+    w = (rng.randn(n_out, sig // groups, 1, 1) * 0.05).astype(np.float32)
+    return x, s, w, _bns(rng, (hidden, hidden, out), calibrated)
 
 
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
     """Each CUDA kernel against its plain twin on the card, f32 and bf16:
     K3, K4a, K4b, K1, and K2, K5, K6, K7 at HyperSeg-M's, -L's and -L VOC's
-    widths (B3's among them) and at ragged sizes; K1 also with calibrated-size
-    BN scales, K2 also on a float32 map with a bfloat16 x."""
+    widths (B3's among them) and at ragged sizes; K1 and K7 also with
+    calibrated-size BN scales, K2 also on a float32 map with a bfloat16 x,
+    K1 and K2 also with a 5x5 depthwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU")
     torch.backends.cudnn.allow_tf32 = False
@@ -119,21 +140,24 @@ def test_kernels_match_twins_on_card():
             res = r(b, cout, h, w) if with_res else None
             close(K4.mbconv_project(hs, se, wp, bn(cout), res),
                   K4.mbconv_project_plain(hs, se, wp, bn(cout), res))
-        for case, calibrated in [(c, False) for c in K1_CASES] + [(K1_CASES[1], True)]:
+        for case, calibrated, kernel in ([(c, False, 3) for c in K1_CASES]
+                                         + [(K1_CASES[1], True, 3)]
+                                         + [(c, False, 5) for c in K1_5X5_CASES]):
             b, fh, fw, ph, pw, cin, hidden, out, sig, groups = case
-            xs, ss, ws, bns = _k1_inputs(5, *case, calibrated=calibrated)
-            args = dict(groups=groups, hidden=hidden, out_ch=out,
+            xs, ss, ws, bns = _k1_inputs(5, *case, calibrated=calibrated, kernel=kernel)
+            args = dict(groups=groups, hidden=hidden, out_ch=out, kernel=kernel,
                         bn1=tuple(t(v).to(dev) for v in bns[0]),
                         bn2=tuple(t(v).to(dev) for v in bns[1]),
                         bn3=tuple(t(v).to(dev) for v in bns[2]))
             xs, ss, ws = (t(a).to(dev, dt) for a in (xs, ss, ws))
             close(K1.patch_invres_s2w(xs, ss, ws, **args),
                   K1.patch_invres_s2w_plain(xs, ss, ws, **args))
-        for b, fh, fw, ph, pw, cin, hidden, out in K2_CASES:
-            p = K1.hyper_params(cin, hidden, out)
+        for (b, fh, fw, ph, pw, cin, hidden, out), kernel in (
+                [(c, 3) for c in K2_CASES] + [(c[:8], 5) for c in K1_5X5_CASES]):
+            p = K1.hyper_params(cin, hidden, out, kernel)
             xs, ws = r(b, cin, fh * ph, fw * pw), r(b, fh, fw, p, scale=0.1)
             args = dict(hidden=hidden, out_ch=out, bn1=bn(hidden), bn2=bn(hidden),
-                        bn3=bn(out))
+                        bn3=bn(out), kernel=kernel)
             close(K1.patch_invres(xs, ws, **args), K1.patch_invres_plain(xs, ws, **args))
             if dt == torch.bfloat16:   # K1's float32 map with a bfloat16 x
                 wf = ws.float()
@@ -147,11 +171,17 @@ def test_kernels_match_twins_on_card():
             xs = r(b, c, h, w)
             close(K6.resize_bilinear(xs, (s * h, s * w)),
                   K6.resize_bilinear_plain(xs, (s * h, s * w)))
-        for b, fh, fw, ph, pw, cin, hidden, out in K7_CASES:
+        for case, calibrated in ([(c, False) for c in K7_CASES]
+                                 + [(c, True) for c in K7_CALIBRATED]):
+            b, fh, fw, ph, pw, cin, hidden, out = case
             p = K1.hyper_params(cin, hidden, out)
             xs, ws = r(b, cin, fh * ph, fw * pw), r(b, fh, fw, p + 5, scale=0.1)
             args = dict(hidden=hidden, out_ch=out, bn1=bn(hidden), bn2=bn(hidden),
                         bn3=bn(out))
+            if calibrated:
+                bns = _bns(np.random.RandomState(cin), (hidden, hidden, out), True)
+                args.update({f"bn{i + 1}": tuple(t(v).to(dev) for v in vals)
+                             for i, vals in enumerate(bns)})
             want = K1.patch_invres_v01_plain(xs, ws[..., :p], **args)
             close(K1.patch_invres_v01(xs, ws[..., :p], **args), want)   # rows of p + 5
             close(K1.patch_invres_v01(xs, ws[..., :p].contiguous(), **args), want)

@@ -79,22 +79,25 @@ def _fold(bn, eps=1e-5):
     return s, bn[1] - bn[2] * s
 
 
-def _unit_walk(x, w, hidden, out_ch, bns, itemsize):
-    """The unit kernel's blocks at its plan for an x of `itemsize` bytes, in
-    numpy (float64), index by index: the staged window (each row's chunks
-    from the patch's column rounded down to 8, then the halo columns packed
-    8 to a chunk; zero rows past cin), the
-    folded weights padded with zeros, the expand over every staged pixel
-    with only the window's kept, then depthwise and project of the band."""
+def _unit_walk(x, w, hidden, out_ch, bns, itemsize, kernel=3):
+    """The unit kernel's blocks at its plan for an x of `itemsize` bytes and
+    a kernel x kernel depthwise (R = kernel // 2), in numpy (float64), index
+    by index: the staged window (each row's chunks from the patch's column
+    rounded down to 8, then the halo columns packed 8 to a chunk, 2R a row,
+    left ones first; zero rows past cin), the folded weights padded with
+    zeros, the expand over every staged pixel with only the window's kept,
+    then depthwise and project of the band."""
     b, cin, h, wd = x.shape
     _, fh, fw, _ = w.shape
     ph, pw = h // fh, wd // fw
-    band, _ = PI.unit_plan(cin, hidden, out_ch, ph, pw, b * fh * fw, itemsize)
+    R, kk = kernel // 2, kernel * kernel
+    band, _ = PI.unit_plan(cin, hidden, out_ch, ph, pw, b * fh * fw, itemsize, kernel)
     kp, hk, op = (-(-c // m) * m for c, m in ((cin, 16), (hidden, 16), (out_ch, 8)))
-    rw8, hw = PI.row_chunks(pw), pw + 2
-    nch, nrow = PI.staged_chunks(pw, band), (band + 2) * rw8
+    rw8, hw = PI.row_chunks(pw), pw + 2 * R
+    nch, nrow = PI.staged_chunks(pw, band, kernel), (band + 2 * R) * rw8
+    assert nch % 2 == 0 and 8 * nch >= (band + 2 * R) * hw
     (s1, c1), (s2, c2), (s3, c3) = (_fold(bn) for bn in bns)
-    p1, p2 = cin * hidden, cin * hidden + 9 * hidden
+    p1, p2 = cin * hidden, cin * hidden + kk * hidden
     out = np.full((b, out_ch, h, wd), np.nan)
     for bi in range(b):
         for patch in range(fh * fw):
@@ -102,33 +105,33 @@ def _unit_walk(x, w, hidden, out_ch, bns, itemsize):
             wp = w[bi, fy, fx]
             w1 = np.zeros((hk, kp))
             w1[:hidden, :cin] = wp[:p1].reshape(hidden, cin) * s1[:, None]
-            w2 = np.zeros((hk, 9))
-            w2[:hidden] = wp[p1:p2].reshape(hidden, 9) * s2[:, None]
+            w2 = np.zeros((hk, kk))
+            w2[:hidden] = wp[p1:p2].reshape(hidden, kk) * s2[:, None]
             w3 = np.zeros((op, hk))
             w3[:out_ch, :hidden] = wp[p2:].reshape(out_ch, hidden) * s3[:, None]
             b1, b2, b3 = (np.pad(c, (0, n - len(c))) for c, n in ((c1, hk), (c2, hk), (c3, op)))
             for r0 in range(0, ph, band):
-                y0, x0 = fy * ph + r0 - 1, fx * pw
+                y0, x0 = fy * ph + r0 - R, fx * pw
                 ax0 = x0 & ~7
                 off = x0 - ax0
                 assert ax0 % 8 == 0 and off + pw <= 8 * rw8
                 # each staged pixel's image pixel and hidden-map index (None:
                 # a zero, dropped): the rows' chunks from the column rounded
-                # down, then the halo slots, 2 a row
+                # down, then the halo slots, 2R a row
                 src, dst = [], []
                 for j in range(nch):
                     for k in range(8):
                         if j < nrow:
                             r, cx = divmod(j, rw8)
-                            wc = 1 + cx * 8 - off + k
-                            ok = 1 <= wc <= pw
-                            src.append((_reflect(y0 + r, h), x0 + wc - 1) if ok else None)
+                            wc = R + cx * 8 - off + k
+                            ok = R <= wc < pw + R
+                            src.append((_reflect(y0 + r, h), x0 + wc - R) if ok else None)
                             dst.append(r * hw + wc if ok else None)
-                        elif 8 * (j - nrow) + k < 2 * (band + 2):
-                            r, side = divmod(8 * (j - nrow) + k, 2)
-                            col = x0 + pw if side else x0 - 1
-                            src.append((_reflect(y0 + r, h), _reflect(col, wd)))
-                            dst.append(r * hw + (pw + 1 if side else 0))
+                        elif 8 * (j - nrow) + k < 2 * R * (band + 2 * R):
+                            r, c = divmod(8 * (j - nrow) + k, 2 * R)
+                            wc = c if c < R else pw + c
+                            src.append((_reflect(y0 + r, h), _reflect(x0 - R + wc, wd)))
+                            dst.append(r * hw + wc)
                         else:
                             src.append(None)
                             dst.append(None)
@@ -137,17 +140,18 @@ def _unit_walk(x, w, hidden, out_ch, bns, itemsize):
                     if yx is not None:
                         xs[:cin, i] = x[bi, :, yx[0], yx[1]]
                 prod = w1 @ xs                               # (hk, staged pixels)
-                hs = np.full((band + 2) * hw * hk, np.nan).reshape(-1, hk)
+                hs = np.full((band + 2 * R) * hw * hk, np.nan).reshape(-1, hk)
                 for i, at in enumerate(dst):
                     if at is not None:
                         assert np.isnan(hs[at]).all()       # each window pixel once
                         hs[at] = np.clip(prod[:, i] + b1, 0, 6)
                 assert not np.isnan(hs).any()               # and every one
-                hs = hs.reshape(band + 2, hw, hk)
+                hs = hs.reshape(band + 2 * R, hw, hk)
                 for py in range(band):
                     for px in range(pw):
-                        win = hs[py:py + 3, px:px + 3]      # (3, 3, hk)
-                        d = np.clip(np.einsum("yxc,cyx->c", win, w2.reshape(hk, 3, 3)) + b2, 0, 6)
+                        win = hs[py:py + kernel, px:px + kernel]      # (k, k, hk)
+                        d = np.clip(np.einsum("yxc,cyx->c", win,
+                                              w2.reshape(hk, kernel, kernel)) + b2, 0, 6)
                         o = w3 @ d + b3
                         yo, xo = fy * ph + r0 + py, fx * pw + px
                         v = o[:out_ch] + (x[bi, :, yo, xo] if cin == out_ch else 0)
@@ -172,6 +176,34 @@ def test_unit_walk_matches_twin(case):
                                  **{f"bn{i + 1}": tuple(map(t, bn)) for i, bn in enumerate(bns)})
     for itemsize in (2, 4):   # the bfloat16 and the float32 plans
         got = _unit_walk(x, w, hidden, out, bns, itemsize)
+        assert not np.isnan(got).any()
+        np.testing.assert_allclose(got, want.numpy(), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", [  # b, fh, fw, ph, pw, cin, hidden, out
+    (1, 2, 2, 16, 16, 34, 68, 19),   # HyperSeg-M level 4's widths
+    (1, 1, 2, 32, 32, 21, 42, 12),   # HyperSeg-L level 5's: bands of rows
+    (2, 2, 3, 8, 8, 16, 32, 16),     # residual (cin == out), batch 2
+    (1, 2, 3, 6, 12, 5, 10, 3),      # a window offset that is not 6
+    (1, 3, 3, 2, 2, 8, 16, 8),       # 2x2 patches: the halo spans two patches
+])
+def test_unit_walk_k5_matches_twin(case):
+    """The unit at a 5x5 depthwise (two halo rows and columns a side, four
+    halo slots a row) against the twin, at the bfloat16 and float32 plans,
+    which fit the H100's shared memory."""
+    b, fh, fw, ph, pw, cin, hidden, out = case
+    rng = np.random.RandomState(8)
+    x = rng.randn(b, cin, fh * ph, fw * pw)
+    w = rng.randn(b, fh, fw, PI.hyper_params(cin, hidden, out, 5)) * 0.1
+    bns = [bn_params(rng, c) for c in (hidden, hidden, out)]
+    want = PI.patch_invres_plain(t(x.astype(np.float32)), t(w.astype(np.float32)),
+                                 hidden=hidden, out_ch=out, kernel=5,
+                                 **{f"bn{i + 1}": tuple(map(t, bn)) for i, bn in enumerate(bns)})
+    for itemsize in (2, 4):
+        band, layout = PI.unit_plan(cin, hidden, out, ph, pw, b * fh * fw, itemsize, 5)
+        assert layout == PI.unit_layout(cin, hidden, out, pw, band, itemsize, 5)
+        assert layout[-1] <= PI.SMEM_LIMIT and layout[4] % 4 == 0
+        got = _unit_walk(x, w, hidden, out, bns, itemsize, kernel=5)
         assert not np.isnan(got).any()
         np.testing.assert_allclose(got, want.numpy(), atol=1e-4, rtol=1e-4)
 
