@@ -77,7 +77,8 @@ void stem(const Tensor& x, const Tensor& w, const Tensor& g, const Tensor& b,
 }
 
 void mbconv_dw(const Tensor& x, const Tensor& w, const Tensor& g, const Tensor& b,
-               const Tensor& m, const Tensor& v, double eps, Tensor& out) {
+               const Tensor& m, const Tensor& v, double eps, int64_t rows, int64_t smem,
+               Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "mbconv_dw x");
@@ -85,7 +86,7 @@ void mbconv_dw(const Tensor& x, const Tensor& w, const Tensor& g, const Tensor& 
   check_like(out, x, "mbconv_dw out");
   C10_CUDA_CHECK(hyperseg::launch_mbconv_dw(
       dt, x.data_ptr(), w.data_ptr(), bn_of(g, b, m, v), static_cast<float>(eps),
-      out.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3), stream_of(x)));
+      out.data_ptr(), x.size(0), x.size(1), x.size(2), x.size(3), rows, smem, stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -133,14 +134,14 @@ void mbconv_expand_dw(const Tensor& x, const Tensor& w_expand, at::TensorList bn
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
-void resize_bilinear(const Tensor& x, int64_t scale, Tensor& out) {
+void resize_bilinear(const Tensor& x, int64_t scale, int64_t rows, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "resize_bilinear x");
   check_like(out, x, "resize_bilinear out");
   C10_CUDA_CHECK(hyperseg::launch_resize_bilinear(
       dt, x.data_ptr(), out.data_ptr(), x.size(0) * x.size(1), x.size(2), x.size(3),
-      scale, stream_of(x)));
+      scale, rows, stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -217,7 +218,7 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
   m.def("stem(Tensor x, Tensor weight, Tensor bn_weight, Tensor bn_bias, "
         "Tensor bn_mean, Tensor bn_var, float eps, Tensor(a!) out) -> ()");
   m.def("mbconv_dw(Tensor x, Tensor weight, Tensor bn_weight, Tensor bn_bias, "
-        "Tensor bn_mean, Tensor bn_var, float eps, Tensor(a!) out) -> ()");
+        "Tensor bn_mean, Tensor bn_var, float eps, int rows, int smem, Tensor(a!) out) -> ()");
   m.def("mbconv_project(Tensor h, Tensor se, Tensor weight, Tensor bn_weight, "
         "Tensor bn_bias, Tensor bn_mean, Tensor bn_var, Tensor? residual, "
         "float eps, int tile, int[] layout, Tensor(a!) out) -> ()");
@@ -226,7 +227,7 @@ TORCH_LIBRARY(hyperseg_kernels, m) {
   m.def("mbconv_expand_dw(Tensor x, Tensor w_expand, Tensor[] bn, Tensor w_dw, "
         "float eps, int stride, int pad_t, int pad_l, int tile_h, int tile_w, "
         "int channels, int[] layout, Tensor(a!) out) -> ()");
-  m.def("resize_bilinear(Tensor x, int scale, Tensor(a!) out) -> ()");
+  m.def("resize_bilinear(Tensor x, int scale, int rows, Tensor(a!) out) -> ()");
   m.def("patch_invres(Tensor x, Tensor w, int hidden, Tensor[] bn, float eps, "
         "int kernel, int band, int[] layout, Tensor(a!) out) -> ()");
   m.def("patch_invres_v01(Tensor x, Tensor w, int w_stride, int hidden, Tensor[] bn, "

@@ -4,6 +4,8 @@
 
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 namespace hyperseg {
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -32,6 +34,16 @@ __device__ __forceinline__ float swish_fast(float v) {
   return v * r;
 }
 __device__ __forceinline__ float relu6(float v) { return fminf(fmaxf(v, 0.f), 6.f); }
+
+// swish in a kernel's precision: float32's exact one, or for bfloat16 the
+// fast one (a few float32 ulps off, far under the output's rounding).
+template <typename T>
+__device__ __forceinline__ float swish_of(float v) {
+  if constexpr (std::is_same<T, float>::value)
+    return swish(v);
+  else
+    return swish_fast(v);
+}
 
 // Eval BN folded to y = x * scale + bias, in float32.
 __device__ __forceinline__ float bn_scale(const float* w, const float* v, int c, float eps) {
@@ -77,6 +89,54 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Strips of 8 columns (K4a, K6): a thread owns 8 consecutive columns of a
+// row, [x0, x0 + 8), loaded as one 16-byte word in bfloat16 or two in
+// float32, and works on them as 10 floats, columns x0 - 1 .. x0 + 8.
+template <typename T>
+struct alignas(16) Pack8 {
+  T e[8];
+};
+template <typename T>
+constexpr int kPackWords = sizeof(Pack8<T>) / 16;  // 16-byte words in a Pack8
+
+// src 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void load_pack8(Pack8<T>& p, const T* src) {
+#pragma unroll
+  for (int i = 0; i < kPackWords<T>; ++i)
+    reinterpret_cast<uint4*>(p.e)[i] = __ldg(reinterpret_cast<const uint4*>(src) + i);
+}
+
+// dst 16-byte aligned: v rounded to T, one or two 16-byte stores.
+template <typename T>
+__device__ __forceinline__ void store8(T* dst, const float (&v)[8]) {
+  Pack8<T> p;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) p.e[j] = from_f<T>(v[j]);
+#pragma unroll
+  for (int i = 0; i < kPackWords<T>; ++i)
+    reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(p.e)[i];
+}
+
+// One row of a strip as 10 floats: the 8 columns as loaded, and the halo
+// columns x0 - 1 and x0 + 8 from the lanes beside this one, which hold the
+// strips left and right of it in the same row, or (own_left, own_right) the
+// values this lane loaded itself: the warp's edge lanes, and every lane
+// where the strips are not whole 16-byte words. A halo column past the
+// row's ends (first strip, last strip) is 0, or with Replicate the row's
+// end column (edge clamp). Every lane of the warp calls it.
+template <bool Replicate, typename T>
+__device__ __forceinline__ void strip_row(float (&v)[10], const Pack8<T>& p, float own_l,
+                                          float own_r, bool own_left, bool own_right,
+                                          bool first, bool last) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[1 + j] = to_f(p.e[j]);
+  const float up = __shfl_up_sync(0xffffffffu, v[8], 1);
+  const float down = __shfl_down_sync(0xffffffffu, v[1], 1);
+  v[0] = own_left ? own_l : first ? (Replicate ? v[1] : 0.f) : up;
+  v[9] = own_right ? own_r : last ? (Replicate ? v[8] : 0.f) : down;
 }
 
 }  // namespace hyperseg

@@ -26,11 +26,13 @@ cudaError_t launch_stem(DType dt, const void* x, const void* w, BNParams bn,
                         float eps, void* out, int batch, int height, int width,
                         int cout, cudaStream_t stream);
 
-// K4a. x, out (B, C, H, W); w (C, 1, 3, 3).
-cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w,
-                             BNParams bn, float eps, void* out, int batch,
-                             int channels, int height, int width,
-                             cudaStream_t stream);
+// K4a. x, out (B, C, H, W); w (C, 1, 3, 3). A thread takes `rows` rows of a
+// strip of 8 columns; `smem` bytes of shared memory a block, room for the
+// folded taps of the most planes a block spans, as mbconv.py's dw_plan
+// gives them.
+cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w, BNParams bn, float eps,
+                             void* out, int batch, int channels, int height, int width,
+                             int rows, int smem, cudaStream_t stream);
 
 // Shared memory of one K4b block as mbconv.py's project_plan lays it out:
 // pitches in elements, offsets and total in bytes.
@@ -67,9 +69,10 @@ cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expan
                                     ExpandSmem smem, cudaStream_t stream);
 
 // K6. x (planes, H, W) -> out (planes, scale*H, scale*W); scale 2, 3 or 4.
-cudaError_t launch_resize_bilinear(DType dt, const void* x, void* out,
-                                   int planes, int height, int width, int scale,
-                                   cudaStream_t stream);
+// A thread takes `rows` input rows of a strip of 8 columns, as resize.py's
+// resize_plan gives them.
+cudaError_t launch_resize_bilinear(DType dt, const void* x, void* out, int planes, int height,
+                                   int width, int scale, int rows, cudaStream_t stream);
 
 // K1's generation. s: signal slice, element (b, c, patch) at
 // s + b*s_bstride + c*fhw + patch, c < groups*fan_in; w_s2w (groups*opg,

@@ -9,8 +9,11 @@
 //
 // Bound: bytes, for both: 9 MACs per K4a output element, at most cout <= 32
 // MACs per K4b input element, far under the card's ~295 flops per byte.
-// K4a: each thread owns one pixel of one plane, loads and stores coalesced
-// along W; the nine taps of neighbouring threads overlap and hit L1.
+// K4a moved its bytes two at a time (one pixel a thread, nine scalar loads,
+// the BN fold in every thread): now a thread walks a strip of 8 columns down
+// a band of rows with a three-row window in registers, one 16-byte load per
+// input row and one 16-byte store per output row, and a block folds BN into
+// the taps once (dw_kernel below; the band from mbconv.py's dw_plan).
 // K4b is a per-image GEMM whose time went to latency on an under-filled card
 // (one pixel a thread, serial 2-byte loads per channel). Now a block takes
 // 64 or 128 pixels (the plan fills 132 SMs twice where the map allows),
@@ -33,8 +36,8 @@
 // channels a block where cin is large and the map small, so one staged
 // window serves more of them. Shared-memory layouts of K4b and K5 come from
 // the plans in mbconv.py, which hand them to the launch.
+#include <algorithm>
 #include <cstdint>
-#include <type_traits>
 
 #include "common.cuh"
 #include "kernels.h"
@@ -46,32 +49,105 @@ constexpr int kThreads = 256;
 constexpr int kMaxOut = 32;
 constexpr size_t kSmemLimit = 232448;  // bytes of shared memory one block may use
 
+// K4a: a thread owns a strip of 8 columns of one plane and walks `rows`
+// rows down it, holding rows y - 1, y, y + 1 of the strip (and its two halo
+// columns) as a window of floats in registers: each input row arrives as one
+// 16-byte load in bfloat16 (two in float32), issued a row ahead, with its
+// halo columns from the neighbouring lanes (strip_row); each output row
+// leaves as one 16-byte store (two in float32). Units (plane, band of `rows`
+// rows, strip) are numbered strip fastest, kDwThreads to a block, so a block
+// spans several planes where planes are small; while its first rows load,
+// it folds the BN scale into the nine taps of each of its planes' channels,
+// once, in float32, into shared memory ([planes][10]: nine taps, bias;
+// `smem` bytes as mbconv.py's dw_plan sizes it). vec = 0 (a width not a
+// multiple of 8, or a pointer off 16 bytes): element loads and stores in the
+// same kernel, each lane loading its own halo columns.
+constexpr int kDwThreads = 256;
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dw_kernel(const T* __restrict__ x, const T* __restrict__ w, BNParams bn,
-          float eps, T* __restrict__ out, int channels, int height, int width) {
-  const int plane = blockIdx.y;  // b * channels + c
-  const int c = plane % channels;
-  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= height * width) return;
-  const int y = pix / width, xq = pix - y * width;
+__global__ void __launch_bounds__(kDwThreads)
+dw_kernel(const T* __restrict__ x, const T* __restrict__ w, BNParams bn, float eps,
+          T* __restrict__ out, int channels, int planes, int height, int width, int rows,
+          int vec) {
+  extern __shared__ float taps[];
+  const int strips = (width + 7) >> 3, per_plane = strips * ((height + rows - 1) / rows);
+  const int total = planes * per_plane, first = blockIdx.x * kDwThreads;  // under 2^31
+  // the grid's lanes past the last unit repeat it (they take part in the
+  // shuffles) and store nothing
+  const bool active = first + (int)threadIdx.x < total;
+  const int u = min(first + (int)threadIdx.x, total - 1);
+  const int plane = u / per_plane, rem = u - plane * per_plane;
+  const int band = rem / strips, x0 = (rem - band * strips) * 8, y0 = band * rows;
   const T* xp = x + (size_t)plane * height * width;
-  const T* wc = w + c * 9;
-  float acc = 0.f;
+  T* op = out + (size_t)plane * height * width;
+  const int lane = threadIdx.x & 31;
+  const bool own_left = !vec || lane == 0, own_right = !vec || lane == 31;
+  const bool first_strip = x0 == 0, last_strip = x0 + 8 >= width;
+
+  // row iy of the strip (zero outside the plane) and the halo columns this
+  // lane loads itself
+  auto fetch = [&](int iy, Pack8<T>& p, float& l, float& r) {
+    const bool in = iy >= 0 && iy < height;
+    const T* src = xp + (size_t)(in ? iy : 0) * width + x0;
+    if (vec && in) {
+      load_pack8(p, src);
+    } else {
 #pragma unroll
-  for (int dy = 0; dy < 3; ++dy) {
-    const int iy = y + dy - 1;
-    if (iy < 0 || iy >= height) continue;
+      for (int j = 0; j < 8; ++j) p.e[j] = from_f<T>(in && x0 + j < width ? to_f(src[j]) : 0.f);
+    }
+    l = in && own_left && !first_strip ? to_f(src[-1]) : 0.f;
+    r = in && own_right && !last_strip ? to_f(src[8]) : 0.f;
+  };
+  Pack8<T> next;
+  float next_l, next_r;
+  fetch(y0 - 1, next, next_l, next_r);  // in flight while the block folds BN
+
+  const int p0 = first / per_plane, np = (min(first + kDwThreads, total) - 1) / per_plane - p0 + 1;
+  for (int i = threadIdx.x; i < np; i += kDwThreads) {
+    const int c = (p0 + i) % channels;
+    const float s = bn_scale(bn.w, bn.v, c, eps);
 #pragma unroll
-    for (int dx = 0; dx < 3; ++dx) {
-      const int ix = xq + dx - 1;
-      if (ix < 0 || ix >= width) continue;
-      acc = fmaf(to_f(wc[dy * 3 + dx]), to_f(xp[iy * width + ix]), acc);
+    for (int k = 0; k < 9; ++k) taps[i * 10 + k] = to_f(w[c * 9 + k]) * s;
+    taps[i * 10 + 9] = bn.b[c] - bn.m[c] * s;
+  }
+  __syncthreads();
+  float tap[10];
+#pragma unroll
+  for (int k = 0; k < 10; ++k) tap[k] = taps[(plane - p0) * 10 + k];
+
+  float win[3][10];  // rows y - 1, y, y + 1; columns x0 - 1 .. x0 + 8
+#pragma unroll 1
+  for (int i = 0; i < rows + 2; ++i) {
+    const Pack8<T> cur = next;
+    const float cur_l = next_l, cur_r = next_r;
+    if (i + 1 < rows + 2) fetch(y0 + i, next, next_l, next_r);  // in flight while this row is used
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      win[0][k] = win[1][k];
+      win[1][k] = win[2][k];
+    }
+    strip_row<false>(win[2], cur, cur_l, cur_r, own_left, own_right, first_strip, last_strip);
+    const int y = y0 + i - 2;
+    if (i < 2 || !active || y >= height) continue;
+    float o[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float acc = tap[9];
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) acc = fmaf(tap[dy * 3 + dx], win[dy][j + dx], acc);
+      o[j] = swish_of<T>(acc);
+    }
+    T* dst = op + (size_t)y * width + x0;
+    if (vec) {
+      store8(dst, o);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (x0 + j < width) dst[j] = from_f<T>(o[j]);
     }
   }
-  const float scale = bn_scale(bn.w, bn.v, c, eps);
-  const float v = acc * scale + (bn.b[c] - bn.m[c] * scale);
-  out[(size_t)plane * height * width + pix] = from_f<T>(swish(v));
 }
 
 // K4b: the per-image GEMM out[b] (cout x hw) = Wf[b] (cout x cin) . h[b]
@@ -251,17 +327,32 @@ project_kernel(const T* __restrict__ h, const float* __restrict__ se,
     }
   }
 }
-template <typename T>
-void launch_dw(const void* x, const void* w, BNParams bn, float eps, void* out,
-               int batch, int channels, int height, int width,
-               cudaStream_t stream) {
-  const dim3 grid((height * width + kThreads - 1) / kThreads, batch * channels);
-  dw_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), bn, eps,
-      static_cast<T*>(out), channels, height, width);
-}
-
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <typename T>
+cudaError_t launch_dw(const void* x, const void* w, BNParams bn, float eps, void* out,
+                      int batch, int channels, int height, int width, int rows, int smem,
+                      cudaStream_t stream) {
+  const long long planes = (long long)batch * channels;
+  const long long per_plane = (long long)((width + 7) / 8) * ((height + rows - 1) / rows);
+  const long long blocks = (planes * per_plane + kDwThreads - 1) / kDwThreads;
+  // the taps of the most planes a block spans
+  const long long need =
+      10 * (long long)sizeof(float) * std::min(planes, (kDwThreads - 1) / per_plane + 2);
+  if (blocks * kDwThreads > INT32_MAX || smem < need || (size_t)smem > kSmemLimit)
+    return cudaErrorInvalidValue;
+  auto kern = dw_kernel<T>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const int vec = width % 8 == 0 && aligned16(x) && aligned16(out);
+  kern<<<(unsigned)blocks, kDwThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), bn, eps, static_cast<T*>(out),
+      channels, (int)planes, height, width, rows, vec);
+  return cudaSuccess;
+}
 
 template <typename T, int TP>
 cudaError_t launch_project_tile(const void* h, const float* se, const void* w,
@@ -321,16 +412,6 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {  // n < kExpStages p
     cp_async_wait<2>();
   else
     cp_async_wait<3>();
-}
-
-// swish in the kernel's precision: float32's exact one, or for bfloat16 the
-// fast one (a few float32 ulps off, far under the output's rounding)
-template <typename T>
-__device__ __forceinline__ float swish_of(float v) {
-  if constexpr (std::is_same<T, float>::value)
-    return swish(v);
-  else
-    return swish_fast(v);
 }
 
 template <typename T, int CC>
@@ -634,16 +715,13 @@ cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expan
       out_w, stride, pad_t, pad_l, tile_h, tile_w, smem, stream);
 }
 
-cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w,
-                             BNParams bn, float eps, void* out, int batch,
-                             int channels, int height, int width,
-                             cudaStream_t stream) {
-  if (dt == DType::kFloat32)
-    launch_dw<float>(x, w, bn, eps, out, batch, channels, height, width, stream);
-  else
-    launch_dw<__nv_bfloat16>(x, w, bn, eps, out, batch, channels, height, width,
-                             stream);
-  return cudaSuccess;
+cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w, BNParams bn, float eps,
+                             void* out, int batch, int channels, int height, int width,
+                             int rows, int smem, cudaStream_t stream) {
+  if (rows < 1 || height < 1 || width < 1 || channels < 1 || batch < 1)
+    return cudaErrorInvalidValue;
+  return (dt == DType::kFloat32 ? launch_dw<float> : launch_dw<__nv_bfloat16>)(
+      x, w, bn, eps, out, batch, channels, height, width, rows, smem, stream);
 }
 
 cudaError_t launch_mbconv_project(DType dt, const void* h, const float* se,

@@ -17,11 +17,15 @@ they run as XLA ops around the TPU kernels. Source: mbconv.cu.
 Bound on the H100: bytes, for K4a and K4b. The depthwise does 9 MACs per
 output element and the projection at most 32 MACs per input element, orders
 of magnitude under the card's flop/byte balance. So each kernel reads its
-input once, coalesced along W, and writes its output once. What held K4b
-back was latency on an under-filled card, so a block takes a tile of 64 or
-128 pixels (`project_plan`: 128 only where the grid still fills the 132 SMs
-twice), streams it through a ring of 16-byte cp.async copies, and in
-bfloat16 multiplies on the tensor cores (mma).
+input once, coalesced along W, and writes its output once. K4a moves them 16
+bytes at a time: a thread walks a strip of 8 columns down a band of rows
+(`dw_plan`) with a three-row window in registers, one 16-byte load per
+input row and one 16-byte store per output row, and a block folds BN into
+the taps of its planes once. What held K4b back was latency on an
+under-filled card, so a block takes a tile of 64 or 128 pixels
+(`project_plan`: 128 only where the grid still fills the 132 SMs twice),
+streams it through a ring of 16-byte cp.async copies, and in bfloat16
+multiplies on the tensor cores (mma).
 
 K5 does cin MACs per expanded element (16 to 384): in bfloat16 that is under
 the tensor cores' balance, so bytes bound it; in float32, whose expand runs
@@ -35,9 +39,9 @@ H/s, W/s) output touch device memory. The plan gives a block more channels
 where cin is large and the map small, so one staged window serves more of
 them, and enough blocks to fill the card.
 
-The plans also lay out each block's shared memory (`project_plan`,
-`expand_dw_layout`) and hand the layout to the launch: the kernels compute
-no offsets of their own.
+The plans also lay out each block's shared memory (`dw_plan`,
+`project_plan`, `expand_dw_layout`) and hand the layout to the launch: the
+kernels compute no offsets of their own.
 """
 
 from __future__ import annotations
@@ -61,6 +65,9 @@ EXPAND_CHANNELS = (32, 64)  # expanded channels per mbconv_expand_dw block
 EXPAND_KC, EXPAND_STAGES = 32, 4       # channels per cp.async stage, stages at most
 EXPAND_WARPS = 8                       # warps of a mbconv_expand_dw block
 EXPAND_PADS = {1: ((1, 1), (1, 1)), 2: ((0, 1), (0, 1))}  # depthwise pad by stride
+DW_THREADS = 256                # threads of a mbconv_dw block, one strip of 8 columns each
+DW_ROWS = (32, 16, 8, 4, 2, 1)  # rows a mbconv_dw thread walks down its strip
+DW_RESIDENT = 3                 # mbconv_dw blocks an SM holds at once (68 registers a thread)
 
 
 def _up(n, m):
@@ -73,16 +80,52 @@ def mbconv_dw_plain(x, weight, bn, eps=1e-3):
     return F.swish(F.batch_norm(y, *bn, eps=eps)).to(x.dtype)
 
 
+def dw_units(planes, height, width, rows):
+    """Threads of one mbconv_dw launch with bands of `rows` rows: one per
+    (plane, band, strip of 8 columns)."""
+    return planes * -(-height // rows) * -(-width // 8)
+
+
+def dw_smem(planes, height, width, rows):
+    """Shared memory of one mbconv_dw block, in bytes: the folded taps,
+    float32 [planes][10] (nine taps, then the bias), for the most planes a
+    block of DW_THREADS units (plane, band, strip; strip fastest) spans."""
+    per_plane = dw_units(1, height, width, rows)
+    return 4 * 10 * min(planes, (DW_THREADS - 1) // per_plane + 2)
+
+
+def dw_cost(planes, height, width, rows):
+    """What dw_plan minimises: the waves of the grid over the SMS * DW_RESIDENT
+    blocks the card holds at once, times the rows + 2 a thread loads."""
+    blocks = -(-dw_units(planes, height, width, rows) // DW_THREADS)
+    return -(-blocks // (SMS * DW_RESIDENT)) * (rows + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def dw_plan(batch, channels, height, width):
+    """(rows, blocks, smem) of one mbconv_dw launch, cached per shape: the
+    rows a thread walks down its strip, the band of DW_ROWS with the least
+    `dw_cost` (a taller band loads fewer halo rows, a shorter one fills the
+    last wave better; ties to the taller); the grid's blocks; `dw_smem`.
+    `mbconv_sweep --plans` times every band: the rule picked the fastest at
+    all 12 K4a calls of M, L and V at batch 1 and 8 on the H100."""
+    planes = batch * channels
+    rows = min(DW_ROWS, key=lambda r: (dw_cost(planes, height, width, r), -r))
+    return (rows, -(-dw_units(planes, height, width, rows) // DW_THREADS),
+            dw_smem(planes, height, width, rows))
+
+
 def mbconv_dw(x, weight, bn, eps=1e-3):
     """x: (B, C, H, W); weight: (C, 1, 3, 3); bn float32 (C,) x 4."""
     if x.device.type == "cpu":
         return mbconv_dw_plain(x, weight, bn, eps)
     build.check_activation("mbconv_dw x", x)
-    c = x.shape[1]
+    b, c, h, w = x.shape
     build.check("mbconv_dw weight", weight, x.dtype, (c, 1, 3, 3))
     build.check_bn("mbconv_dw bn", bn, c)
+    rows, _, smem = dw_plan(b, c, h, w)
     out = torch.empty_like(x)
-    build.kernels().mbconv_dw(x, weight, *bn, float(eps), out)
+    build.kernels().mbconv_dw(x, weight, *bn, float(eps), rows, smem, out)
     LAUNCHES["mbconv_dw"] += 1
     return out
 

@@ -1,20 +1,22 @@
-"""Time K4b (mbconv_project) and K5 (mbconv_expand_dw) on one GPU at every
-call of the main paths' backbones, one line per block.
+"""Time K4a (mbconv_dw), K4b (mbconv_project) and K5 (mbconv_expand_dw) on
+one GPU at every call of the main paths' backbones, one line per block.
 
     python -m hyperseg_torch.ops.kernels.mbconv_sweep [--batch 1] [--plans]
 
 For HyperSeg-M (EfficientNet-B1 at 1024x512), HyperSeg-L CamVid (B1 at
-768x1024) and HyperSeg-L VOC (B3 at 512x512), each block that runs K4b or
-K5 gets its call's shapes from the backbone's block plans, random bfloat16
-inputs, and a line with the kernel's mean device time (CUDA events over a
-warm loop), its library yardstick's (K4b: cuDNN's 1x1 conv on weights with
-SE and BN folded in; K5: cuDNN's 1x1 expand + ATen's depthwise, without BN
-and swish), the least time the card could take (bytes over 3.35 TB/s or
-flops over 989 TFLOP/s) and the kernel's largest difference from its plain
-twin. Sums per model close each model. With --plans, K5 instead runs at
-every plan the kernel takes for each call, two lines per block: the plan
-`expand_dw_plan` picks, the fastest and the pick's rank; then every plan's
-time; at the end the sums of the picks' and of the fastest plans' times.
+768x1024) and HyperSeg-L VOC (B3 at 512x512), each block that runs K4a, K4b
+or K5 gets its call's shapes from the backbone's block plans, random
+bfloat16 inputs, and a line with the kernel's mean device time (CUDA events
+over a warm loop), its library yardstick's (K4a: ATen's depthwise conv with
+BN folded in; K4b: cuDNN's 1x1 conv on weights with SE and BN folded in; K5:
+cuDNN's 1x1 expand + ATen's depthwise, without BN and swish), the least time
+the card could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s) and the
+kernel's largest difference from its plain twin. Sums per model close each
+model. With --plans, K4a and K5 instead run at every plan the kernel takes
+for each call (K4a: every band of DW_ROWS), two lines per block: the plan
+`dw_plan` or `expand_dw_plan` picks, the fastest and the pick's rank; then
+every plan's time; at the end the sums of the picks' and of the fastest
+plans' times, per kernel.
 """
 
 import argparse
@@ -36,16 +38,19 @@ MODELS = {  # name: backbone, input (H, W)
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12   # H100 SXM HBM3, dense bf16
 
 
-def calls(model):
-    """The K4b and K5 calls of one forward, in order: (block, kind, plan,
-    input (H, W)); kind "project" or "expand_dw", plan the block's MBConvPlan."""
-    name, (height, width) = MODELS[model]
+def calls(model, hw=None):
+    """The K4a, K4b and K5 calls of one forward at input size hw (the
+    model's own by default), in order: (block, kind, plan, input (H, W));
+    kind "dw", "project" or "expand_dw", plan the block's MBConvPlan."""
+    name, model_hw = MODELS[model]
+    height, width = hw or model_hw
     net = EfficientNet(name, device="meta")
     h, w = math.ceil(height / 2), math.ceil(width / 2)
     out = []
     for i, blk in enumerate(net._blocks):
         p = blk.plan
         if p.fusable:
+            out.append((i, "dw", p, (h, w)))
             out.append((i, "project", p, (h, w)))
         elif p.expand_fusable:
             out.append((i, "expand_dw", p, (h, w)))
@@ -81,7 +86,15 @@ def time_call(kind, p, hw, batch, gen):
                                          torch.randn(c, generator=gen) * 0.1,
                                          torch.rand(c, generator=gen) + 0.5))
     h, w = hw
-    if kind == "project":
+    if kind == "dw":
+        x, wd, bnd = rnd(batch, p.mid, h, w), rnd(p.mid, 1, 3, 3, scale=0.3), bn(p.mid)
+        args = (x, wd, bnd)
+        wf, bf = _folded(wd, bnd)
+        fn, twin = K4.mbconv_dw, K4.mbconv_dw_plain
+        library = lambda: TF.conv2d(x, wf, bf, padding=1, groups=p.mid)   # noqa: E731
+        out_numel = x.numel()
+        flops = 2 * 9 * out_numel
+    elif kind == "project":
         x = rnd(batch, p.mid, h, w)
         se = torch.rand(batch, p.mid, generator=gen).to(dev)
         wp, bnp = rnd(p.out_ch, p.mid, 1, 1, scale=p.mid ** -0.5), bn(p.out_ch)
@@ -117,6 +130,25 @@ def time_call(kind, p, hw, batch, gen):
     return tuple(x.shape), ms, lib_ms, bound, by, err
 
 
+def dw_plan_table(p, hw, batch, gen):
+    """K4a at every band of DW_ROWS for one call, fastest first: [(ms,
+    rows)], and the band dw_plan picks."""
+    h, w = hw
+    x = torch.randn(batch, p.mid, h, w, generator=gen).to("cuda", torch.bfloat16)
+    wd = (torch.randn(p.mid, 1, 3, 3, generator=gen) * 0.3).to("cuda", torch.bfloat16)
+    bn = [t.to("cuda") for t in (torch.rand(p.mid, generator=gen) + 0.5,
+                                 torch.randn(p.mid, generator=gen) * 0.1,
+                                 torch.randn(p.mid, generator=gen) * 0.1,
+                                 torch.rand(p.mid, generator=gen) + 0.5)]
+    out = torch.empty_like(x)
+    table = []
+    for rows in K4.DW_ROWS:
+        smem = K4.dw_smem(batch * p.mid, h, w, rows)
+        ms = cuda_ms(lambda: build.kernels().mbconv_dw(x, wd, *bn, 1e-3, rows, smem, out))
+        table.append((ms, rows))
+    return sorted(table), K4.dw_plan(batch, p.mid, h, w)[:1]
+
+
 def plan_table(p, hw, batch, gen):
     """K5 at every plan it takes for one call, fastest first: [(ms, tile_h,
     tile_w, channels)], and the plan expand_dw_plan picks."""
@@ -145,33 +177,35 @@ def main():
     ap.add_argument("--batch", type=int, default=1)
     ap.add_argument("--models", default="MLV")
     ap.add_argument("--plans", action="store_true",
-                    help="time K5 at every plan it takes, against the plan's pick")
+                    help="time K4a and K5 at every plan they take, against the plan's pick")
     args = ap.parse_args()
     build.kernels()
     gen = torch.Generator().manual_seed(0)
     if args.plans:
-        picked = fastest = 0.0
-        ranks = []
-        for model in args.models:
-            for i, kind, p, hw in calls(model):
-                if kind != "expand_dw":
-                    continue
-                table, pick = plan_table(p, hw, args.batch, gen)
-                rank = next(r for r, t in enumerate(table) if t[1:] == pick)
-                ms, best = table[rank][0], table[0][0]
-                picked, fastest = picked + ms, fastest + best
-                ranks.append(rank)
-                print(f"mbconv_sweep plans {model} block {i:2d} batch {args.batch}: pick "
-                      f"{pick} {ms:.4f} ms, fastest {table[0][1:]} {best:.4f} ms "
-                      f"(+{100 * (ms / best - 1):.1f}%), rank {rank + 1} of {len(table)}",
-                      flush=True)
-                print(f"mbconv_sweep plans {model} block {i:2d} x {(args.batch, p.in_ch, *hw)} "
-                      f"{p.in_ch} -> {p.mid} stride {p.stride}, every plan (tile_h, tile_w, "
-                      f"channels) ms: " + " ".join(f"{t[1:]} {t[0]:.4f}" for t in table),
-                      flush=True)
-        print(f"mbconv_sweep plans batch {args.batch}: picks sum {picked:.4f} ms, fastest "
-              f"{fastest:.4f} ms (+{100 * (picked / fastest - 1):.1f}%); the pick is the "
-              f"fastest at {ranks.count(0)} of {len(ranks)} calls", flush=True)
+        for kernel, tables, what in (("dw", dw_plan_table, "(rows)"),
+                                     ("expand_dw", plan_table, "(tile_h, tile_w, channels)")):
+            picked = fastest = 0.0
+            ranks = []
+            for model in args.models:
+                for i, kind, p, hw in calls(model):
+                    if kind != kernel:
+                        continue
+                    table, pick = tables(p, hw, args.batch, gen)
+                    rank = next(r for r, t in enumerate(table) if t[1:] == pick)
+                    ms, best = table[rank][0], table[0][0]
+                    picked, fastest = picked + ms, fastest + best
+                    ranks.append(rank)
+                    cin = p.mid if kind == "dw" else p.in_ch
+                    print(f"mbconv_sweep plans {model} block {i:2d} {kind} batch {args.batch}: "
+                          f"pick {pick} {ms:.4f} ms, fastest {table[0][1:]} {best:.4f} ms "
+                          f"(+{100 * (ms / best - 1):.1f}%), rank {rank + 1} of {len(table)}",
+                          flush=True)
+                    print(f"mbconv_sweep plans {model} block {i:2d} x {(args.batch, cin, *hw)} "
+                          f"{cin} -> {p.mid} stride {p.stride}, every plan {what} ms: "
+                          + " ".join(f"{t[1:]} {t[0]:.4f}" for t in table), flush=True)
+            print(f"mbconv_sweep plans {kernel} batch {args.batch}: picks sum {picked:.4f} ms, "
+                  f"fastest {fastest:.4f} ms (+{100 * (picked / fastest - 1):.1f}%); the pick "
+                  f"is the fastest at {ranks.count(0)} of {len(ranks)} calls", flush=True)
         return
     for model in args.models:
         sums = {}
@@ -182,7 +216,8 @@ def main():
             s[1] += lib_ms
             s[2] += bound
             s[3] += 1
-            cin, cout = (p.in_ch, p.mid) if kind == "expand_dw" else (p.mid, p.out_ch)
+            cin, cout = {"dw": (p.mid, p.mid), "expand_dw": (p.in_ch, p.mid)}.get(
+                kind, (p.mid, p.out_ch))
             print(f"mbconv_sweep {model} block {i:2d} {kind:9s} x {shape} {cin} -> {cout} "
                   f"stride {p.stride}: kernel {ms:.4f} ms  "
                   f"library {lib_ms:.4f} ms  bound {bound:.4f} ms ({by})  max_abs_err {err:.3e}",

@@ -10,12 +10,17 @@ no antialias): the taps of resize.py:_taps (:67-73). Every inter-level and
 final upsample of HyperSeg-M and -L is an exact 2x.
 
 Bound on the H100: bytes. An output element is four taps of two input rows,
-about 1 flop per byte moved, so the kernel reads each input row from L1/L2
-while the block writes one coalesced output row, with the row taps uniform
-over the block. Nothing of the TPU's banded one-hot matrices is carried over.
+about 1 flop per byte moved. A thread owns a strip of 8 input columns, which
+feed s whole vectors of 8 outputs in each output row, so every tap is a
+compile-time constant of s; it walks a band of input rows down the strip
+(`resize_plan`) with a three-row window in registers, one 16-byte load per
+input row, and writes the s output rows each input row feeds with 16-byte
+stores. Nothing of the TPU's banded one-hot matrices is carried over.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -24,6 +29,10 @@ from hyperseg_torch.ops.kernels import LAUNCHES
 from hyperseg_torch.ops.kernels import build
 
 SCALES = (2, 3, 4)
+THREADS = 256                # threads of a block, one strip of 8 input columns each
+ROWS = (32, 16, 8, 4, 2, 1)  # input rows a thread may walk down its strip
+MAX_ROWS = 4                 # the most resize_plan gives a thread
+MIN_BLOCKS = 3 * 132         # a grid with three blocks for each of the H100's 132 SMs
 
 
 def integer_scale(in_hw, out_hw):
@@ -65,6 +74,27 @@ def resize_bilinear_plain(x, out_hw):
     return y.to(x.dtype)
 
 
+def units(planes, height, width, rows):
+    """Threads of one launch with bands of `rows` input rows: one per (plane,
+    band, strip of 8 input columns)."""
+    return planes * -(-height // rows) * -(-width // 8)
+
+
+@functools.lru_cache(maxsize=None)
+def resize_plan(planes, height, width):
+    """(rows, blocks) of one launch, cached per shape: the most input rows,
+    at most MAX_ROWS, whose grid of THREADS units a block (strip fastest)
+    still has MIN_BLOCKS blocks, else 1 (a taller band loads fewer halo rows,
+    but each thread walks its rows one after another). The kernel keeps its
+    rows in registers and takes no shared memory. `resize_sweep --plans`
+    times every band of ROWS: the rule's picks summed within 1% of the
+    fastest bands' over the 30 K6 calls of M, L and V at batch 1 and 8 on
+    the H100."""
+    rows = next((r for r in ROWS if r <= MAX_ROWS
+                 and -(-units(planes, height, width, r) // THREADS) >= MIN_BLOCKS), ROWS[-1])
+    return rows, -(-units(planes, height, width, rows) // THREADS)
+
+
 def resize_bilinear(x, out_hw):
     """x: (B, C, H, W) -> (B, C, s*H, s*W), out_hw = (s*H, s*W), s in SCALES."""
     s = integer_scale(x.shape[2:], out_hw)
@@ -75,10 +105,8 @@ def resize_bilinear(x, out_hw):
         return resize_bilinear_plain(x, out_hw)
     build.check_activation("resize_bilinear x", x)
     b, c, h, w = x.shape
-    if b * c > 65535 or h * s > 65535:
-        raise ValueError(f"resize_bilinear: {b * c} planes of {h * s} output rows; the "
-                         "kernel's grid takes at most 65535 of each")
+    rows, _ = resize_plan(b * c, h, w)
     out = torch.empty((b, c, h * s, w * s), device=x.device, dtype=x.dtype)
-    build.kernels().resize_bilinear(x, s, out)
+    build.kernels().resize_bilinear(x, s, rows, out)
     LAUNCHES["resize_bilinear"] += 1
     return out

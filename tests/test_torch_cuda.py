@@ -70,7 +70,28 @@ K7_CALIBRATED = [  # level 2's and level 5's widths under calibrated-size BN sca
     (1, 16, 16, 32, 32, 11, 22, 21),
 ]
 K6_CASES = [  # b, c, h, w, scale
-    (2, 19, 64, 128, 2), (1, 16, 24, 32, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4)]
+    (2, 19, 64, 128, 2), (1, 16, 24, 32, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4),
+    (1, 19, 256, 512, 2),   # HyperSeg-M's final logits at 1024x512
+    (1, 16, 384, 512, 2),   # HyperSeg-L's last call (level 4 -> 5)
+    (1, 6, 256, 256, 2),    # HyperSeg-L VOC's last call
+    (2, 96, 16, 16, 2),     # VOC level 0 -> 1: several planes a block
+    (1, 3, 9, 21, 2), (2, 2, 10, 13, 3), (1, 3, 7, 11, 4),   # ragged widths: tails
+    (1, 4, 8, 24, 3)]       # s = 3 on whole 16-byte rows
+K4A_CASES = [  # b, c, h, w: the two expand-1 blocks of each model, batch 2
+    (2, 32, 256, 512), (2, 16, 256, 512),   # HyperSeg-M
+    (2, 32, 384, 512), (2, 16, 384, 512),   # HyperSeg-L
+    (2, 40, 256, 256), (2, 24, 256, 256),   # HyperSeg-L VOC (B3)
+    (1, 8, 33, 70),                         # a ragged width and height
+]
+
+
+def _off16(x):
+    """x as a contiguous tensor whose data starts one element past its
+    allocation: off 16 bytes, so the kernels take their element path."""
+    buf = torch.empty(x.numel() + 1, device=x.device, dtype=x.dtype)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
 
 
 def _bns(rng, channels, calibrated):
@@ -99,7 +120,8 @@ def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups, calibrate
 def test_kernels_match_twins_on_card():
     """Each CUDA kernel against its plain twin on the card, f32 and bf16:
     K3, K4a, K4b, K1, and K2, K5, K6, K7 at HyperSeg-M's, -L's and -L VOC's
-    widths (B3's among them) and at ragged sizes; K1 and K7 also with
+    widths (B3's among them) and at ragged sizes, K4a and K6 also on inputs
+    off 16 bytes (their element path); K1 and K7 also with
     calibrated-size BN scales, K2 also on a float32 map with a bfloat16 x,
     K1 and K2 also with a 5x5 depthwise."""
     if not torch.cuda.is_available():
@@ -127,6 +149,10 @@ def test_kernels_match_twins_on_card():
         x, w = r(2, 16, 32, 64), r(16, 1, 3, 3, scale=0.3)
         h = K4.mbconv_dw(x, w, bn(16))
         close(h, K4.mbconv_dw_plain(x, w, bn(16)))
+        close(K4.mbconv_dw(_off16(x), w, bn(16)), K4.mbconv_dw_plain(x, w, bn(16)))
+        for b, c, hh, ww in K4A_CASES:
+            xs, ws = r(b, c, hh, ww), r(c, 1, 3, 3, scale=0.3)
+            close(K4.mbconv_dw(xs, ws, bn(c)), K4.mbconv_dw_plain(xs, ws, bn(c)))
         se = torch.rand(2, 16, generator=g).to(dev)
         wp = r(16, 16, 1, 1, scale=0.3)
         close(K4.mbconv_project(h, se, wp, bn(16), x),
@@ -169,8 +195,10 @@ def test_kernels_match_twins_on_card():
                   K4.mbconv_expand_dw_plain(xs, we, bn(mid), wd, bn(mid, 1), stride))
         for b, c, h, w, s in K6_CASES:
             xs = r(b, c, h, w)
-            close(K6.resize_bilinear(xs, (s * h, s * w)),
-                  K6.resize_bilinear_plain(xs, (s * h, s * w)))
+            want = K6.resize_bilinear_plain(xs, (s * h, s * w))
+            close(K6.resize_bilinear(xs, (s * h, s * w)), want)
+            if w % 8 == 0:   # the element path on whole rows
+                close(K6.resize_bilinear(_off16(xs), (s * h, s * w)), want)
         for case, calibrated in ([(c, False) for c in K7_CASES]
                                  + [(c, True) for c in K7_CALIBRATED]):
             b, fh, fw, ph, pw, cin, hidden, out = case

@@ -29,7 +29,7 @@ def _calls(model):
     for _, kind, p, (h, w) in mbconv_sweep.calls(model):
         if kind == "project":
             project.append((p.mid, h * w))
-        else:
+        elif kind == "expand_dw":
             expand.append((p.in_ch, p.mid, *K4.expand_dw_out_hw(h, w, p.stride), p.stride))
     return project, expand
 
