@@ -17,7 +17,9 @@ Phases (any failure exits non-zero before the result lines):
         beside the least time the card could take (bytes or operations);
         K1's generation kernel is held against decoder.weight_map on each
         K1 call's inputs, and in bfloat16 each K1 call's time is split into
-        generation and unit;
+        generation and unit; at HyperSeg-M's stem call, K3's no-activation
+        mode (stem_conv, the raw conv) against its twin, and timed in
+        bfloat16 beside `conv2d`;
      b. the card's float32 kernel path against the reference (HyperSeg-M at
         batch 1 and 8, the others at batch 1); bfloat16 stage by stage
         (backbone features, decoder on the reference features and signal or
@@ -319,6 +321,40 @@ def check_calls(model, calls, dtype, rows):
             row["library_ms"] = (row["library_ms"] or 0.0) + lib_ms
 
 
+def check_stem_conv(model, calls, dtype, rows):
+    """K3's no-activation mode (stem_conv: the identity BN, no swish; the
+    forward of the JAX stem_conv) against its twin on the main path's stem
+    input, in the same gate as check_calls; in bfloat16 also timed beside
+    one `conv2d` (no bias) and the bound. Kept under rows[(model,
+    "stem_conv")]; the launches it makes are not the main path's."""
+    import torch.nn.functional as TF
+    from hyperseg_torch.ops.kernels import stem as K3
+
+    x, w = next(c for c in calls if c.name == "stem").args[:2]
+    got, want = K3.stem_conv(x, w), K3.stem_conv_plain(x, w)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = KERNEL_TOL[dtype] * max(1.0, want.float().abs().max().item())
+    ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+    print(f"kernel {model} stem_conv (act=None) {str(dtype):15s} {tuple(got.shape)} "
+          f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"stem_conv disagrees with its plain twin in {dtype} ({model})")
+    row = rows.setdefault((model, "stem_conv"), dict(max_abs_err=0.0, f32_max_abs_err=0.0))
+    row["max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"] = err
+    if dtype != torch.bfloat16:
+        return
+    xpad = TF.pad(x, (0, 1, 0, 1))
+    b_ms, by = bound_ms(sum(t.numel() * t.element_size() for t in (x, w, got)),
+                        2 * 27 * got.numel(), dtype)
+    row.update(ms=cuda_ms(lambda: K3.stem_conv(x, w)),
+               plain_ms=cuda_ms(lambda: K3.stem_conv_plain(x, w)), bound_ms=b_ms, bound_by=by,
+               library_ms=cuda_ms(lambda: TF.conv2d(xpad, w, stride=2)))
+    print(f"time   {model} stem_conv (act=None) x {tuple(x.shape)} kernel {row['ms']:.4f} ms  "
+          f"plain {row['plain_ms']:.4f} ms  conv2d {row['library_ms']:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({by})", flush=True)
+
+
 def k1_generation(model, calls, dtype):
     """K1's generation kernel against decoder.weight_map, its plain twin, on
     each K1 call's own inputs: the same products summed in float32 in
@@ -410,6 +446,8 @@ def run_model(key, rows):
             gpu(x1.cuda())
         check_calls(key, calls, torch.float32, rows)
         k1_generation(key, calls, torch.float32)
+        if key == "M":
+            check_stem_conv(key, calls, torch.float32, rows)
         del calls
         for b in cfg.f32_batches:
             compare(gpu(x8[:b].cuda()), ref[:b], f"cuda float32 b{b} logits vs cpu plain",
@@ -422,6 +460,8 @@ def run_model(key, rows):
             gpu(xb1)
         check_calls(key, calls, torch.bfloat16, rows)
         k1_generation(key, calls, torch.bfloat16)
+        if key == "M":
+            check_stem_conv(key, calls, torch.bfloat16, rows)
         del calls
         # bfloat16 stage by stage: the calibrated random-weight net amplifies
         # rounding through its depth (docs/PARITY.md), so each stage runs on
@@ -496,7 +536,8 @@ def phase_profile(key, gpu, inputs, fps, forwards=3):
 def kernels_line(rows, launches):
     """One entry per kernel: the per-forward numbers of the first model (M,
     L, V) that runs it, each model's under `by_model`; launches summed over
-    all main paths."""
+    all main paths. K3's entry also holds its no-activation mode under
+    `modes` (HyperSeg-M's stem shape, off the main path)."""
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         per_model = {m: r for (m, n), r in rows.items() if n == name}
@@ -518,6 +559,9 @@ def kernels_line(rows, launches):
             f32_max_abs_err=max(r["f32_max_abs_err"] for r in per_model.values()),
             model=first, **summary(per_model[first]),
             by_model={m: summary(r) for m, r in per_model.items()}, passed=True))
+        if name == "stem":
+            kernels[-1]["modes"] = {f"stem_conv {m}": r for (m, n), r in rows.items()
+                                    if n == "stem_conv"}
     return kernels
 
 

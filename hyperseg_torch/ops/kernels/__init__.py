@@ -2,7 +2,7 @@
 
 One module per kernel holds its wrapper and its `*_plain` twin:
 
-  stem.py          K3  stem conv 3x3/s2 + BN + swish
+  stem.py          K3  stem conv 3x3/s2 + BN + swish, or the raw conv
   mbconv.py        K4a depthwise 3x3 + BN + swish; K4b SE/BN-folded project;
                    K5  expand 1x1 + BN + swish -> depthwise 3x3 + BN + swish
   patch_invres.py  K1  signal2weights + hyper inverted residual, fused;

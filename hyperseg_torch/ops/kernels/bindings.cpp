@@ -63,16 +63,22 @@ Smem smem_of(at::IntArrayRef layout, const char* name) {
   return s;
 }
 
-void stem(const Tensor& x, const Tensor& w, const Tensor& g, const Tensor& b,
-          const Tensor& m, const Tensor& v, double eps, Tensor& out) {
+void stem(const Tensor& x, const Tensor& w, at::TensorList bn, double eps, bool swish,
+          int64_t rows, int64_t cols, at::IntArrayRef layout, Tensor& out) {
   c10::cuda::CUDAGuard guard(x.device());
   const DType dt = dtype_of(x);
   check_like(x, x, "stem x");
   check_like(w, x, "stem weight");
   check_like(out, x, "stem out");
+  // no BN: the identity (the raw conv)
+  TORCH_CHECK(bn.size() == 4 || bn.size() == 0,
+              "stem: bn takes (weight, bias, mean, var) or nothing");
+  const BNParams params = bn.size() == 4 ? bn_of(bn[0], bn[1], bn[2], bn[3])
+                                         : BNParams{nullptr, nullptr, nullptr, nullptr};
   C10_CUDA_CHECK(hyperseg::launch_stem(
-      dt, x.data_ptr(), w.data_ptr(), bn_of(g, b, m, v), static_cast<float>(eps),
-      out.data_ptr(), x.size(0), x.size(2), x.size(3), w.size(0), stream_of(x)));
+      dt, x.data_ptr(), w.data_ptr(), params, static_cast<float>(eps), swish, out.data_ptr(),
+      x.size(0), x.size(2), x.size(3), w.size(0), rows, cols,
+      smem_of<hyperseg::StemSmem, 6>(layout, "stem"), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }
 
@@ -215,8 +221,8 @@ void s2w_generate(const Tensor& s, int64_t s_bstride, const Tensor& w_s2w, int64
 }  // namespace
 
 TORCH_LIBRARY(hyperseg_kernels, m) {
-  m.def("stem(Tensor x, Tensor weight, Tensor bn_weight, Tensor bn_bias, "
-        "Tensor bn_mean, Tensor bn_var, float eps, Tensor(a!) out) -> ()");
+  m.def("stem(Tensor x, Tensor weight, Tensor[] bn, float eps, bool swish, int rows, "
+        "int cols, int[] layout, Tensor(a!) out) -> ()");
   m.def("mbconv_dw(Tensor x, Tensor weight, Tensor bn_weight, Tensor bn_bias, "
         "Tensor bn_mean, Tensor bn_var, float eps, int rows, int smem, Tensor(a!) out) -> ()");
   m.def("mbconv_project(Tensor h, Tensor se, Tensor weight, Tensor bn_weight, "

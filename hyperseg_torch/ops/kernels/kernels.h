@@ -21,10 +21,21 @@ struct BNParams {
   const float* v;
 };
 
+// Shared memory of one K3 block as stem.py's stem_layout lays it out: the
+// staged band's row and channel pitches in elements, its 16-byte chunks a
+// row; offsets and total in bytes.
+struct StemSmem {
+  int row, chan, chunks, bn_off, w_off, total;
+};
+constexpr int kStemMaxOut = 80;  // output channels K3 takes: five m-tiles of 16
+
 // K3. x (B, 3, H, W) -> out (B, cout, (H-2)/2+1, (W-2)/2+1); w (cout, 3, 3, 3).
-cudaError_t launch_stem(DType dt, const void* x, const void* w, BNParams bn,
-                        float eps, void* out, int batch, int height, int width,
-                        int cout, cudaStream_t stream);
+// bn.w null: the identity BN. swish false: no activation (the raw conv with
+// the identity BN). A block takes `rows` x `cols` output pixels, as stem.py's
+// stem_plan gives them.
+cudaError_t launch_stem(DType dt, const void* x, const void* w, BNParams bn, float eps,
+                        bool swish, void* out, int batch, int height, int width, int cout,
+                        int rows, int cols, StemSmem lay, cudaStream_t stream);
 
 // K4a. x, out (B, C, H, W); w (C, 1, 3, 3). A thread takes `rows` rows of a
 // strip of 8 columns; `smem` bytes of shared memory a block, room for the

@@ -1,18 +1,29 @@
-"""K3: the EfficientNet stem, 3x3/s2 conv + eval BN + swish, fused.
+"""K3: the EfficientNet stem, 3x3/s2 conv + eval BN + swish, fused; and its
+raw-conv form.
 
-Replaces hyperseg_tpu/ops/pallas/stem.py:209 `stem_conv_bn_swish`. Source:
-stem.cu. NCHW in (B, 3, H, W), NCHW out (B, cout, H', W') with TF-SAME
-padding ((0, 1), (0, 1)): zero rows/cols past the bottom/right edge only.
+Replaces hyperseg_tpu/ops/pallas/stem.py:209 `stem_conv_bn_swish` (`stem`),
+and the forward of stem.py:173 `stem_conv`, the same kernel with the
+identity BN and no activation (`stem_conv`, or `stem(..., bn=None,
+act=None)`). Source: stem.cu. NCHW in (B, 3, H, W), NCHW out (B, cout, H',
+W') with TF-SAME padding ((0, 1), (0, 1)): zero rows/cols past the
+bottom/right edge only. Eval only, like every kernel here: the backward of
+`stem_conv` comes with the training step.
 
 Bound on the H100: bytes. Per output pixel it reads 27 inputs and does
-27*cout MACs: at cout=32 that is ~2 flop per input byte in bf16, far below
-the ~295 flop/byte where the tensor cores would bind. The design therefore
-reads each input once per thread from L1/L2 and keeps the folded filter
-(BN scale in, bias out) in shared memory; nothing of the TPU's one-hot
+27*cout MACs, and the output is about three quarters of the bytes. A block
+stages its input band into shared memory once (16-byte cp.async) and
+computes BN's scale and bias once; in bfloat16 the products run on the
+tensor cores (mma, the raw filter as A held in registers, each lane
+gathering its pixels' taps from the band), in float32 on the CUDA cores
+with the taps read as warp-broadcast float4, 8 pixels a thread. BN goes on
+the float32 sums, as in the twin. `stem_plan` sizes the tiles and lays out
+the block's shared memory (`stem_layout`). Nothing of the TPU's one-hot
 selection-matmul de-interleave is carried over.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as TF
@@ -21,31 +32,120 @@ from hyperseg_torch.nn import functional as F
 from hyperseg_torch.ops.kernels import LAUNCHES
 from hyperseg_torch.ops.kernels import build
 
+THREADS = 128                 # four warps a block
+ROWS = (1, 2, 4, 8)           # output rows of a block's tile
+COLS = (32, 64, 128, 256)     # output columns of a block's tile
+MAX_OUT = 80                  # output channels: five m-tiles of 16 (kStemMaxOut)
+SMS = 132                     # streaming multiprocessors of the H100
+MIN_BLOCKS = 2 * SMS          # a grid that fills every SM twice
+MAX_TILE = 1024               # output pixels of a block's tile at most
+SMEM_LIMIT = 232448           # bytes of shared memory one block may use
+W_TAPS = 28                   # float32 taps a channel in shared memory (27 and a pad)
+ACTS = ("swish", None)
+
+
+def _up(n, m):
+    return -(-n // m) * m
+
 
 def stem_out_hw(h, w):
     """Output size of the 3x3/s2 conv with pad (0, 1) on each axis."""
     return (h - 2) // 2 + 1, (w - 2) // 2 + 1
 
 
-def stem_plain(x, weight, bn, eps=1e-3):
-    """Plain twin: the same function in float32 torch ops."""
+def stem_plain(x, weight, bn, eps=1e-3, act="swish"):
+    """Plain twin: the same function in float32 torch ops; bn None is the
+    identity BN, act None no activation."""
     y = TF.conv2d(F.pad2d(x.float(), ((0, 1), (0, 1))), weight.float(), stride=2)
-    return F.swish(F.batch_norm(y, *bn, eps=eps)).to(x.dtype)
+    if bn is not None:
+        y = F.batch_norm(y, *bn, eps=eps)
+    return (F.swish(y) if act == "swish" else y).to(x.dtype)
 
 
-def stem(x, weight, bn, eps=1e-3):
+def stem_conv_plain(x, weight):
+    """Plain twin of `stem_conv`: the raw conv."""
+    return stem_plain(x, weight, None, act=None)
+
+
+def stem_scol(x, itemsize):
+    """Shared-memory index of staged column x of a band row (scol in
+    stem.cu): bfloat16 as is, float32 with 4 pad floats after every 16."""
+    return x + 4 * (x // 16) if itemsize == 4 else x
+
+
+@functools.lru_cache(maxsize=None)
+def stem_layout(rows, cols, cout, itemsize):
+    """Shared memory of one block (StemSmem): (row, chan, chunks, bn_off,
+    w_off, total). The band holds 3 channels of 2 rows + 1 input rows of
+    `chunks` 16-byte chunks, the 2 cols + 1 input columns the tile reads
+    rounded up. bfloat16: row pitch = 24 and channel pitch = 8 (mod 64
+    elements), so the lanes' B-fragment gathers hit 32 distinct banks;
+    float32: the padded columns (`stem_scol`). Then BN's scale and bias
+    (float32, cout each), then in float32 the taps ([cout][W_TAPS])."""
+    v = 16 // itemsize
+    chunks = -(-(2 * cols + 1) // v)
+    staged = chunks * v
+    brows = 2 * rows + 1
+    if itemsize == 2:
+        row = staged + (24 - staged) % 64
+        chan = brows * row + (8 - brows * row) % 64
+    else:
+        row = stem_scol(staged, 4)
+        chan = brows * row
+    bn_off = _up(3 * chan * itemsize, 16)
+    w_off = bn_off + _up(8 * cout, 16)
+    total = w_off + (4 * W_TAPS * cout if itemsize == 4 else 0)
+    return row, chan, chunks, bn_off, w_off, total
+
+
+def stem_blocks(batch, h, w, rows, cols):
+    """Blocks of one launch: a tile of rows x cols output pixels each."""
+    ho, wo = stem_out_hw(h, w)
+    return batch * -(-ho // rows) * -(-wo // cols)
+
+
+@functools.lru_cache(maxsize=None)
+def stem_plan(batch, h, w, cout, itemsize=2):
+    """(rows, cols, layout) of one launch, cached per shape: the tile of at
+    least 2 ROWS x COLS with the most pixels, at most MAX_TILE, whose grid
+    still has MIN_BLOCKS blocks, the widest of that size (else the
+    smallest tile); `stem_layout`'s shared memory. `stem_sweep --plans`
+    times every tile: at the stem calls of M, L and V at batch 1 and 8 on
+    the H100 the rule's picks came within 3% of the fastest tiles."""
+    tiles = [(r, c) for r in ROWS if r >= 2 for c in COLS if r * c <= MAX_TILE]
+    full = [t for t in tiles if stem_blocks(batch, h, w, *t) >= MIN_BLOCKS]
+    rows, cols = (max(full, key=lambda t: (t[0] * t[1], t[1])) if full
+                  else min(tiles, key=lambda t: (t[0] * t[1], -t[1])))
+    return rows, cols, stem_layout(rows, cols, cout, itemsize)
+
+
+def stem(x, weight, bn, eps=1e-3, act="swish"):
     """x: (B, 3, H, W); weight: (cout, 3, 3, 3) OIHW in x's dtype;
-    bn: float32 (weight, bias, running_mean, running_var)."""
+    bn: float32 (weight, bias, running_mean, running_var), or None for the
+    identity; act "swish" or None."""
+    if act not in ACTS:
+        raise ValueError(f"stem: act {act!r}; the kernel takes one of {ACTS}")
     if x.device.type == "cpu":
-        return stem_plain(x, weight, bn, eps)
+        return stem_plain(x, weight, bn, eps, act)
     build.check_activation("stem x", x)
     b, cin, h, w = x.shape
     cout = weight.shape[0]
     if cin != 3 or h < 2 or w < 2:
         raise ValueError(f"stem: input {tuple(x.shape)}; the kernel takes (B, 3, H>=2, W>=2)")
+    if not 1 <= cout <= MAX_OUT:
+        raise ValueError(f"stem: {cout} output channels; the kernel takes 1 to {MAX_OUT}")
     build.check("stem weight", weight, x.dtype, (cout, 3, 3, 3))
-    build.check_bn("stem bn", bn, cout)
+    if bn is not None:
+        build.check_bn("stem bn", bn, cout)
+    rows, cols, layout = stem_plan(b, h, w, cout, x.element_size())
     out = torch.empty((b, cout) + stem_out_hw(h, w), device=x.device, dtype=x.dtype)
-    build.kernels().stem(x, weight, *bn, float(eps), out)
+    build.kernels().stem(x, weight, list(bn or ()), float(eps), act == "swish", rows, cols,
+                         layout, out)
     LAUNCHES["stem"] += 1
     return out
+
+
+def stem_conv(x, weight):
+    """The raw stem conv (JAX stem_conv's forward): K3 with the identity BN
+    and no activation."""
+    return stem(x, weight, None, act=None)

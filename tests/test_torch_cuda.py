@@ -77,6 +77,15 @@ K6_CASES = [  # b, c, h, w, scale
     (2, 96, 16, 16, 2),     # VOC level 0 -> 1: several planes a block
     (1, 3, 9, 21, 2), (2, 2, 10, 13, 3), (1, 3, 7, 11, 4),   # ragged widths: tails
     (1, 4, 8, 24, 3)]       # s = 3 on whole 16-byte rows
+K3_CASES = [  # b, h, w, cout: every EfficientNet stem width, ragged shapes
+    (1, 512, 1024, 32),     # HyperSeg-M's call
+    (1, 512, 512, 40),      # HyperSeg-L VOC's (B3)
+    (2, 64, 128, 48), (1, 66, 130, 56), (1, 48, 96, 64), (1, 40, 80, 72),
+    (3, 2, 37, 32),         # H = 2, odd W: W' = 18
+    (1, 9, 70, 40),         # W' = 35, not a multiple of 8
+    (2, 17, 33, 72),        # odd H and W
+    (8, 96, 128, 32),       # batch 8
+]
 K4A_CASES = [  # b, c, h, w: the two expand-1 blocks of each model, batch 2
     (2, 32, 256, 512), (2, 16, 256, 512),   # HyperSeg-M
     (2, 32, 384, 512), (2, 16, 384, 512),   # HyperSeg-L
@@ -119,7 +128,8 @@ def _k1_inputs(seed, b, fh, fw, ph, pw, cin, hidden, out, sig, groups, calibrate
 @pytest.mark.cuda
 def test_kernels_match_twins_on_card():
     """Each CUDA kernel against its plain twin on the card, f32 and bf16:
-    K3, K4a, K4b, K1, and K2, K5, K6, K7 at HyperSeg-M's, -L's and -L VOC's
+    K3 (every stem width, ragged shapes, inputs off 16 bytes, and its
+    no-activation mode), K4a, K4b, K1, and K2, K5, K6, K7 at HyperSeg-M's, -L's and -L VOC's
     widths (B3's among them) and at ragged sizes, K4a and K6 also on inputs
     off 16 bytes (their element path); K1 and K7 also with
     calibrated-size BN scales, K2 also on a float32 map with a bfloat16 x,
@@ -146,6 +156,14 @@ def test_kernels_match_twins_on_card():
         close(K3.stem(x, w, bn(32)), K3.stem_plain(x, w, bn(32)))
         w = r(40, 3, 3, 3, scale=0.3)     # B3's 40 stem channels
         close(K3.stem(x, w, bn(40)), K3.stem_plain(x, w, bn(40)))
+        for b, h, w_, cout in K3_CASES:
+            xs, ws = r(b, 3, h, w_), r(cout, 3, 3, 3, scale=0.3)
+            want = K3.stem_plain(xs, ws, bn(cout))
+            close(K3.stem(xs, ws, bn(cout)), want)
+            close(K3.stem(_off16(xs), ws, bn(cout)), want)   # element staging
+            raw = K3.stem_conv_plain(xs, ws)
+            close(K3.stem_conv(xs, ws), raw)                 # the no-activation mode
+            close(K3.stem(xs, ws, None, act=None), raw)
         x, w = r(2, 16, 32, 64), r(16, 1, 3, 3, scale=0.3)
         h = K4.mbconv_dw(x, w, bn(16))
         close(h, K4.mbconv_dw_plain(x, w, bn(16)))

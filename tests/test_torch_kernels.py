@@ -113,6 +113,24 @@ def test_k3_plain_matches_pallas_stem():
     np.testing.assert_allclose(got.numpy(), nchw(want), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("cout", [32, 40])
+def test_k3_raw_conv_plain_matches_pallas_stem_conv(cout):
+    """stem_conv and stem(bn=None, act=None) - K3's no-activation mode, for a
+    CPU tensor its twin - against the JAX stem_conv, whose forward is the
+    Pallas kernel with the identity BN and no activation."""
+    from hyperseg_tpu.ops.pallas import stem as JS
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 3, 32, 256).astype(np.float32)
+    w = (rng.randn(cout, 3, 3, 3) * 0.2).astype(np.float32)
+    want = nchw(JS.stem_conv(jnp.asarray(nhwc(x)), jnp.asarray(w.transpose(2, 3, 1, 0)), True))
+    LAUNCHES.clear()
+    got = K3.stem_conv(t(x), t(w))
+    assert got.shape == (2, cout, 16, 128) and sum(LAUNCHES.values()) == 0
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(K3.stem(t(x), t(w), None, act=None).numpy(), want,
+                               atol=1e-5, rtol=1e-5)
+
+
 @pytest.mark.parametrize("c,co,residual", [(32, 16, False), (16, 16, True)])
 def test_k4_plain_matches_pallas_mbconv(c, co, residual):
     """mbconv_dw vs dw_phase, then mbconv_project vs project_phase on the
