@@ -29,7 +29,26 @@ Phases (any failure exits non-zero before the result lines):
         per forward; img/s by host clock around synchronised forwards; a
         profile of the device time per forward and the kernels that take it;
      d. the model's wall seconds;
-  4. print the per-kernel JSON line, the card's name and power limit, and the
+  4. the training step of HyperSeg-M (hyperseg_torch.train), float32, TF32
+     off:
+     T3. the main path: five steps at 512x1024, batch 16 (the config's),
+         on one fixed synthetic batch (tiles of labels 0-18, a band of 255,
+         images of the tiles' colours normalised with the config's mean and
+         std), launch counters set to 0 just before and read just after:
+         K3's raw conv once a step and K6 five times, no eval-only kernel;
+         finite losses, step 5's below step 1's; ms per step by CUDA events
+         over steps 2-5, img/s, peak memory; then one step under
+         torch.profiler, split into forward, backward, optimizer and
+         metrics, with its top device kernels;
+     T1. on step 1's own inputs, K3's raw conv (StemConv) and K6
+         (ResizeBilinear): forwards against the twins, gradients against
+         the twins' autograd within 1e-5 of the largest magnitude, and the
+         forward, twin, library and backward times;
+     T2. one step at batch 2, 256x512, on the card against the same step on
+         the CPU's plain path from seed 0's weights, drop rates 0: loss,
+         gradients of the stem, every signal2weights and the weight
+         mapper's convs, every BN running statistic, the Adam updates;
+  5. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
 
 The script exits with an error, printing no result, when torch finds no
@@ -41,6 +60,7 @@ import copy
 import functools
 import importlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -130,6 +150,32 @@ KERNELS = {
 }
 
 
+# The training step of HyperSeg-M (configs/train/cityscapes_efficientnet_b1_hyperseg-m.py):
+# batch 16 at 512x1024, Adam (lr 1e-3, betas (0.5, 0.999)) under PolyLR (power 0.9 over
+# 360 * 4000 // 16 batches), bootstrapped CE ignoring 255, images normalised with the
+# ImageNet mean and std; float32, as the JAX step's default. T2 runs a reduced step.
+TRAIN = dict(batch=16, res=(512, 1024), steps=5, lr=1e-3, max_steps=360 * 4000 // 16,
+             mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
+             reduced_batch=2, reduced_res=(256, 512))
+# the kernels of the training path (the eval-only ones must not launch there), per step
+TRAIN_KERNELS = {
+    "stem_conv": ("stem", "stem_conv_plain", K + "stem.cu", P + "stem.py:173"),
+    "resize_bilinear": ("resize", "resize_bilinear_plain", K + "resize.cu", P + "resize.py:152"),
+}
+TRAIN_PER_STEP = {"stem_conv": 1, "resize_bilinear": 5}
+# T1, T2: gradients of the kernels' Functions against the twins' autograd, and the
+# card's reduced step against the CPU's, float32 with TF32 off
+GRAD_TOL = 1e-5             # of the largest gradient magnitude
+STEP_LOSS_RTOL = 1e-4
+# The step amplifies float32 summation order about 10^4-fold at this size from
+# random weights (tests/test_torch_train_parity.py): on an H100 the card's
+# gradients sit 7e-4 to 3.9e-3 (rel L2) from the CPU's, where the CPU at one
+# thread sits 2e-4 to 6e-4 from itself (T2 prints both), so 1e-3 cannot hold;
+# 1e-2 stays far below what a wrong backward gives (order 1)
+STEP_GRAD_REL_L2 = 1e-2
+STEP_ADAM_MASK = 1e-2       # Adam updates compared where |g| > this * max|g|
+
+
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -181,7 +227,8 @@ class Call:
     out: torch.Tensor
 
     def _fn(self, attr):
-        mod = importlib.import_module(f"hyperseg_torch.ops.kernels.{KERNELS[self.name][0]}")
+        mod_name = {**KERNELS, **TRAIN_KERNELS}[self.name][0]
+        mod = importlib.import_module(f"hyperseg_torch.ops.kernels.{mod_name}")
         return functools.partial(getattr(mod, attr), *self.args, **self.kw)
 
     @property
@@ -262,17 +309,19 @@ class Call:
 
 
 @contextlib.contextmanager
-def recording():
-    """Every kernel wrapper records its calls (the wrappers are looked up on
-    their modules at call time, so the models call the recorders)."""
+def recording(kernels=KERNELS):
+    """Every wrapper of `kernels` records its calls (the wrappers are looked
+    up on their modules at call time, so the models call the recorders);
+    tensors are kept detached from any autograd graph."""
     calls, saved = [], []
-    for name, (mod_name, *_) in KERNELS.items():
+    for name, (mod_name, *_) in kernels.items():
         mod = importlib.import_module(f"hyperseg_torch.ops.kernels.{mod_name}")
         fn = getattr(mod, name)
 
         def rec(*args, _name=name, _fn=fn, **kw):
             out = _fn(*args, **kw)
-            calls.append(Call(_name, args, kw, out))
+            calls.append(Call(_name, tuple(a.detach() if isinstance(a, torch.Tensor) else a
+                                           for a in args), kw, out.detach()))
             return out
         saved.append((mod, name, fn))
         setattr(mod, name, rec)
@@ -533,6 +582,415 @@ def phase_profile(key, gpu, inputs, fps, forwards=3):
                   f"ms x{e.count // forwards:<4d} {e.key[:90]}", flush=True)
 
 
+def synthetic_batch(b, hw, seed, device):
+    """A fixed training batch made from a seed on `device`: labels in 0-18
+    as 32x32 tiles of random classes with a band of 255 across the middle
+    rows; the image each tile's class colour plus noise in [0, 1],
+    normalised with the config's mean and std."""
+    g = torch.Generator(device).manual_seed(seed)
+    h, w = hw
+    tiles = torch.randint(0, 19, (b, h // 32, w // 32), generator=g, device=device)
+    label = tiles.repeat_interleave(32, 1).repeat_interleave(32, 2)
+    palette = torch.rand(19, 3, generator=g, device=device)
+    img = (palette[label].permute(0, 3, 1, 2)
+           + 0.1 * torch.randn(b, 3, h, w, generator=g, device=device)).clamp(0, 1)
+    mean = torch.tensor(TRAIN["mean"], device=device).view(1, 3, 1, 1)
+    std = torch.tensor(TRAIN["std"], device=device).view(1, 3, 1, 1)
+    label[:, h // 2 - 8:h // 2 + 8] = 255
+    return ((img - mean) / std).contiguous(), label
+
+
+def train_model(device, drop):
+    """HyperSeg-M from seed 0 in training mode on `device`, through the
+    factory; `drop` False sets drop connect and dropout to 0."""
+    from hyperseg_torch.models import hyperseg_v1_0 as V1
+    cfg = MODELS["M"]
+    model = V1.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, train=True, **cfg.kw)
+    if not drop:
+        model.backbone.drop_connect_rate = model.backbone.dropout_rate = 0.0
+    return model
+
+
+def trainer(model):
+    """The port's train step for `model` with the config's optimizer,
+    schedule and criterion."""
+    from hyperseg_torch.train import losses as L
+    from hyperseg_torch.train import schedule as S
+    from hyperseg_torch.train import step as T
+    opt, sched = T.make_optimizer(model.parameters(), S.poly_lr(TRAIN["lr"], TRAIN["max_steps"]))
+    return T.make_train_step(model, L.BootstrappedCrossEntropyLoss(ignore_index=255), opt,
+                             sched, num_classes=MODELS["M"].kw["num_classes"])
+
+
+def train_full():
+    """T3: the training main path at full width, 512x1024, batch 16, float32,
+    five steps on one fixed synthetic batch with the launch counters set to 0
+    just before and read just after; step 1's kernel calls recorded for T1.
+    Then one profiled step. Returns (launches, calls, numbers)."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+
+    b, res, steps = TRAIN["batch"], TRAIN["res"], TRAIN["steps"]
+    model = train_model("cuda", drop=True)
+    step = trainer(model)
+    img, lbl = synthetic_batch(b, res, 2, "cuda")
+    gen = torch.Generator("cuda").manual_seed(3)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    LAUNCHES.clear()
+    with recording(TRAIN_KERNELS) as calls:
+        losses = [step(img, lbl, gen)["loss"]]
+    start.record()
+    for _ in range(steps - 1):
+        losses.append(step(img, lbl, gen)["loss"])
+    end.record()
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    wall = time.perf_counter() - t0
+    losses = [v.item() for v in losses]
+    ms = start.elapsed_time(end) / (steps - 1)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train  T3 HyperSeg-M {res[0]}x{res[1]} batch {b} float32 (cudnn.allow_tf32 {tf32[0]}, "
+          f"matmul.allow_tf32 {tf32[1]}): losses {losses}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"training: losses {losses} are not finite or step {steps}'s is not below step 1's")
+    want = {n: per * steps for n, per in TRAIN_PER_STEP.items()}
+    if {n: c for n, c in launches.items() if c} != want:
+        fail(f"training: launches {launches} on the main path, expected {want} "
+             "(no eval-only kernel)")
+    print(f"train  T3 {ms:.3f} ms per step (CUDA events, steps 2-{steps}), "
+          f"{b * 1e3 / ms:.2f} img/s, peak memory {peak / 2**30:.3f} GiB "
+          f"(max_memory_allocated), launches {launches} in {steps} steps "
+          f"({ {n: c / steps for n, c in launches.items()} } per step), "
+          f"{wall:.1f} s wall with step 1", flush=True)
+    split = step_profile(model, step, img, lbl, gen)
+    if "device_ms" in split:
+        split["busy"] = split["device_ms"] / ms
+        print(f"train  T3 device busy {split['busy']:.1%} of a step (the profiled step's device "
+              f"time over the unprofiled steps' {ms:.3f} ms)", flush=True)
+    del model, step, img, lbl
+    torch.cuda.empty_cache()
+    return launches, calls, dict(ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_bytes=peak,
+                                 losses=losses, tf32=tf32, **split)
+
+
+def layer_ranges(model):
+    """Forward hooks that open a profiler range `layer:<name>` around the
+    backbone, the weight mapper and each decoder level's units; returns
+    the hook handles."""
+    from torch.profiler import record_function
+
+    layers = [("backbone", model.backbone), ("weight_mapper", model.weight_mapper)]
+    for lv in range(model.decoder.levels):
+        layers += [(f"decoder.level_{lv}", u) for u in getattr(model.decoder, f"level_{lv}")]
+    handles = []
+    for name, m in layers:
+        def pre(mod, args, _name=name):
+            mod._profile_range = record_function(f"layer:{_name}")
+            mod._profile_range.__enter__()
+
+        def post(mod, args, out):
+            mod._profile_range.__exit__(None, None, None)
+        handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    return handles
+
+
+def layer_split(events):
+    """{layer: (forward ms, backward ms)} of a profiled step: the forward is
+    what each `layer:` range's ops launched; a backward op (autograd's
+    evaluate_function, on its own thread) belongs to the layer whose range
+    held the forward op of the same sequence number. What no layer holds
+    (the loss, the final upsample, the coordinates, the optimizer) is
+    "other"."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = [e for e in cpu if e.name.startswith("layer:")]
+    owner = {}
+    for e in cpu:
+        if e.sequence_nr < 0 or e.name.startswith("autograd::") or e.name.startswith("layer:"):
+            continue
+        held = [r for r in ranges if r.thread == e.thread
+                and r.time_range.start <= e.time_range.start <= r.time_range.end]
+        if held:
+            owner.setdefault(e.sequence_nr, min(held, key=lambda r: r.time_range.elapsed_us()))
+    split = {}
+    for r in ranges:
+        f, b = split.get(r.name[6:], (0.0, 0.0))
+        split[r.name[6:]] = (f + r.device_time_total / 1e3, b)
+    for e in cpu:
+        if e.name.startswith("autograd::engine::evaluate_function"):
+            name = owner[e.sequence_nr].name[6:] if e.sequence_nr in owner else "other"
+            f, b = split.get(name, (0.0, 0.0))
+            split[name] = (f, b + e.device_time_total / 1e3)
+    return split
+
+
+def annotation(e):
+    """Whether a profiler event is a profiler range (its span, not a kernel)."""
+    return (getattr(e, "is_user_annotation", False)
+            or e.key.startswith(("train_step.", "layer:")))
+
+
+def step_profile(model, step, img, lbl, gen):
+    """One more step under torch.profiler: device time per step, split by
+    the step's profiler ranges (forward, optimizer and metrics by the
+    kernels their own ops launch; backward the rest: autograd launches from
+    its own thread) and by layer (`layer_split`), and the kernels that take
+    most of it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    handles = layer_ranges(model)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(img, lbl, gen)
+        torch.cuda.synchronize()
+    for h in handles:
+        h.remove()
+    events = prof.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    # device events, the profiler ranges' own spans on the device left out
+    kernels = [e for e in events if e.device_type == cuda and not annotation(e)]
+    if not kernels:
+        print("train  profile: the profiler saw no device time (not measured)", flush=True)
+        return {}
+    total = sum(e.device_time for e in kernels) / 1e3
+    split = {}
+    for phase in ("forward", "optimizer", "metrics"):
+        ranges = [e for e in events if e.name == f"train_step.{phase}"
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        split[phase] = sum(e.device_time_total for e in ranges) / 1e3 if ranges else None
+    if any(v is None for v in split.values()):
+        print(f"train  profile: device {total:.3f} ms per step; the step's ranges were not "
+              f"found, split not measured", flush=True)
+        return dict(device_ms=total)
+    split["backward"] = total - sum(split.values())
+    print(f"train  profile: device {total:.3f} ms per step ({len(kernels)} device ops): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
+    layers = {k: v for k, v in layer_split(events).items() if k != "other"}
+    layers["other"] = (split["forward"] - sum(f for f, _ in layers.values()),
+                       split["backward"] - sum(b for _, b in layers.values()))
+    for name, (f, b) in layers.items():
+        print(f"train  profile: layer {name:22s} forward {f:8.3f} ms  backward {b:8.3f} ms",
+              flush=True)
+    avg = sorted((e for e in prof.key_averages() if e.device_type == cuda
+                  and e.self_device_time_total > 0 and not annotation(e)),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    for e in avg[:15]:
+        print(f"train  profile:   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    return dict(device_ms=total, split_ms=split, layers_ms=layers)
+
+
+def grad_check(name, fn, twin, inputs, need):
+    """Gradients of sum(fn(*inputs) * g) against the twin's autograd on the
+    same inputs and seeded cotangent g, for the inputs flagged in `need`;
+    within GRAD_TOL of the largest magnitude. Returns the largest error."""
+    def grads(f):
+        leaves = [x.detach().clone().requires_grad_(n) for x, n in zip(inputs, need)]
+        y = f(*leaves)
+        g = torch.randn(y.shape, generator=torch.Generator("cuda").manual_seed(5),
+                        device="cuda", dtype=y.dtype)
+        y.backward(g)
+        return [v.grad for v, n in zip(leaves, need) if n]
+    worst = 0.0
+    for got, want in zip(grads(fn), grads(twin)):
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        tol = GRAD_TOL * want.abs().max().item()
+        ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+        print(f"grad   {name} {tuple(got.shape)} max_abs_err {err:.3e} tol {tol:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name}: the gradient disagrees with the twin's autograd")
+        worst = max(worst, err)
+    return worst
+
+
+def train_kernels(calls, launches):
+    """T1: K3's raw conv (StemConv) and K6 (ResizeBilinear) on step 1's own
+    inputs: forward against the twin, gradients against the twins' autograd,
+    and the times of the forward, its twin, one library call and the
+    backward; returns one kernels-line entry for K3's raw mode and the
+    per-step numbers of K6's training calls."""
+    import torch.nn.functional as TF
+    from hyperseg_torch.ops.kernels import resize as K6
+    from hyperseg_torch.ops.kernels import stem as K3
+
+    stem_call = next(c for c in calls if c.name == "stem_conv")
+    x, w = stem_call.args
+    with torch.no_grad():
+        got, want = K3.stem_conv(x, w), K3.stem_conv_plain(x, w)
+    torch.cuda.synchronize()
+    fwd_err = (got - want).abs().max().item()
+    if not fwd_err <= KERNEL_TOL[torch.float32] * max(1.0, want.abs().max().item()):
+        fail(f"stem_conv at the training shape {tuple(x.shape)}: max_abs_err {fwd_err:.3e}")
+    grad_err = grad_check("stem_conv (StemConv) x, w", K3.StemConv.apply, K3.stem_conv_plain,
+                          (x, w), (True, True))
+    g = torch.randn(got.shape, generator=torch.Generator("cuda").manual_seed(6), device="cuda")
+    xpad = TF.pad(x, (0, 1, 0, 1))
+    b_ms, by = bound_ms(sum(t.numel() * t.element_size() for t in (x, w, got)),
+                        2 * 27 * got.numel(), torch.float32)
+    with torch.no_grad():
+        stem = dict(
+            name="stem_conv", route="cuda", source=TRAIN_KERNELS["stem_conv"][2],
+            replaces=TRAIN_KERNELS["stem_conv"][3], launches=launches.get("stem_conv", 0),
+            launches_by_model={"M train": launches.get("stem_conv", 0)},
+            max_abs_err=fwd_err, grad_max_abs_err=grad_err, model="M train",
+            shape=list(x.shape), dtype="float32",
+            ms=cuda_ms(lambda: K3.stem_conv(x, w)),
+            plain_ms=cuda_ms(lambda: K3.stem_conv_plain(x, w)), bound_ms=b_ms, bound_by=by,
+            library_ms=cuda_ms(lambda: TF.conv2d(xpad, w, stride=2)),
+            bwd_ms=cuda_ms(lambda: K3.stem_conv_backward(x, w, g, need_input=False)),
+            bwd_route="cuDNN (torch.nn.grad.conv2d_weight)", passed=True)
+    print(f"time   train stem_conv x {tuple(x.shape)} float32 kernel {stem['ms']:.4f} ms  "
+          f"plain {stem['plain_ms']:.4f} ms  conv2d {stem['library_ms']:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({by}); backward (weight) {stem['bwd_ms']:.4f} ms", flush=True)
+
+    resize = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}, bwd_ms=0.0,
+                  max_abs_err=0.0, grad_max_abs_err=0.0, calls=0,
+                  launches=launches.get("resize_bilinear", 0), shapes=[],
+                  bwd_route="eager torch (two float32 matmuls)")
+    for c in (c for c in calls if c.name == "resize_bilinear"):
+        x, out_hw = c.args
+        with torch.no_grad():
+            got, want = K6.resize_bilinear(x, out_hw), K6.resize_bilinear_plain(x, out_hw)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        if not err <= KERNEL_TOL[torch.float32] * max(1.0, want.abs().max().item()):
+            fail(f"resize_bilinear at the training shape {tuple(x.shape)}: max_abs_err {err:.3e}")
+        gerr = grad_check(f"resize_bilinear (ResizeBilinear) {tuple(x.shape)}",
+                          lambda a, o=out_hw: K6.ResizeBilinear.apply(a, o),
+                          lambda a, o=out_hw: K6.resize_bilinear_plain(a, o), (x,), (True,))
+        g = torch.randn(got.shape, generator=torch.Generator("cuda").manual_seed(7),
+                        device="cuda")
+        b_ms, by = bound_ms(x.numel() * 4 + got.numel() * 4, 8 * got.numel(), torch.float32)
+        with torch.no_grad():
+            t = dict(ms=cuda_ms(lambda: K6.resize_bilinear(x, out_hw)),
+                     plain_ms=cuda_ms(lambda: K6.resize_bilinear_plain(x, out_hw)),
+                     library_ms=cuda_ms(lambda: TF.interpolate(x, size=tuple(out_hw),
+                                                               mode="bilinear",
+                                                               align_corners=False)),
+                     bwd_ms=cuda_ms(lambda: K6.resize_bilinear_backward(g, tuple(x.shape[2:]))))
+        print(f"time   train resize_bilinear x {tuple(x.shape)} float32 kernel {t['ms']:.4f} ms  "
+              f"plain {t['plain_ms']:.4f} ms  interpolate {t['library_ms']:.4f} ms  "
+              f"bound {b_ms:.4f} ms ({by}); backward {t['bwd_ms']:.4f} ms", flush=True)
+        for k, v in t.items():
+            resize[k] += v
+        resize["bound_ms"] += b_ms
+        resize["by"][by] = resize["by"].get(by, 0.0) + b_ms
+        resize["max_abs_err"] = max(resize["max_abs_err"], err)
+        resize["grad_max_abs_err"] = max(resize["grad_max_abs_err"], gerr)
+        resize["calls"] += 1
+        resize["shapes"].append(list(x.shape))
+    if resize["calls"] != TRAIN_PER_STEP["resize_bilinear"]:
+        fail(f"training: {resize['calls']} upsamples in step 1, expected "
+             f"{TRAIN_PER_STEP['resize_bilinear']}")
+    resize["bound_by"] = max(resize.pop("by").items(), key=lambda kv: kv[1])[0]
+    return stem, resize
+
+
+def train_vs_cpu():
+    """T2: one step of the whole slice on the card against the same step on
+    the CPU's plain path, at a reduced size (HyperSeg-M, batch 2, 256x512,
+    seed 0's weights, drop connect and dropout 0, TF32 off): the loss, the
+    gradients of the stem conv, every signal2weights and the weight
+    mapper's convs, every BN running statistic, and the post-Adam
+    parameters. Every number is printed before any gate is read. For
+    scale, the CPU's own gradients once more at one thread (the float32
+    spread from the summation order alone)."""
+    from hyperseg_torch.train import losses as L
+    from hyperseg_torch.train import step as T
+
+    cpu = train_model("cpu", drop=False)
+    gpu = copy.deepcopy(cpu).to("cuda")
+    cpu1 = copy.deepcopy(cpu)
+    b, res = TRAIN["reduced_batch"], TRAIN["reduced_res"]
+    img, lbl = synthetic_batch(b, res, 4, "cpu")
+    p0 = {k: v.detach().clone() for k, v in cpu.state_dict().items()}
+    t0 = time.perf_counter()
+    out_c = trainer(cpu)(img, lbl)
+    t_cpu = time.perf_counter() - t0
+    out_g = trainer(gpu)(img.cuda(), lbl.cuda())
+    torch.cuda.synchronize()
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    L.BootstrappedCrossEntropyLoss(ignore_index=255)(cpu1(img), lbl).backward()
+    torch.set_num_threads(threads)
+
+    lc, lg = out_c["loss"].item(), out_g["loss"].item()
+    loss_rel = abs(lg - lc) / abs(lc)
+    grads_c, grads_g = dict(cpu.named_parameters()), dict(gpu.named_parameters())
+    grads_1 = dict(cpu1.named_parameters())
+    sel = [k for k in grads_g
+           if k == "backbone._conv_stem.weight" or k.endswith("signal2weights.weight")
+           or (k.startswith("weight_mapper.") and k.endswith(".0.weight"))]
+    grad_rel, spread = {}, {}
+    for k in sel:
+        want = grads_c[k].grad
+        if want.abs().max() > 0:
+            grad_rel[k] = ((grads_g[k].grad.cpu() - want).norm() / want.norm()).item()
+            spread[k] = ((grads_1[k].grad - want).norm() / want.norm()).item()
+    lr = TRAIN["lr"]
+    sd_c, sd_g = cpu.state_dict(), gpu.state_dict()
+    bn_worst, upd_worst, small_flips, rule_worst = 0.0, 0.0, 0, 0.0
+    for k, want in sd_c.items():
+        got = sd_g[k].cpu()
+        if not T.is_trainable(k):       # a BN running statistic
+            err = (got - want).abs() - 1e-3 * want.abs()
+            bn_worst = max(bn_worst, err.max().item() / max(want.abs().max().item(), 1.0))
+            continue
+        g_c, g_g = grads_c[k].grad, grads_g[k].grad.cpu()
+        # the card's update against Adam's rule on its own gradient, beyond
+        # float32 rounding of the parameter (2^-23 of its size)
+        rule = ((got - p0[k]) + lr * g_g / (g_g.abs() + 1e-8)).abs() - 2 ** -23 * p0[k].abs()
+        rule_worst = max(rule_worst, rule.max().item())
+        if k in grad_rel:
+            d = ((got - p0[k]) - (want - p0[k])).abs()
+            mask = g_c.abs() > STEP_ADAM_MASK * g_c.abs().max()
+            upd_worst = max(upd_worst, d[mask].max().item())
+            small_flips += int(((d > lr * 2e-2) & (g_c.abs() > 1e-6) & ~mask).sum())
+    worst = max(grad_rel, key=grad_rel.get)
+    gates = {
+        "loss": math.isfinite(lg) and loss_rel <= STEP_LOSS_RTOL,
+        "gradients": grad_rel[worst] <= STEP_GRAD_REL_L2,
+        "BN running statistics": bn_worst <= 1e-4,
+        "Adam updates": upd_worst <= lr * 2e-2,
+        "Adam's rule": rule_worst <= lr * 1e-4,
+    }
+    print(f"train  T2 b{b} {res[0]}x{res[1]} loss card {lg:.7f} cpu {lc:.7f} rel {loss_rel:.3e} "
+          f"(max {STEP_LOSS_RTOL}; cpu step {t_cpu:.1f} s)", flush=True)
+    for k in grad_rel:
+        print(f"train  T2 gradient {k}: card vs cpu rel L2 {grad_rel[k]:.3e} (max "
+              f"{STEP_GRAD_REL_L2}); cpu at 1 thread vs cpu {spread[k]:.3e}", flush=True)
+    print(f"train  T2 BN running statistics: largest error {bn_worst:.3e} of scale beyond "
+          f"rtol 1e-3 (max 1e-4); Adam updates where |g| > {STEP_ADAM_MASK} max|g|: largest "
+          f"difference {upd_worst:.3e} (max {lr * 2e-2:.0e}); updates off by more than that "
+          f"where 1e-6 < |g| <= {STEP_ADAM_MASK} max|g|: {small_flips} elements (not gated); "
+          f"the card's updates against Adam's rule on its own gradients: {rule_worst:.3e} "
+          f"(max {lr * 1e-4:.0e})", flush=True)
+    verdicts = ", ".join(f"{k} {'ok' if ok else 'FAIL'}" for k, ok in gates.items())
+    print(f"train  T2 gates: {verdicts}", flush=True)
+    if not all(gates.values()):
+        fail(f"training: the card's reduced step disagrees with the CPU's: "
+             f"{[k for k, ok in gates.items() if not ok]}")
+    return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel[worst], grad_rel_l2_of=worst,
+                cpu_thread_spread_rel_l2=max(spread.values()), bn_err=bn_worst,
+                adam_err=upd_worst, adam_rule_err=rule_worst, small_grad_flips=small_flips)
+
+
+def run_training():
+    """The training phase: T3, then T1 on T3's recorded calls, then T2.
+    Returns (main-path launches, kernels-line entries, numbers)."""
+    t0 = time.perf_counter()
+    launches, calls, numbers = train_full()
+    stem, resize = train_kernels(calls, launches)
+    del calls
+    torch.cuda.empty_cache()
+    numbers["t2"] = train_vs_cpu()
+    print(f"train  done in {time.perf_counter() - t0:.1f} s wall", flush=True)
+    return launches, stem, resize, numbers
+
+
 def kernels_line(rows, launches):
     """One entry per kernel: the per-forward numbers of the first model (M,
     L, V) that runs it, each model's under `by_model`; launches summed over
@@ -588,10 +1046,18 @@ def main():
         launches[key], fps[key] = run_model(key, rows)
         print(f"model  {key} done in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
+    train_launches, stem_conv, resize_train, train = run_training()
+
     kernels = kernels_line(rows, launches)
+    k6 = next(k for k in kernels if k["name"] == "resize_bilinear")
+    k6["launches"] += train_launches["resize_bilinear"]
+    k6["launches_by_model"]["M train"] = train_launches["resize_bilinear"]
+    k6["train"] = resize_train
+    kernels.append(stem_conv)
     print(json.dumps({"kernels": kernels,
                       "img_per_s": {m: {str(b): v for b, v in f.items()}
-                                    for m, f in fps.items()}}), flush=True)
+                                    for m, f in fps.items()},
+                      "train": train}), flush=True)
     print(smi.stdout.strip(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

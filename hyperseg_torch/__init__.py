@@ -16,7 +16,10 @@ find; inside, the code is plain PyTorch:
 Ported so far: the eval forward of the v1_0 family
 (`models.hyperseg_v1_0`: HyperSeg-M Cityscapes, HyperSeg-L CamVid) and of the
 v0_1 family (`models.hyperseg_v0_1`: HyperSeg-L VOC), with a hand-written
-Hopper kernel for each of the JAX package's seven Pallas kernels (K1-K7).
+Hopper kernel for each of the JAX package's seven Pallas kernels (K1-K7);
+and the training step (`train/`: train-mode BN and dropout, bootstrapped
+CE, Adam under PolyLR, confusion-matrix metrics), in which K3's raw conv and
+K6 run as autograd Functions and the eval-only kernels do not run.
 
 This package imports neither JAX nor `hyperseg_tpu`.
 """

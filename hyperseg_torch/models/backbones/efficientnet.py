@@ -1,4 +1,4 @@
-"""EfficientNet feature extractor, eval path (NCHW).
+"""EfficientNet feature extractor (NCHW), eval and training.
 
 Counterpart of hyperseg_tpu/models/backbones/efficientnet.py (B0-B8 plans;
 the HyperSeg-M path uses B1). As there, a static plan is built at
@@ -13,6 +13,14 @@ projection has at most 32 outputs (blocks 2-4) and a torch 1x1 conv + BN
 otherwise. SE pooling and its MLP are torch ops between the kernels, as in
 the JAX package's fused chain (efficientnet.py:390-431). The 5x5 blocks are
 torch convolutions.
+
+Training (`module.train()`, as the JAX Ctx(train=True)): K4a, K4b, K5 and
+the BN-folded K3 fold running statistics, so every block runs its eager
+path with batch-statistics BN, as the JAX package gates its kernels to eval
+(efficientnet.py:323); the stem runs K3's raw conv (`stem_conv`,
+differentiable) -> `_bn0` -> swish (:343-347). Drop connect (rate
+drop_connect_rate * i / n on block i of n, a per-sample mask) and the head
+feature's dropout draw from the generator passed to `forward`.
 """
 
 from __future__ import annotations
@@ -26,16 +34,18 @@ import torch
 from torch import nn
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.nn.modules import BatchNorm2d, conv
+from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 from hyperseg_torch.ops.kernels import mbconv as K4
 from hyperseg_torch.ops.kernels import stem as K3
 
-# width, depth, nominal resolution — compound scaling (efficientnet_utils.py:465-505)
+# width, depth, nominal resolution, head-feature dropout — compound scaling
+# (efficientnet_utils.py:465-505)
 SCALING = {
-    "b0": (1.0, 1.0, 224), "b1": (1.0, 1.1, 240), "b2": (1.1, 1.2, 260),
-    "b3": (1.2, 1.4, 300), "b4": (1.4, 1.8, 380), "b5": (1.6, 2.2, 456),
-    "b6": (1.8, 2.6, 528), "b7": (2.0, 3.1, 600), "b8": (2.2, 3.6, 672),
+    "b0": (1.0, 1.0, 224, 0.2), "b1": (1.0, 1.1, 240, 0.2), "b2": (1.1, 1.2, 260, 0.3),
+    "b3": (1.2, 1.4, 300, 0.3), "b4": (1.4, 1.8, 380, 0.4), "b5": (1.6, 2.2, 456, 0.4),
+    "b6": (1.8, 2.6, 528, 0.5), "b7": (2.0, 3.1, 600, 0.5), "b8": (2.2, 3.6, 672, 0.5),
 }
+DROP_CONNECT_RATE = 0.2
 
 # MBConv stages: (repeats, kernel, stride, expand, in, out, se_ratio)
 BASE_STAGES = [
@@ -49,6 +59,7 @@ BASE_STAGES = [
 ]
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.01  # torch's convention (1 - 0.99), as the JAX backbone's (efficientnet.py:84)
 HEAD_CH = 1280
 
 
@@ -101,7 +112,7 @@ class MBConvPlan:
                 and self.dw_pad == K4.EXPAND_PADS[self.stride])
 
 
-class MBConvBlock(nn.Module):
+class MBConvBlock(EvalModule):
     """Mobile inverted bottleneck with SE; parameter names as the reference's
     MBConvBlock."""
 
@@ -111,14 +122,14 @@ class MBConvBlock(nn.Module):
         mid = plan.mid
         if plan.expand != 1:
             self._expand_conv = conv(plan.in_ch, mid, device=device)
-            self._bn0 = BatchNorm2d(mid, BN_EPS, device=device)
+            self._bn0 = BatchNorm2d(mid, BN_EPS, BN_MOMENTUM, device=device)
         self._depthwise_conv = conv(mid, mid, plan.kernel, groups=mid, device=device)
-        self._bn1 = BatchNorm2d(mid, BN_EPS, device=device)
+        self._bn1 = BatchNorm2d(mid, BN_EPS, BN_MOMENTUM, device=device)
         if plan.se_ch is not None:
             self._se_reduce = conv(mid, plan.se_ch, bias=True, device=device)
             self._se_expand = conv(plan.se_ch, mid, bias=True, device=device)
         self._project_conv = conv(mid, plan.out_ch, device=device)
-        self._bn2 = BatchNorm2d(plan.out_ch, BN_EPS, device=device)
+        self._bn2 = BatchNorm2d(plan.out_ch, BN_EPS, BN_MOMENTUM, device=device)
 
     def _se_scale(self, pooled):
         """The SE MLP on the (B, mid) pooled map, float32, sigmoid applied."""
@@ -127,7 +138,14 @@ class MBConvBlock(nn.Module):
         se = F.swish(se) @ e.weight[:, :, 0, 0].float().t() + e.bias.float()
         return torch.sigmoid(se)
 
-    def forward(self, x):
+    def forward(self, x, drop_rate=0.0, generator=None):
+        """Eval runs the kernels where the block's shape takes them; training
+        the eager path, with drop connect at `drop_rate` on the residual."""
+        if self.training:
+            return self._forward_eager(x, drop_rate, generator)
+        return self._forward_eval(x)
+
+    def _forward_eval(self, x):
         p = self.plan
         if p.fusable:
             # K4a -> SE (torch) -> K4b, as the TPU's dw_phase / project_phase
@@ -152,6 +170,11 @@ class MBConvBlock(nn.Module):
             y = self._bn2(F.conv2d(h * se.to(h.dtype)[:, :, None, None],
                                    self._project_conv.weight))
             return y if residual is None else y + residual
+        return self._forward_eager(x)
+
+    def _forward_eager(self, x, drop_rate=0.0, generator=None):
+        """The block in torch ops, BN in the module's mode."""
+        p = self.plan
         inputs = x
         if p.expand != 1:
             x = F.swish(self._bn0(F.conv2d(x, self._expand_conv.weight)))
@@ -165,11 +188,11 @@ class MBConvBlock(nn.Module):
             x = torch.sigmoid(se) * x
         x = self._bn2(F.conv2d(x, self._project_conv.weight))
         if p.residual:
-            x = x + inputs
+            x = F.drop_connect(x, drop_rate, generator) + inputs
         return x
 
 
-class EfficientNet(nn.Module):
+class EfficientNet(EvalModule):
     """Multi-scale feature extractor (the reference's extract_features_list):
     returns one feature per stride level, compressed by `_feat_fc_*` where
     out_feat_scale != 1, then the stride-32 head feature."""
@@ -180,9 +203,12 @@ class EfficientNet(nn.Module):
         m = re.fullmatch(r"efficientnet-b(\d)", model_name)
         if not m or f"b{m.group(1)}" not in SCALING:
             raise ValueError(f"unknown efficientnet variant {model_name!r}")
-        width, depth, nominal = SCALING[f"b{m.group(1)}"]
+        width, depth, nominal, dropout = SCALING[f"b{m.group(1)}"]
         self.model_name = model_name
         self.in_channels = in_channels
+        # training only; set to 0 for a deterministic step, as the tests do
+        self.drop_connect_rate = DROP_CONNECT_RATE
+        self.dropout_rate = dropout
 
         size = [nominal, nominal]
         stem_ch = round_filters(32, width)
@@ -212,7 +238,7 @@ class EfficientNet(nn.Module):
         plans = [replace(p, is_feat=feat_mask[i]) for i, p in enumerate(plans)]
 
         self._conv_stem = conv(in_channels, stem_ch, 3, stride=2, device=device)
-        self._bn0 = BatchNorm2d(stem_ch, BN_EPS, device=device)
+        self._bn0 = BatchNorm2d(stem_ch, BN_EPS, BN_MOMENTUM, device=device)
         self._blocks = nn.ModuleList(MBConvBlock(p, device) for p in plans)
 
         self.feat_channels = [nc for nc, m_ in zip(feat_nc, feat_mask) if m_]
@@ -225,29 +251,35 @@ class EfficientNet(nn.Module):
                 out_nc = int(round(nc * scale))
                 self.add_module(f"_feat_fc_{i}", nn.Sequential(
                     conv(nc, out_nc, device=device),
-                    BatchNorm2d(out_nc, BN_EPS, device=device)))
+                    BatchNorm2d(out_nc, BN_EPS, BN_MOMENTUM, device=device)))
                 self.feat_channels[i] = out_nc
             self.feat_fc.append(compress)
 
         self.head_ch = round_filters(HEAD_CH, width)
         self._conv_head = conv(plans[-1].out_ch, self.head_ch, device=device)
-        self._bn1 = BatchNorm2d(self.head_ch, BN_EPS, device=device)
+        self._bn1 = BatchNorm2d(self.head_ch, BN_EPS, BN_MOMENTUM, device=device)
         self.feat_channels = self.feat_channels + [self.head_ch]
 
     def _stem(self, x):
-        """Stem conv + _bn0 + swish: K3 where its fixed shape applies (3
-        input channels, TF-SAME pad (0, 1) per axis), torch ops otherwise."""
-        w, bn = self._conv_stem.weight, self._bn0.params
-        if self.in_channels == 3 and self.stem_pad == ((0, 1), (0, 1)):
-            return K3.stem(x, w, bn, eps=BN_EPS)
-        return F.swish(self._bn0(F.conv2d(x, w, stride=2, padding=self.stem_pad)))
+        """Stem conv + _bn0 + swish. Where K3's fixed shape applies (3 input
+        channels, TF-SAME pad (0, 1) per axis): in eval K3 with BN folded,
+        in training K3's raw conv, then train-mode _bn0 and swish. Torch ops
+        otherwise."""
+        w = self._conv_stem.weight
+        k3 = self.in_channels == 3 and self.stem_pad == ((0, 1), (0, 1))
+        if k3 and not self.training:
+            return K3.stem(x, w, self._bn0.params, eps=BN_EPS)
+        conv = K3.stem_conv(x, w) if k3 else F.conv2d(x, w, stride=2, padding=self.stem_pad)
+        return F.swish(self._bn0(conv))
 
-    def forward(self, x):
-        """x: (B, in_channels, H, W) -> [features by stride level..., head]."""
+    def forward(self, x, generator=None):
+        """x: (B, in_channels, H, W) -> [features by stride level..., head].
+        `generator` feeds drop connect and the head dropout in training."""
         x = self._stem(x)
         feats = []
-        for blk in self._blocks:
-            x = blk(x)
+        n = len(self._blocks)
+        for i, blk in enumerate(self._blocks):
+            x = blk(x, self.drop_connect_rate * i / n, generator)
             if blk.plan.is_feat:
                 i = len(feats)
                 if self.feat_fc[i]:
@@ -256,5 +288,7 @@ class EfficientNet(nn.Module):
                 else:
                     feats.append(x)
         x = F.swish(self._bn1(F.conv2d(x, self._conv_head.weight)))
+        if self.training:   # the head feature feeds the weight mapper (:496-499)
+            x = F.dropout(x, self.dropout_rate, generator)
         feats.append(x)
         return feats

@@ -1,4 +1,4 @@
-"""Dynamic multi-scale decoders of HyperSeg v1_0 and v0_1 (eval), NCHW.
+"""Dynamic multi-scale decoders of HyperSeg v1_0 and v0_1, NCHW.
 
 Counterpart of hyperseg_tpu/models/decoder.py (S2W, PatchConvUnit,
 InvResUnit, apply_signal2weights, MultiScaleDecoderV1; reference
@@ -23,6 +23,13 @@ from the weight mapper, one (B, fh, fw, P) map per level. Its k=1 levels run
 as batched matmuls on the map; its v0_1 inverted residuals (V01InvResUnit)
 run K7 (ops/kernels/patch_invres.py `patch_invres_v01`), whose BN is over the
 full map and whose depthwise halo is the neighbouring patches' expand.
+
+K1, K2 and K7 fold running statistics into eval BN, so they run only in eval,
+as in the JAX package (decoder.py:150, :302, :402). In training
+(`module.train()`) every hyper unit runs its eager, differentiable form with
+batch-statistics BN (ops/patch.py), chosen by the module's mode alone; the
+out_fc unit's input takes channel dropout from the generator passed to
+`forward` (decoder.py:624-625); the upsamples stay K6, differentiable.
 """
 
 from __future__ import annotations
@@ -35,11 +42,12 @@ from torch import nn
 
 from hyperseg_torch.models.signal_split import divide_feature, next_multiply
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.nn.modules import BatchNorm2d, conv
+from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 from hyperseg_torch.ops import patch as P
 from hyperseg_torch.ops.kernels import patch_invres as PI
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1   # as the JAX decoder's (hyperseg_tpu/models/decoder.py:35)
 
 
 @dataclass
@@ -97,7 +105,7 @@ class PatchConvUnit(nn.Sequential):
         layers = [nn.Identity()] if dropout_slot else []
         layers.append(_HyperConv())
         if bn:
-            layers.append(BatchNorm2d(out_ch, BN_EPS, device=device))
+            layers.append(BatchNorm2d(out_ch, BN_EPS, BN_MOMENTUM, device=device))
         super().__init__(*layers)
         self.in_ch, self.out_ch = in_ch, out_ch
         self.kernel, self.groups, self.pad = kernel, groups, pad
@@ -152,7 +160,7 @@ class PatchConvUnit(nn.Sequential):
         return self.apply_weights(x, w)
 
 
-class InvResUnit(nn.Module):
+class InvResUnit(EvalModule):
     """v1_0 hyper inverted residual: 1x1 expand -> kxk depthwise -> 1x1
     project, all three dynamic, eval BN over the patch batch, relu6, and a
     residual when in_ch == out_ch (hyperseg_v1_0.py:281-376)."""
@@ -160,9 +168,9 @@ class InvResUnit(nn.Module):
     def __init__(self, in_ch, out_ch, hidden, *, kernel=3, device=None):
         super().__init__()
         self.in_ch, self.out_ch, self.hidden, self.kernel = in_ch, out_ch, hidden, kernel
-        self.bn1 = BatchNorm2d(hidden, BN_EPS, device=device)
-        self.bn2 = BatchNorm2d(hidden, BN_EPS, device=device)
-        self.bn3 = BatchNorm2d(out_ch, BN_EPS, device=device)
+        self.bn1 = BatchNorm2d(hidden, BN_EPS, BN_MOMENTUM, device=device)
+        self.bn2 = BatchNorm2d(hidden, BN_EPS, BN_MOMENTUM, device=device)
+        self.bn3 = BatchNorm2d(out_ch, BN_EPS, BN_MOMENTUM, device=device)
         self.signal2weights: Optional[nn.Conv2d] = None
         self.route: Optional[S2W] = None
 
@@ -175,17 +183,31 @@ class InvResUnit(nn.Module):
         self.signal2weights = conv(route.signal_ch, route.out_ch,
                                    groups=route.groups, device=device)
 
+    def _apply_eager(self, x, w):
+        """The unit in torch ops from w: (B, hyper_params, fh, fw), BN in
+        training mode: the training route."""
+        return P.patch_inverted_residual(
+            x, w, hidden=self.hidden, out_ch=self.out_ch, kernel=self.kernel,
+            bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS,
+            training=True, momentum=BN_MOMENTUM)
+
     def apply_weights(self, x, w):
         """The unit from a given weight map w: (B, hyper_params, fh, fw), as
-        the JAX InvResUnit.apply: K2 on the card, its twin on the CPU."""
+        the JAX InvResUnit.apply: in eval K2 on the card, its twin on the
+        CPU; in training the eager unit."""
+        if self.training:
+            return self._apply_eager(x, w)
         return PI.patch_invres(
             x, w.permute(0, 2, 3, 1).contiguous(), hidden=self.hidden,
             out_ch=self.out_ch, kernel=self.kernel, bn1=self.bn1.params,
             bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS)
 
     def forward(self, x, s):
-        """Generate-and-apply from the level's signal slice s: K1."""
+        """Generate-and-apply from the level's signal slice s: K1 in eval;
+        in training the weight map, then the eager unit."""
         r = self.route
+        if self.training:
+            return self._apply_eager(x, apply_signal2weights(s, r, self.signal2weights.weight))
         sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
         return PI.patch_invres_s2w(
             x, sl, self.signal2weights.weight, groups=r.groups,
@@ -194,7 +216,7 @@ class InvResUnit(nn.Module):
             kernel=self.kernel)
 
 
-class V01InvResUnit(nn.Module):
+class V01InvResUnit(EvalModule):
     """v0_1 inverted residual (hyperseg_v0_1.py:205-237): three independent
     patch convs under `conv` - 1x1 expand (when expand != 1), kxk depthwise,
     1x1 project - each folding back to the full map, full-map eval BN, relu6
@@ -226,8 +248,9 @@ class V01InvResUnit(nn.Module):
         return len(self.conv) == 3 and self.kernel == 3
 
     def forward(self, x, w):
-        """x: (B, in_ch, H, W); w: (B, fh, fw, hyper_params)."""
-        if self.uses_k7:
+        """x: (B, in_ch, H, W); w: (B, fh, fw, hyper_params). K7 in eval; in
+        training the patch convs with train-mode BN."""
+        if self.uses_k7 and not self.training:
             e, d, p = self.conv
             return PI.patch_invres_v01(
                 x, w, hidden=self.hidden, out_ch=self.out_ch, bn1=e[-1].params,
@@ -240,7 +263,7 @@ class V01InvResUnit(nn.Module):
         return out + x if self.in_ch == self.out_ch else out
 
 
-class _Decoder(nn.Module):
+class _Decoder(EvalModule):
     """What the decoders share: the coordinate grids, made once per (h, w,
     dtype, device) - building one from numpy is a host-to-device copy that
     stalls the host on the card (the reference caches them as buffers too,
@@ -306,6 +329,7 @@ class MultiScaleDecoderV1(_Decoder):
             level_units.append(units)
             self.add_module(f"level_{lv}", nn.ModuleList(units))
 
+        self.dropout = dropout
         route_groups = list(level_units)
         if with_out_fc:
             self.out_fc = PatchConvUnit(prev, num_classes,
@@ -332,9 +356,10 @@ class MultiScaleDecoderV1(_Decoder):
                 sig_index += ch
                 k += 1
 
-    def forward(self, xs, s):
+    def forward(self, xs, s, generator=None):
         """xs: [input image, feat_s2, ..., feat_s16] (finest -> coarsest, head
-        excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32."""
+        excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32;
+        `generator` feeds the out_fc dropout in training."""
         p = None
         for lv in range(self.levels):
             p = self._level_input(p, xs[-lv - 1])
@@ -344,6 +369,8 @@ class MultiScaleDecoderV1(_Decoder):
                 p = u(p, s[:, min(base, hi):hi])
                 base += u.hyper_params
         if hasattr(self, "out_fc"):
+            if self.training:
+                p = F.dropout2d(p, self.dropout, generator)
             p = self.out_fc(p, s)
         return F.resize_bilinear(p, xs[0].shape[2:])
 
@@ -364,6 +391,7 @@ class MultiScaleDecoderV0(_Decoder):
         assert len(ks) == levels and len(ll) == levels
         self.levels = levels
         self.num_classes = num_classes
+        self.dropout = dropout
         rev_feats = list(feat_channels[::-1])
         prev = 0
         for lv in range(levels):
@@ -392,10 +420,11 @@ class MultiScaleDecoderV0(_Decoder):
         self.param_groups = [sum(u.hyper_params for u in grp) for grp in groups]
         self.hyper_params = sum(self.param_groups)
 
-    def forward(self, xs, weights):
+    def forward(self, xs, weights, generator=None):
         """xs: [input image, feat_s2, ..., feat_s32] (finest -> coarsest,
         head excluded), NCHW; weights: one (B, fh, fw, P_level) map per level
-        (and one for out_fc)."""
+        (and one for out_fc); `generator` feeds the out_fc dropout in
+        training."""
         p = None
         for lv in range(self.levels):
             p = self._level_input(p, xs[-lv - 1])
@@ -405,5 +434,7 @@ class MultiScaleDecoderV0(_Decoder):
                 p = u(p, w) if isinstance(u, V01InvResUnit) else u.apply_map(p, w)
                 base += u.hyper_params
         if hasattr(self, "out_fc"):
+            if self.training:
+                p = F.dropout2d(p, self.dropout, generator)
             p = self.out_fc.apply_map(p, weights[-1][..., :self.out_fc.hyper_params])
         return p

@@ -41,13 +41,14 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
 
 def hyperseg_efficientnet(model_name, pretrained=False, levels=3, down_groups=1,
                           flat_groups=1, weight_groups=1, avg_pool=True, *,
-                          device="cuda", seed=0, **kwargs) -> HyperGen:
+                          device="cuda", seed=0, train=False, **kwargs) -> HyperGen:
     """Factory mirroring hyperseg_v0_1.hyperseg_efficientnet (:409-424).
 
     The backbone compresses its features by 0.25, as the reference's default
     (no out_feat_scale is passed there). Builds on `device` (the card unless
     the caller passes "cpu"), weights drawn from a torch.Generator seeded by
-    `seed`, in eval mode without gradients. `levels` is the weight mapper's
+    `seed`, in eval mode without gradients (`train=True`: in training mode
+    with gradients, as the v1_0 factory). `levels` is the weight mapper's
     pyramid depth. Real weights load with `load_state_dict(strict=True)`
     from a state dict the caller reads; there is no `weights_path`.
     `pretrained=True` raises: the port ships no ImageNet backbone weights."""
@@ -61,4 +62,4 @@ def hyperseg_efficientnet(model_name, pretrained=False, levels=3, down_groups=1,
                            flat_groups=flat_groups, weight_groups=weight_groups,
                            avg_pool=avg_pool, device=device, **kwargs)
     init_params(model, torch.Generator().manual_seed(seed))
-    return model.eval().requires_grad_(False)
+    return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

@@ -45,12 +45,15 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
 
 
 def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
-                          levels=3, *, device="cuda", seed=0, **kwargs) -> HyperGen:
+                          levels=3, *, device="cuda", seed=0, train=False,
+                          **kwargs) -> HyperGen:
     """Factory mirroring hyperseg_v1_0.hyperseg_efficientnet (:813-827).
 
     Builds the model on `device` (the card unless the caller passes "cpu"),
     with weights drawn from a torch.Generator seeded by `seed`, in eval mode
-    and without gradients: this package's forward is eval-only. `levels` is
+    without gradients, or with `train=True` in training mode with
+    `requires_grad` on every parameter (the BN running statistics are
+    buffers, not trainable: train/step.py `is_trainable`). `levels` is
     the weight-mapper pyramid depth. Load real weights with
     `load_state_dict(strict=True)`. `pretrained=True` raises: the port
     ships no ImageNet backbone weights."""
@@ -63,4 +66,4 @@ def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
                             device=device)
     model = build_hypergen(backbone, wm_levels=levels, device=device, **kwargs)
     init_params(model, torch.Generator().manual_seed(seed))
-    return model.eval().requires_grad_(False)
+    return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

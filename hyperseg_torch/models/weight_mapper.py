@@ -21,14 +21,15 @@ from torch import nn
 
 from hyperseg_torch.models.signal_split import divide_feature_legacy_v01, next_multiply
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.nn.modules import BatchNorm2d, conv
+from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1   # the apply_bn default (hyperseg_tpu/nn/functional.py:215-216)
 
 
 def _conv_bn(cin, cout, k, device, groups=1):
     return nn.Sequential(conv(cin, cout, k, stride=k, groups=groups, device=device),
-                         BatchNorm2d(cout, BN_EPS, device=device))
+                         BatchNorm2d(cout, BN_EPS, BN_MOMENTUM, device=device))
 
 
 def _conv_bn_relu(block, x, relu=True):
@@ -37,7 +38,7 @@ def _conv_bn_relu(block, x, relu=True):
     return F.relu(x) if relu else x
 
 
-class WeightMapperV1(nn.Module):
+class WeightMapperV1(EvalModule):
     def __init__(self, in_channels, levels=3, device=None):
         super().__init__()
         assert in_channels % 2 == 0
@@ -64,7 +65,7 @@ class WeightMapperV1(nn.Module):
         return torch.cat([skips.pop(-1), x], 1)
 
 
-class WeightMapperV0(nn.Module):
+class WeightMapperV0(EvalModule):
     """Head of hyperseg_v0_1: returns one weight map per decoder level,
     (B, fh, fw, P_level) with each patch's P weights contiguous; a map whose
     head rounds P up to a multiple of `weight_groups` is the first P of each

@@ -1,9 +1,12 @@
-"""Functional primitives, NCHW layout (the eval subset the forward uses).
+"""Functional primitives, NCHW layout (what the forward and the training step use).
 
 Counterpart of hyperseg_tpu/nn/functional.py. Conventions:
   * activations NCHW; conv kernels OIHW; parameters follow the activation
     dtype at the point of use (a no-op cast when they already match);
-  * BN statistics and folded affines are computed in float32;
+  * BN statistics and folded affines are computed in float32; training-mode
+    BN (`batch_norm_train`) normalizes with the batch statistics and writes
+    the running statistics in place;
+  * dropout draws from an explicit torch.Generator, never the global RNG;
   * `same_padding_2d` derives TF-SAME pads from the *nominal* model image
     size, as the reference's Conv2dStaticSamePadding does;
   * `resize_bilinear` is bilinear with half-pixel centres, edge clamp and no
@@ -101,6 +104,63 @@ def batch_norm_dim(x, bn, channel_dim, *, eps=1e-5):
     return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
 
 
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode BN over every axis but `channel_dim`. The forward takes
+    the batch statistics in float32 (centred two-pass variance) and
+    normalizes as one affine x * s + b; the backward is BN's closed form, so
+    only x and the per-channel statistics are kept for it."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, channel_dim, eps, stats):
+        dims = [d for d in range(x.dim()) if d != channel_dim]
+        shape = [1] * x.dim()
+        shape[channel_dim] = -1
+        x32 = x.float()
+        mean = x32.mean(dims)
+        var = (x32 - mean.view(shape)).square().mean(dims)
+        invstd = torch.rsqrt(var + eps)
+        s = weight.float() * invstd
+        b = bias.float() - mean * s
+        stats.extend((mean, var))
+        ctx.save_for_backward(x, weight, mean, invstd)
+        ctx.channel_dim = channel_dim
+        return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight, mean, invstd = ctx.saved_tensors
+        c = ctx.channel_dim
+        dims = [d for d in range(x.dim()) if d != c]
+        shape = [1] * x.dim()
+        shape[c] = -1
+        dy32 = dy.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        mean_dy = dy32.mean(dims)
+        mean_dy_xhat = (dy32 * xhat).mean(dims)
+        n = x.numel() // x.shape[c]
+        dx = ((weight.float() * invstd).view(shape)
+              * (dy32 - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape)))
+        return dx.to(x.dtype), mean_dy_xhat * n, mean_dy * n, None, None, None
+
+
+def batch_norm_train(x, weight, bias, running_mean, running_var, *, eps=1e-5,
+                     momentum=0.1, channel_dim=1):
+    """Training-mode BN over every axis but `channel_dim` (1 for NCHW maps,
+    3 for the decoder's patch-blocked tensors): normalizes with the biased
+    batch variance, and writes the running statistics in place, outside
+    the autograd graph, with the unbiased variance (n / (n - 1)) and torch's
+    momentum convention new = (1 - momentum) * old + momentum * batch
+    (hyperseg_tpu/nn/functional.py:148-179)."""
+    stats = []
+    y = _BatchNormTrain.apply(x, weight, bias, channel_dim, eps, stats)
+    mean, var = stats
+    n = x.numel() // x.shape[channel_dim]
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1 - momentum).add_(var, alpha=momentum * n / max(n - 1, 1))
+    return y
+
+
 _CALIBRATING = contextvars.ContextVar("hyperseg_torch_bn_calibrating", default=False)
 
 
@@ -126,6 +186,49 @@ def _record_batch_stats(x, bn, channel_dim):
     mean = x32.mean(dims)
     bn[2].copy_(mean)
     bn[3].copy_((x32 - mean.view(shape)).square().mean(dims))
+
+
+# ---------------------------------------------------------------------------
+# Dropout (training only; each draws from the generator it is given)
+# ---------------------------------------------------------------------------
+
+
+def _keep_mask(shape, keep, generator, like):
+    """A float mask of `shape` on like's device, 1 with probability `keep`."""
+    if generator is None:
+        raise ValueError("dropout in training needs a torch.Generator on the tensor's device")
+    probs = torch.full(shape, keep, device=like.device, dtype=torch.float32)
+    return torch.bernoulli(probs, generator=generator).to(like.dtype)
+
+
+def dropout(x, p, generator):
+    """Element-wise dropout: zero each element with probability p, scale the
+    rest by 1 / (1 - p); the identity for p = 0."""
+    if not p:
+        return x
+    keep = 1.0 - p
+    return x / keep * _keep_mask(x.shape, keep, generator, x)
+
+
+def dropout2d(x, p, generator):
+    """Channel dropout on NCHW maps (torch nn.Dropout2d, JAX dropout2d):
+    zero whole channels per sample with probability p, scale the rest by
+    1 / (1 - p); the identity for p = 0."""
+    if not p:
+        return x
+    keep = 1.0 - p
+    return x / keep * _keep_mask((x.shape[0], x.shape[1], 1, 1), keep, generator, x)
+
+
+def drop_connect(x, rate, generator):
+    """Per-sample drop of a residual branch (EfficientNet's drop connect,
+    hyperseg_tpu/models/backbones/efficientnet.py:303-307): the whole
+    sample's branch is zeroed with probability `rate`, the rest scaled by
+    1 / (1 - rate); the identity for rate = 0."""
+    if not rate:
+        return x
+    keep = 1.0 - rate
+    return x / keep * _keep_mask((x.shape[0], 1, 1, 1), keep, generator, x)
 
 
 # ---------------------------------------------------------------------------

@@ -8,16 +8,33 @@ from torch import nn
 from hyperseg_torch.nn import functional as F
 
 
-class BatchNorm2d(nn.Module):
-    """Eval-mode BatchNorm with an explicit eps.
+class EvalModule(nn.Module):
+    """An nn.Module built in eval mode. This package's modules were eval-only
+    before the training step came, and a module built on its own keeps that
+    behaviour; `module.train()` switches it and everything under it to
+    training (the factories set the mode explicitly)."""
 
-    Holds exactly the reference's four tensors (weight, bias, running_mean,
-    running_var) and no `num_batches_tracked`, so the golden state dicts load
-    strictly. Statistics stay float32 when the weights are cast."""
+    def __init__(self):
+        super().__init__()
+        self.training = False
 
-    def __init__(self, num_features, eps, device=None):
+
+class BatchNorm2d(EvalModule):
+    """BatchNorm with an explicit eps and momentum (torch's convention, no
+    default: the backbone's is 0.01, the decoder's and the weight mapper's
+    0.1, as in the JAX package).
+
+    Eval mode normalizes with the running statistics; training mode
+    (`module.train()`) with the batch statistics, writing the running ones
+    in place (nn.functional.batch_norm_train). Holds exactly the reference's
+    four tensors (weight, bias, running_mean, running_var) and no
+    `num_batches_tracked`, so the golden state dicts load strictly.
+    Statistics stay float32 when the weights are cast."""
+
+    def __init__(self, num_features, eps, momentum, device=None):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
         self.register_buffer("running_mean", torch.zeros(num_features, device=device))
@@ -29,6 +46,8 @@ class BatchNorm2d(nn.Module):
         return self.weight, self.bias, self.running_mean, self.running_var
 
     def forward(self, x):
+        if self.training:
+            return F.batch_norm_train(x, *self.params, eps=self.eps, momentum=self.momentum)
         return F.batch_norm(x, *self.params, eps=self.eps)
 
 

@@ -38,7 +38,9 @@ def kernels():
 
 def check(name, t, dtype, shape=None):
     """Raise unless `t` is a contiguous CUDA tensor of `dtype` (and `shape`),
-    and not part of an autograd graph: the kernels are eval-only."""
+    and not part of an autograd graph: the kernels have no backward of their
+    own. K3's raw conv and K6 launch inside their autograd Functions'
+    forward (StemConv, ResizeBilinear), where grad is off."""
     if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor")
     if t.dtype != dtype:

@@ -1,8 +1,9 @@
 """K6: integer-scale bilinear upsample, NCHW.
 
-Replaces hyperseg_tpu/ops/pallas/resize.py:152 `resize_bilinear_kernel`
-(its forward, `_forward` at :120; the backward there is XLA and comes with
-the training slice). Source: resize.cu.
+Replaces hyperseg_tpu/ops/pallas/resize.py:152 `resize_bilinear_kernel`:
+its forward (`_forward` at :120) is the kernel (source: resize.cu), its
+backward (`_bwd` at :162, XLA there) the transposed taps as two float32
+matmuls in torch (`resize_bilinear_backward`), joined in `ResizeBilinear`.
 
 `resize_bilinear(x, out_hw)` upsamples by one integer scale s in {2, 3, 4}
 on both axes with half-pixel centres and edge clamp (align_corners=False,
@@ -95,14 +96,55 @@ def resize_plan(planes, height, width):
     return rows, -(-units(planes, height, width, rows) // THREADS)
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_matrix(size, scale, device):
+    """row_matrix(size, scale) on `device`, made once per process."""
+    return row_matrix(size, scale).to(device)
+
+
+def resize_bilinear_backward(g, in_hw):
+    """The gradient of the upsample for the cotangent g (B, C, s*H, s*W):
+    the transposed 1-D taps on rows and columns, in float32, cast back to
+    g's dtype (the JAX `_bwd`, resize.py:162-172). An edge row gets the
+    weight of every clamped tap that reads it."""
+    (h, w), s = in_hw, integer_scale(in_hw, g.shape[2:])
+    t = torch.matmul(g.float(), _tap_matrix(w, s, g.device))          # (B, C, sH, W)
+    return torch.matmul(_tap_matrix(h, s, g.device).t(), t).to(g.dtype)
+
+
+class ResizeBilinear(torch.autograd.Function):
+    """The upsample under autograd on the card: K6 forward,
+    `resize_bilinear_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, x, out_hw):
+        ctx.in_hw = tuple(x.shape[2:])
+        return _resize_kernel(x, out_hw)
+
+    @staticmethod
+    def backward(ctx, g):
+        return resize_bilinear_backward(g, ctx.in_hw), None
+
+
 def resize_bilinear(x, out_hw):
-    """x: (B, C, H, W) -> (B, C, s*H, s*W), out_hw = (s*H, s*W), s in SCALES."""
+    """x: (B, C, H, W) -> (B, C, s*H, s*W), out_hw = (s*H, s*W), s in SCALES.
+    Differentiable: on the card through `ResizeBilinear` when autograd
+    needs x's gradient (the kernel alone otherwise), on the CPU by autograd
+    through the twin."""
     s = integer_scale(x.shape[2:], out_hw)
     if s is None:
         raise ValueError(f"resize_bilinear: {tuple(x.shape[2:])} -> {tuple(out_hw)} is not "
                          f"one integer scale in {SCALES} on both axes")
     if x.device.type == "cpu":
         return resize_bilinear_plain(x, out_hw)
+    if x.requires_grad and torch.is_grad_enabled():
+        return ResizeBilinear.apply(x, out_hw)
+    return _resize_kernel(x, out_hw)
+
+
+def _resize_kernel(x, out_hw):
+    """Check x and launch K6."""
+    s = integer_scale(x.shape[2:], out_hw)
     build.check_activation("resize_bilinear x", x)
     b, c, h, w = x.shape
     rows, _ = resize_plan(b * c, h, w)

@@ -6,8 +6,10 @@ and the forward of stem.py:173 `stem_conv`, the same kernel with the
 identity BN and no activation (`stem_conv`, or `stem(..., bn=None,
 act=None)`). Source: stem.cu. NCHW in (B, 3, H, W), NCHW out (B, cout, H',
 W') with TF-SAME padding ((0, 1), (0, 1)): zero rows/cols past the
-bottom/right edge only. Eval only, like every kernel here: the backward of
-`stem_conv` comes with the training step.
+bottom/right edge only. The BN-folded `stem` is eval-only; `stem_conv` is
+differentiable on the card (`StemConv`: the kernel's forward, and the
+backward of stem.py:196 `_stem_conv_bwd`, which is XLA's conv VJP in the
+JAX package and cuDNN's conv backward here, `stem_conv_backward`).
 
 Bound on the H100: bytes. Per output pixel it reads 27 inputs and does
 27*cout MACs, and the output is about three quarters of the bytes. A block
@@ -141,11 +143,47 @@ def stem(x, weight, bn, eps=1e-3, act="swish"):
     out = torch.empty((b, cout) + stem_out_hw(h, w), device=x.device, dtype=x.dtype)
     build.kernels().stem(x, weight, list(bn or ()), float(eps), act == "swish", rows, cols,
                          layout, out)
-    LAUNCHES["stem"] += 1
+    LAUNCHES["stem_conv" if bn is None and act is None else "stem"] += 1
     return out
 
 
+def stem_conv_backward(x, weight, g, need_input=True):
+    """(dx, dw) of the raw stem conv for the cotangent g (B, cout, H', W'):
+    the conv VJP of the JAX `_stem_conv_bwd` (stem.py:196-203), taken with
+    respect to the zero-padded input (B, 3, H + 1, W + 1) and sliced back to
+    (B, 3, H, W); dx is None unless `need_input`."""
+    g = g.contiguous()
+    xpad = F.pad2d(x, ((0, 1), (0, 1)))
+    dx = None
+    if need_input:
+        dx = torch.nn.grad.conv2d_input(xpad.shape, weight, g, stride=2)
+        dx = dx[:, :, :x.shape[2], :x.shape[3]]
+    return dx, torch.nn.grad.conv2d_weight(xpad, weight.shape, g, stride=2)
+
+
+class StemConv(torch.autograd.Function):
+    """The raw stem conv under autograd on the card: K3's no-activation
+    mode forward, `stem_conv_backward` backward (the JAX custom VJP
+    `stem_conv`, stem.py:173-206)."""
+
+    @staticmethod
+    def forward(ctx, x, weight):
+        ctx.save_for_backward(x, weight)
+        return stem(x, weight, None, act=None)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight = ctx.saved_tensors
+        return stem_conv_backward(x, weight, g, need_input=ctx.needs_input_grad[0])
+
+
 def stem_conv(x, weight):
-    """The raw stem conv (JAX stem_conv's forward): K3 with the identity BN
-    and no activation."""
+    """The raw stem conv (the JAX `stem_conv`): on the card K3 with the
+    identity BN and no activation, differentiable through `StemConv` when
+    autograd needs a gradient; on the CPU its twin, differentiable by
+    autograd."""
+    if x.device.type == "cpu":
+        return stem_conv_plain(x, weight)
+    if (x.requires_grad or weight.requires_grad) and torch.is_grad_enabled():
+        return StemConv.apply(x, weight)
     return stem(x, weight, None, act=None)

@@ -1,4 +1,4 @@
-"""Patch-wise dynamic convolution ops (eager PyTorch).
+"""Patch-wise dynamic convolution ops (eager PyTorch, differentiable).
 
 The decoder generates a weight map on the stride-32 grid and applies it
 patch-wise: the map is split into an (fh, fw) grid of (ph, pw) patches, each
@@ -98,14 +98,23 @@ def patch_conv_valid(xp, w, out_channels, kernel_size, groups=1):
 
 
 def patch_inverted_residual(x, w, *, hidden, out_ch, kernel, bn1, bn2, bn3,
-                            eps=1e-5):
-    """The v1_0 hyper inverted residual from per-patch weights (eval BN):
-    on each reflect-haloed patch, relu6(bn1(x.w1)) -> relu6(bn2(dw(., w2)))
-    -> bn3(.w3), plus x when Cin == out_ch (hyperseg_v1_0.py:328-370).
+                            eps=1e-5, training=False, momentum=0.1):
+    """The v1_0 hyper inverted residual from per-patch weights: on each
+    reflect-haloed patch, relu6(bn1(x.w1)) -> relu6(bn2(dw(., w2))) ->
+    bn3(.w3), plus x when Cin == out_ch (hyperseg_v1_0.py:328-370).
 
     x: (B, Cin, H, W); w: (B, P, fh, fw) laid out w1 (hidden, Cin) |
     w2 (hidden, k, k) | w3 (out_ch, hidden); bnN = (weight, bias, mean, var).
-    BN runs over the patch batch, so bn1 also covers the halo pixels."""
+    BN runs over the patch batch, so bn1 also covers the halo pixels (quirk
+    #6): with `training`, its batch statistics are those of the halo'd
+    tensor, the JAX apply_bn_multi's element multiset (decoder.py:186-196),
+    and bn2, bn3 take theirs over the unhalo'd tensors; the running
+    statistics are written in place with `momentum`. Differentiable."""
+    def bn(h, params):
+        if training:
+            return F.batch_norm_train(h, *params, eps=eps, momentum=momentum, channel_dim=3)
+        return F.batch_norm_dim(h, params, 3, eps=eps)
+
     cin = x.shape[1]
     fh, fw = w.shape[2], w.shape[3]
     r1 = cin * hidden
@@ -114,11 +123,11 @@ def patch_inverted_residual(x, w, *, hidden, out_ch, kernel, bn1, bn2, bn3,
     pad = kernel // 2
     xp = extract_patches_with_halo(x, fh, fw, (pad, pad))
     h = patch_pointwise(xp, w[:, :r1], hidden)
-    h = F.relu6(F.batch_norm_dim(h, bn1, 3, eps=eps))
+    h = F.relu6(bn(h, bn1))
     h = patch_depthwise_valid(h, w[:, r1:r2], (kernel, kernel))
-    h = F.relu6(F.batch_norm_dim(h, bn2, 3, eps=eps))
+    h = F.relu6(bn(h, bn2))
     h = patch_pointwise(h, w[:, r2:r3], out_ch)
-    out = unblock_patches(F.batch_norm_dim(h, bn3, 3, eps=eps))
+    out = unblock_patches(bn(h, bn3))
     if cin == out_ch:
         out = out + x
     return out

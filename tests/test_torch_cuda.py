@@ -261,3 +261,54 @@ def test_expand_dw_negative_tail_on_card():
             assert (want < 0).all()
             err = ((got - want).abs() / want.abs()).max().item()
             assert err <= rel, (dt, stride, err)
+
+
+STEM_GRAD_CASES = [  # b, h, w, cout
+    (2, 64, 128, 32), (1, 17, 33, 32), (3, 2, 37, 40), (1, 9, 70, 72),
+]
+K6_GRAD_CASES = [  # b, c, h, w, scale
+    (2, 19, 64, 128, 2), (1, 5, 7, 9, 3), (1, 3, 8, 5, 4), (2, 16, 10, 13, 2),
+]
+
+
+@pytest.mark.cuda
+def test_autograd_functions_match_twins_on_card():
+    """StemConv (K3's raw conv, cuDNN's conv backward) and ResizeBilinear
+    (K6, the transposed taps) on the card: gradients of x and w, and of x,
+    against autograd through the twins, float32, on odd and ragged shapes,
+    within 1e-5 of the largest magnitude; an input without grad gets
+    none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(2)
+
+    def grads(fn, inputs, need):
+        leaves = [x.clone().requires_grad_(n) for x, n in zip(inputs, need)]
+        y = fn(*leaves)
+        y.backward(torch.randn(y.shape, generator=torch.Generator().manual_seed(3)).cuda())
+        return [v.grad for v in leaves]
+
+    def close(got, want):
+        assert got.shape == want.shape
+        err = (got - want).abs().max().item()
+        assert err <= 1e-5 * want.abs().max().item(), err
+
+    for b, h, w, cout in STEM_GRAD_CASES:
+        x = torch.randn(b, 3, h, w, generator=g).cuda()
+        wt = (torch.randn(cout, 3, 3, 3, generator=g) * 0.3).cuda()
+        for need in ((True, True), (False, True)):
+            got = grads(K3.StemConv.apply, (x, wt), need)
+            want = grads(K3.stem_conv_plain, (x, wt), need)
+            for a, b_ in zip(got, want):
+                if a is None:
+                    assert b_ is None
+                else:
+                    close(a, b_)
+    for b, c, h, w, s in K6_GRAD_CASES:
+        x = torch.randn(b, c, h, w, generator=g).cuda()
+        out_hw = (s * h, s * w)
+        (got,) = grads(lambda a: K6.ResizeBilinear.apply(a, out_hw), (x,), (True,))
+        (want,) = grads(lambda a: K6.resize_bilinear_plain(a, out_hw), (x,), (True,))
+        close(got, want)
