@@ -6,9 +6,12 @@ Phases (any failure exits non-zero before the result lines):
   1. print the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from this checkout (ops/kernels/build.py);
   3. for each model - HyperSeg-M Cityscapes 1024x512, HyperSeg-L CamVid
-     768x1024, then HyperSeg-L VOC 512x512 - built through the normal factory
-     at full width and depth from seeded weights, BN calibrated on the CPU,
-     the CPU (all-plain) float32 logits as the reference:
+     768x1024, HyperSeg-L VOC 512x512, HyperSeg-S Cityscapes 768x1536 (the
+     unify decoder), then HyperSeg-S CamVid 576x768 - built through the
+     normal factory at full width and depth from seeded weights, BN
+     calibrated on the CPU (on the image and its mirror where the config
+     sets inference_hflip), the CPU (all-plain) float32 logits as the
+     reference:
      a. kernels: one batch-1 forward on the card in float32, then one in
         bfloat16, with every kernel wrapper recording its calls; each call is
         replayed against its plain PyTorch twin on the same inputs (the main
@@ -19,7 +22,10 @@ Phases (any failure exits non-zero before the result lines):
         K1 call's inputs, and in bfloat16 each K1 call's time is split into
         generation and unit; at HyperSeg-M's stem call, K3's no-activation
         mode (stem_conv, the raw conv) against its twin, and timed in
-        bfloat16 beside `conv2d`;
+        bfloat16 beside `conv2d`; at HyperSeg-S Cityscapes, each direct call
+        of K1's generation kernel (`s2w_generate`, the weight blocks' maps)
+        against s2w_generate_plain and decoder.weight_map, timed in
+        bfloat16 beside a grouped `conv2d`;
      b. the card's float32 kernel path against the reference (HyperSeg-M at
         batch 1 and 8, the others at batch 1); bfloat16 stage by stage
         (backbone features, decoder on the reference features and signal or
@@ -28,7 +34,13 @@ Phases (any failure exits non-zero before the result lines):
         to 0 just before and read just after, checked against the launches
         per forward; img/s by host clock around synchronised forwards; a
         profile of the device time per forward and the kernels that take it;
-     d. the model's wall seconds;
+     d. HyperSeg-S Cityscapes: the copy of each k=3 level's slice of the
+        fused weight map that K2 takes, timed at batch 1 and 8;
+        HyperSeg-S CamVid: the test-time augmentation (forward_pyramid over
+        a two-level create_pyramid of one image, hflip on, gather "mean"):
+        the card's float32 output against the CPU's plain forward_pyramid,
+        then in bfloat16 its launches, wall ms and device ms per call;
+     e. the model's wall seconds;
   4. the training step of HyperSeg-M (hyperseg_torch.train), float32, TF32
      off:
      T3. the main path: five steps at 512x1024, batch 16 (the config's),
@@ -84,6 +96,16 @@ class Model:
     per_forward: dict      # kernel launches per forward
     f32_batches: tuple     # batches whose float32 card logits are gated
 
+    @property
+    def unify(self):
+        """The unify decoder, whose weight blocks call K1's generation alone."""
+        return self.factory == "hyperseg_v1_0_unify"
+
+    @property
+    def hflip(self):
+        """The config runs the image's mirror at test time: the TTA phase."""
+        return bool(self.kw.get("inference_hflip"))
+
 
 MODELS = {
     "M": Model(
@@ -119,6 +141,32 @@ MODELS = {
          "patch_invres_s2w": 0, "patch_invres": 0, "resize_bilinear": 5,
          "patch_invres_v01": 4},
         (1,)),
+    "SC": Model(
+        "HyperSeg-S Cityscapes 768x1536",   # tests/golden/make_goldens.py:43-49
+        "hyperseg_v1_0_unify", "efficientnet-b1",
+        dict(levels=2, out_feat_scale=[1.0, 0.166, 0.2, 0.25, 0.4],
+             kernel_sizes=[1, 1, 1, 3, 3], level_channels=[32, 16, 8, 8, 8],
+             expand_ratio=2, with_out_fc=False, decoder_dropout=None,
+             weight_groups=[32, 16, 8, 16, 4], decoder_groups=1, unify_level=4,
+             num_classes=19),
+        (768, 1536), 10108108,    # the JAX count_params (tests/test_torch_hyperseg_s.py)
+        # K1's count is its generation kernel's: one map per weight block
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+         "patch_invres_s2w": 4, "patch_invres": 2, "resize_bilinear": 5,
+         "patch_invres_v01": 0},
+        (1,)),
+    "SV": Model(
+        "HyperSeg-S CamVid 576x768",        # tests/golden/make_goldens.py:50-55
+        "hyperseg_v1_0", "efficientnet-b1",
+        dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3), level_channels=[64, 32, 16, 16, 16],
+             expand_ratio=2, with_out_fc=False, decoder_dropout=None,
+             weight_groups=[64, 32, 32, 16, 8], num_classes=12,
+             inference_hflip=True),       # as shipped (configs/train/camvid_*_hyperseg-s.py:22)
+        (576, 768), 10015856,     # the JAX count_params (tests/test_torch_hyperseg_s.py)
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+         "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
+         "patch_invres_v01": 0},
+        (1,)),
 }
 # H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
 # flop/s by input type (bf16 on the tensor cores, float32 on the CUDA cores)
@@ -148,6 +196,10 @@ KERNELS = {
     "patch_invres_v01": ("patch_invres", "patch_invres_v01_plain", K + "patch_invres.cu",
                          P + "patch_invres.py:784"),
 }
+# K1's generation kernel called on its own (the unify decoder's weight blocks),
+# listed under K1's entry as a mode
+GENERATION = {"s2w_generate": ("patch_invres", "s2w_generate_plain", K + "patch_invres.cu",
+                               P + "patch_invres.py:488")}
 
 
 # The training step of HyperSeg-M (configs/train/cityscapes_efficientnet_b1_hyperseg-m.py):
@@ -227,7 +279,7 @@ class Call:
     out: torch.Tensor
 
     def _fn(self, attr):
-        mod_name = {**KERNELS, **TRAIN_KERNELS}[self.name][0]
+        mod_name = {**KERNELS, **TRAIN_KERNELS, **GENERATION}[self.name][0]
         mod = importlib.import_module(f"hyperseg_torch.ops.kernels.{mod_name}")
         return functools.partial(getattr(mod, attr), *self.args, **self.kw)
 
@@ -237,7 +289,7 @@ class Call:
 
     @property
     def plain(self):
-        return self._fn(KERNELS[self.name][1])
+        return self._fn({**KERNELS, **GENERATION}[self.name][1])
 
     def moved(self):
         """Bytes the function must move: each input once, the output once."""
@@ -335,7 +387,7 @@ def recording(kernels=KERNELS):
 def check_calls(model, calls, dtype, rows):
     """Each recorded call's kernel against its twin; in bfloat16 also the
     times, summed per kernel over one forward's calls."""
-    for c in calls:
+    for c in (c for c in calls if c.name in KERNELS):
         got, want = c.kernel(), c.plain()
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
@@ -439,6 +491,140 @@ def k1_generation(model, calls, dtype):
                   f"unit {t_unit:.4f} ms, K1 {cuda_ms(c.kernel):.4f} ms", flush=True)
 
 
+def check_generation(model, calls, dtype, rows):
+    """K1's generation kernel where the unify decoder calls it on its own
+    (`s2w_generate`, one map per weight block): each recorded call against
+    s2w_generate_plain and decoder.weight_map on its own inputs within
+    k1_generation's gate, 1e-5 of the largest magnitude, in both dtypes; in
+    bfloat16 also timed beside its twin, one grouped `conv2d` (the same
+    products, NCHW in the signal's dtype, not clipped) and the bound. Kept
+    under rows[(model, "s2w_generate")]."""
+    import torch.nn.functional as TF
+    from hyperseg_torch.models.decoder import S2W, weight_map
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+
+    for i, c in enumerate(x for x in calls if x.name == "s2w_generate"):
+        row = rows.setdefault((model, "s2w_generate"), dict(
+            max_abs_err=0.0, f32_max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
+            bound_ms=0.0, by={}, calls=0, shapes=[]))
+        (sl, w), groups, p = c.args, c.kw["groups"], c.kw["p"]
+        route = S2W(signal_ch=sl.shape[1], signal_index=0, groups=groups, out_ch=w.shape[0],
+                    hyper_params=p)
+        got = c.kernel()
+        for twin, want in (("s2w_generate_plain", c.plain()),
+                           ("weight_map", weight_map(sl.float(), route, w.float()))):
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            tol = 1e-5 * max(1.0, want.abs().max().item())
+            ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+            print(f"k1_generation {model} weight block {i} {str(dtype):15s} map "
+                  f"{tuple(got.shape)} vs {twin} max_abs_err {err:.3e} tol {tol:.3e} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K1's generation disagrees with {twin} in {dtype} ({model})")
+            key = "max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"
+            row[key] = max(row[key], err)
+        if dtype != torch.bfloat16:
+            continue
+        b, sig, fh, fw = sl.shape
+        b_ms, by = bound_ms(sl.numel() * sl.element_size() + w.numel() * w.element_size()
+                            + got.numel() * 4, 2 * b * fh * fw * p * (sig // groups), dtype)
+        t = dict(ms=cuda_ms(c.kernel), plain_ms=cuda_ms(c.plain),
+                 library_ms=cuda_ms(lambda: TF.conv2d(sl, w, groups=groups)))
+        print(f"time   {model} s2w_generate block {i} s {tuple(sl.shape)} P {p} groups {groups} "
+              f"kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  conv2d "
+              f"{t['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({by})", flush=True)
+        for k, v in t.items():
+            row[k] += v
+        row["bound_ms"] += b_ms
+        row["by"][by] = row["by"].get(by, 0.0) + b_ms
+        row["calls"] += 1
+        row["shapes"].append([list(sl.shape), p, groups])
+
+
+def unify_copy(key, gpu, inputs):
+    """The contiguous copy of each k=3 level's slice of the unify decoder's
+    fused weight map, which K2 takes (its wrapper reads a contiguous map):
+    ms per copy at each batch (CUDA events), beside its bound (the slice
+    read once and written once)."""
+    dec = gpu.decoder
+    out = {}
+    with torch.no_grad():
+        for b, x in inputs.items():
+            fused = dec.block_map(gpu.weight_mapper(gpu.backbone(x)[-1]), len(dec.routes) - 1)
+            for i in range(len(dec._ranges) - 1):
+                sl = fused[..., dec._ranges[i]:dec._ranges[i + 1]]
+                ms = cuda_ms(sl.contiguous)
+                b_ms, _ = bound_ms(2 * sl.numel() * 4, 0, torch.float32)
+                lv = dec.unify_level - 1 + i
+                out[f"level {lv} b{b}"] = dict(ms=ms, bound_ms=b_ms, shape=list(sl.shape))
+                print(f"copy   {key} level {lv} batch {b}: fused map slice {tuple(sl.shape)} "
+                      f"float32 .contiguous() {ms:.4f} ms, bound {b_ms:.4f} ms (bytes)",
+                      flush=True)
+    return out
+
+
+def device_ms(fn, calls=3):
+    """Device ms per call of fn() under torch.profiler, or None where the
+    profiler sees no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return sum(e.self_device_time_total for e in events) / 1e3 / calls if events else None
+
+
+def tta_check(model, gpu, x1, compare):
+    """The test-time augmentation in float32: the card's forward_pyramid
+    over a two-level create_pyramid of the image, built on the card,
+    against the CPU's plain forward_pyramid, at the logits' gate."""
+    from hyperseg_torch.utils.img_utils import create_pyramid
+
+    with torch.no_grad():
+        want = model.forward_pyramid(create_pyramid(x1, 2))
+        got = gpu.forward_pyramid(create_pyramid(x1.cuda(), 2))
+    compare(got, want, f"cuda float32 forward_pyramid (2 levels, hflip "
+            f"{gpu.inference_hflip}, gather {gpu.inference_gather}) vs cpu plain", 1e-3, 0.999)
+
+
+def tta_time(key, gpu, x, per_forward):
+    """The bfloat16 test-time augmentation on the card: its launches per
+    call (four forwards and the second level's upsample), wall ms per call
+    by host clock around synchronised calls, and device ms per call."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.utils.img_utils import create_pyramid
+
+    def call():
+        return gpu.forward_pyramid(create_pyramid(x, 2))
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        out = call()
+        launches = dict(LAUNCHES)
+        forwards = 4 if gpu.inference_hflip else 2
+        want = {n: forwards * c + (n == "resize_bilinear") for n, c in per_forward.items()}
+        if {n: launches.get(n, 0) for n in want} != want:
+            fail(f"forward_pyramid: launches {launches}, expected {want}")
+        if not bool(torch.isfinite(out).all()) or out.shape[2:] != x.shape[2:]:
+            fail(f"forward_pyramid: output {tuple(out.shape)} is not finite of the image's size")
+        iters = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0) / iters
+    dev = device_ms(call)
+    print(f"tta    {key} bf16 b1 forward_pyramid: launches {launches} per call, wall "
+          f"{wall:.3f} ms, device {'not measured' if dev is None else f'{dev:.3f} ms'} "
+          f"per call", flush=True)
+    return dict(launches=launches, wall_ms=wall, device_ms=dev)
+
+
 def to_card(t, dtype):
     """A tensor, or each of a list of tensors, on the card in `dtype`."""
     if isinstance(t, list):
@@ -447,7 +633,8 @@ def to_card(t, dtype):
 
 
 def run_model(key, rows):
-    """One model end to end; returns its main-path launch counts and img/s."""
+    """One model end to end; returns its main-path launch counts, img/s and
+    the numbers of its own phases (the unify map copy, the TTA)."""
     from hyperseg_torch.nn.modules import cast_weights
     from hyperseg_torch.ops.kernels import LAUNCHES
     from hyperseg_torch.utils.calibrate import calibrate_bn
@@ -462,7 +649,10 @@ def run_model(key, rows):
     x8 = torch.randn(8, 3, *cfg.res, generator=gen)
     x1 = x8[:1].clone()
     t0 = time.perf_counter()
-    calibrate_bn(model, x1)
+    # a model that runs the image's mirror (inference_hflip) is calibrated on
+    # both: calibrated on the image alone, the random-weight net meets the
+    # mirror ill-conditioned (tests/test_torch_tta.py)
+    calibrate_bn(model, torch.cat([x1, x1.flip(3)]) if cfg.hflip else x1)
     with torch.no_grad():                     # the all-plain path: float32, CPU
         ref = model(x8 if 8 in cfg.f32_batches else x1)
         feats = model.backbone(x1)
@@ -490,25 +680,30 @@ def run_model(key, rows):
             fail(f"{cfg.name}: {what} disagrees with the CPU plain path")
 
     gpu = copy.deepcopy(model).to("cuda")
+    recorded = {**KERNELS, **(GENERATION if cfg.unify else {})}
     with torch.no_grad():
-        with recording() as calls:
+        with recording(recorded) as calls:
             gpu(x1.cuda())
         check_calls(key, calls, torch.float32, rows)
         k1_generation(key, calls, torch.float32)
+        check_generation(key, calls, torch.float32, rows)
         if key == "M":
             check_stem_conv(key, calls, torch.float32, rows)
         del calls
         for b in cfg.f32_batches:
             compare(gpu(x8[:b].cuda()), ref[:b], f"cuda float32 b{b} logits vs cpu plain",
                     1e-3, 0.999)
+    if cfg.hflip:
+        tta_check(model, gpu, x1, compare)
     cast_weights(gpu, torch.bfloat16)
     xb1 = x1.to("cuda", torch.bfloat16)
     xb8 = x8.to("cuda", torch.bfloat16)
     with torch.no_grad():
-        with recording() as calls:
+        with recording(recorded) as calls:
             gpu(xb1)
         check_calls(key, calls, torch.bfloat16, rows)
         k1_generation(key, calls, torch.bfloat16)
+        check_generation(key, calls, torch.bfloat16, rows)
         if key == "M":
             check_stem_conv(key, calls, torch.bfloat16, rows)
         del calls
@@ -522,7 +717,8 @@ def run_model(key, rows):
                 "cuda bfloat16 stride-4 feature (+ K5, K4b) vs cpu plain", 0.05)
         dec = gpu.decoder([xb1] + to_card(feats[:-1], torch.bfloat16),
                           to_card(signal, torch.bfloat16))
-        ks, head = ("K7, K6", "weight maps") if key == "V" else ("K1, K2, K6", "signal")
+        ks, head = (("K7, K6", "weight maps") if key == "V" else
+                    ("K1's generation, K2, K6" if cfg.unify else "K1, K2, K6", "signal"))
         compare(dec, ref_dec, f"cuda bfloat16 decoder ({ks}) on the reference "
                 f"features and {head}", 0.05, 0.97)
 
@@ -553,7 +749,12 @@ def run_model(key, rows):
     for b in (1, 8):
         print(f"model  {cfg.name} bf16 batch {b}: {fps[b]:.2f} img/s", flush=True)
     phase_profile(key, gpu, {1: xb1, 8: xb8}, fps)
-    return launches, fps
+    extra = {}
+    if cfg.unify:
+        extra["unify_copy"] = unify_copy(key, gpu, {1: xb1, 8: xb8})
+    if cfg.hflip:
+        extra["tta"] = tta_time(key, gpu, xb1, cfg.per_forward)
+    return launches, fps, extra
 
 
 def phase_profile(key, gpu, inputs, fps, forwards=3):
@@ -993,9 +1194,11 @@ def run_training():
 
 def kernels_line(rows, launches):
     """One entry per kernel: the per-forward numbers of the first model (M,
-    L, V) that runs it, each model's under `by_model`; launches summed over
-    all main paths. K3's entry also holds its no-activation mode under
-    `modes` (HyperSeg-M's stem shape, off the main path)."""
+    L, V, SC, SV) that runs it, each model's under `by_model`; launches
+    summed over all main paths. K3's entry also holds its no-activation
+    mode under `modes` (HyperSeg-M's stem shape, off the main path), K1's
+    its generation kernel's direct calls at HyperSeg-S Cityscapes' weight
+    blocks (on SC's main path, counted in K1's launches)."""
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         per_model = {m: r for (m, n), r in rows.items() if n == name}
@@ -1020,6 +1223,11 @@ def kernels_line(rows, launches):
         if name == "stem":
             kernels[-1]["modes"] = {f"stem_conv {m}": r for (m, n), r in rows.items()
                                     if n == "stem_conv"}
+        if name == "patch_invres_s2w":
+            kernels[-1]["modes"] = {
+                f"s2w_generate {m}": dict(r, bound_by=max(r["by"], key=r["by"].get),
+                                          launches=launches[m].get(name, 0))
+                for (m, n), r in rows.items() if n == "s2w_generate"}
     return kernels
 
 
@@ -1040,10 +1248,10 @@ def main():
     build.kernels()
     print(f"build  kernels built in {time.perf_counter() - t0:.1f} s", flush=True)
 
-    rows, launches, fps = {}, {}, {}
+    rows, launches, fps, extra = {}, {}, {}, {}
     for key in MODELS:
         t0 = time.perf_counter()
-        launches[key], fps[key] = run_model(key, rows)
+        launches[key], fps[key], extra[key] = run_model(key, rows)
         print(f"model  {key} done in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
     train_launches, stem_conv, resize_train, train = run_training()
@@ -1057,7 +1265,9 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "img_per_s": {m: {str(b): v for b, v in f.items()}
                                     for m, f in fps.items()},
-                      "train": train}), flush=True)
+                      "train": train,
+                      "unify_copy": extra["SC"]["unify_copy"], "tta": extra["SV"]["tta"]}),
+          flush=True)
     print(smi.stdout.strip(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """EfficientNet feature extractor (NCHW), eval and training.
 
-Counterpart of hyperseg_tpu/models/backbones/efficientnet.py (B0-B8 plans;
-the HyperSeg-M path uses B1). As there, a static plan is built at
+Counterpart of hyperseg_tpu/models/backbones/efficientnet.py (B0-B8 and L2
+plans, and HyperSeg's custom c* and s* variants; HyperSeg-M, -S and -L
+CamVid use B1, -L VOC B3). As there, a static plan is built at
 construction: block configs, channel counts, multi-scale feature taps with
 their `_feat_fc_*` compressors, and TF-SAME pads computed from the *nominal*
 model image size (240 for B1), not the runtime size.
@@ -44,6 +45,7 @@ SCALING = {
     "b0": (1.0, 1.0, 224, 0.2), "b1": (1.0, 1.1, 240, 0.2), "b2": (1.1, 1.2, 260, 0.3),
     "b3": (1.2, 1.4, 300, 0.3), "b4": (1.4, 1.8, 380, 0.4), "b5": (1.6, 2.2, 456, 0.4),
     "b6": (1.8, 2.6, 528, 0.5), "b7": (2.0, 3.1, 600, 0.5), "b8": (2.2, 3.6, 672, 0.5),
+    "l2": (4.3, 5.3, 800, 0.5),
 }
 DROP_CONNECT_RATE = 0.2
 
@@ -57,10 +59,19 @@ BASE_STAGES = [
     (4, 5, 2, 6, 112, 192, 0.25),
     (1, 3, 1, 6, 192, 320, 0.25),
 ]
+# HyperSeg's custom variants (efficientnet_utils.py:579-600): c* adds a
+# stride level (and a 1920-channel head base), s* puts its first stage at
+# stride 2
+C_STAGES = BASE_STAGES[:-1] + [
+    (4, 5, 2, 6, 192, 320, 0.25),
+    (1, 3, 1, 6, 320, 480, 0.25),
+]
+S_STAGES = [(1, 3, 2, 1, 32, 16, 0.25)] + BASE_STAGES[1:]
+STAGES = {"b": BASE_STAGES, "l": BASE_STAGES, "c": C_STAGES, "s": S_STAGES}
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01  # torch's convention (1 - 0.99), as the JAX backbone's (efficientnet.py:84)
-HEAD_CH = 1280
+HEAD_CH = {"b": 1280, "l": 1280, "c": 1920, "s": 1280}
 
 
 def round_filters(filters: int, width: float, divisor: int = 8) -> int:
@@ -200,10 +211,11 @@ class EfficientNet(EvalModule):
     def __init__(self, model_name: str, *, out_feat_scale=0.25, in_channels=3,
                  device=None):
         super().__init__()
-        m = re.fullmatch(r"efficientnet-b(\d)", model_name)
-        if not m or f"b{m.group(1)}" not in SCALING:
+        m = re.fullmatch(r"efficientnet-([bcs])(\d)|efficientnet-l2", model_name)
+        family, scale = (m.group(1), f"b{m.group(2)}") if m and m.group(1) else ("l", "l2")
+        if not m or scale not in SCALING:
             raise ValueError(f"unknown efficientnet variant {model_name!r}")
-        width, depth, nominal, dropout = SCALING[f"b{m.group(1)}"]
+        width, depth, nominal, dropout = SCALING[scale]
         self.model_name = model_name
         self.in_channels = in_channels
         # training only; set to 0 for a deterministic step, as the tests do
@@ -218,7 +230,7 @@ class EfficientNet(EvalModule):
         plans: List[MBConvPlan] = []
         feat_mask: List[bool] = []
         feat_nc: List[int] = []
-        for (r, k, s, e, ci, co, se) in BASE_STAGES:
+        for (r, k, s, e, ci, co, se) in STAGES[family]:
             ci, co = round_filters(ci, width), round_filters(co, width)
             r = round_repeats(r, depth)
             if s > 1 and feat_mask:
@@ -255,7 +267,7 @@ class EfficientNet(EvalModule):
                 self.feat_channels[i] = out_nc
             self.feat_fc.append(compress)
 
-        self.head_ch = round_filters(HEAD_CH, width)
+        self.head_ch = round_filters(HEAD_CH[family], width)
         self._conv_head = conv(plans[-1].out_ch, self.head_ch, device=device)
         self._bn1 = BatchNorm2d(self.head_ch, BN_EPS, BN_MOMENTUM, device=device)
         self.feat_channels = self.feat_channels + [self.head_ch]

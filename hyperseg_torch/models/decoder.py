@@ -1,8 +1,10 @@
-"""Dynamic multi-scale decoders of HyperSeg v1_0 and v0_1, NCHW.
+"""Dynamic multi-scale decoders of HyperSeg v1_0 (and v0_2), v1_0_unify and
+v0_1, NCHW.
 
 Counterpart of hyperseg_tpu/models/decoder.py (S2W, PatchConvUnit,
-InvResUnit, apply_signal2weights, MultiScaleDecoderV1; reference
-hyperseg_v1_0.py:94-253, 281-498). Each hyper unit owns a `signal2weights`
+InvResUnit, apply_signal2weights, MultiScaleDecoderV1,
+MultiScaleDecoderUnify; reference hyperseg_v1_0.py:94-253, 281-498,
+hyperseg_v1_0_unify.py:96-259). Each hyper unit owns a `signal2weights`
 grouped 1x1 conv that turns a slice of the stride-32 signal into one weight
 vector per patch. Checkpoint-parity quirks reproduced:
   #1 the signal index restarts at 0 in every level, so each level's
@@ -16,7 +18,16 @@ k=1 units (levels 0-2) run as batched per-patch matmuls, as the JAX package
 runs them outside any kernel. k=3 inverted-residual units run K1
 (ops/kernels/patch_invres.py `patch_invres_s2w`) at every level: the weight
 map as one grouped GEMM, then the unit on it. K1 takes a 3x3 or a 5x5
-depthwise (no shipped config has a 5x5).
+depthwise (no shipped config has a 5x5). v0_2 is v1_0 with the legacy
+signal split (`legacy_divide`).
+
+The unify decoder (MultiScaleDecoderUnify, HyperSeg-S Cityscapes) hoists
+signal2weights out of its units into `weight_blocks`: one per level below
+`unify_level`, one fused for the rest, routed by cumulative signal indices.
+Each block's (B, fh, fw, P) map is made once per forward by K1's generation
+kernel (`s2w_generate`); the k=1 levels read their map in place, the k=3
+levels run K2 (`patch_invres`) on a contiguous copy of their slice of the
+fused map.
 
 The v0_1 decoder (MultiScaleDecoderV0, HyperSeg-L VOC) takes its weight maps
 from the weight mapper, one (B, fh, fw, P) map per level. Its k=1 levels run
@@ -40,7 +51,8 @@ from typing import List, Optional
 import torch
 from torch import nn
 
-from hyperseg_torch.models.signal_split import divide_feature, next_multiply
+from hyperseg_torch.models.signal_split import (divide_feature, divide_feature_legacy_v02,
+                                                next_multiply)
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 from hyperseg_torch.ops import patch as P
@@ -192,15 +204,20 @@ class InvResUnit(EvalModule):
             training=True, momentum=BN_MOMENTUM)
 
     def apply_weights(self, x, w):
-        """The unit from a given weight map w: (B, hyper_params, fh, fw), as
-        the JAX InvResUnit.apply: in eval K2 on the card, its twin on the
-        CPU; in training the eager unit."""
+        """The unit from a given weight map w: (B, hyper_params, fh, fw)."""
+        return self.apply_map(x, w.permute(0, 2, 3, 1))
+
+    def apply_map(self, x, w):
+        """The unit from a (B, fh, fw, hyper_params) weight map, as the JAX
+        InvResUnit.apply: in eval K2 on the card (on a contiguous copy where
+        w is a slice of a wider map), its twin on the CPU; in training the
+        eager unit."""
         if self.training:
-            return self._apply_eager(x, w)
+            return self._apply_eager(x, w.permute(0, 3, 1, 2))
         return PI.patch_invres(
-            x, w.permute(0, 2, 3, 1).contiguous(), hidden=self.hidden,
-            out_ch=self.out_ch, kernel=self.kernel, bn1=self.bn1.params,
-            bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS)
+            x, w.contiguous(), hidden=self.hidden, out_ch=self.out_ch,
+            kernel=self.kernel, bn1=self.bn1.params, bn2=self.bn2.params,
+            bn3=self.bn3.params, eps=BN_EPS)
 
     def forward(self, x, s):
         """Generate-and-apply from the level's signal slice s: K1 in eval;
@@ -284,49 +301,62 @@ class _Decoder(EvalModule):
         return torch.cat([self._coords[key].expand(feat.shape[0], -1, -1, -1), feat], 1)
 
 
+def _hyper_levels(feat_channels, num_classes, kernel_sizes, level_layers, level_channels,
+                  expand_ratio, groups, with_out_fc, device):
+    """The hyper units of the v1_0 and unify decoders, one list per level,
+    coarsest first, and the last level's output width: a k > 1 level takes
+    InvResUnits, a k = 1 level PatchConvUnits (full-map BN, relu); the last
+    unit emits the classes unless an out_fc follows."""
+    levels = len(level_channels)
+    ks = [kernel_sizes] * levels if isinstance(kernel_sizes, int) else list(kernel_sizes)
+    ll = [level_layers] * levels if isinstance(level_layers, int) else list(level_layers)
+    er = ([expand_ratio] * levels if isinstance(expand_ratio, (int, float))
+          else list(expand_ratio))
+    assert len(ks) == levels and len(ll) == levels and len(er) == levels
+    rev_feats = list(feat_channels[::-1])
+    level_units: List[List[nn.Module]] = []
+    prev = 0
+    for lv in range(levels):
+        prev += rev_feats[lv]
+        out_ngf = level_channels[lv]
+        units = []
+        for layer in range(ll[lv]):
+            if (not with_out_fc) and lv == levels - 1 and layer == ll[lv] - 1:
+                out_ngf = num_classes
+            in_ch = prev + 2
+            if ks[lv] > 1:
+                units.append(InvResUnit(in_ch, out_ngf, int(round(in_ch * er[lv])),
+                                        kernel=ks[lv], device=device))
+            else:
+                g = groups[lv] if isinstance(groups, (list, tuple)) else groups
+                units.append(PatchConvUnit(in_ch, out_ngf, kernel=ks[lv], groups=g,
+                                           pad=ks[lv] // 2, bn=True, act="relu",
+                                           device=device))
+            prev = out_ngf
+        level_units.append(units)
+    return level_units, prev
+
+
 class MultiScaleDecoderV1(_Decoder):
     """Reference MultiScaleDecoder (hyperseg_v1_0.py:94-253).
 
     feat_channels: [in_nc] + backbone feature channels (finest -> coarsest,
     head excluded). Levels run coarsest -> finest; level l consumes the
     upsampled previous output, concatenated with the level's feature and a
-    2-channel coordinate grid, through its hyper units."""
+    2-channel coordinate grid, through its hyper units. `legacy_divide`
+    splits the signal as v0_2 does (divide_feature_legacy_v02)."""
 
     def __init__(self, feat_channels, signal_channels, num_classes=3,
                  kernel_sizes=3, level_layers=1, level_channels=None,
                  expand_ratio=1, groups=1, weight_groups=1, with_out_fc=False,
-                 dropout=None, device=None):
+                 dropout=None, legacy_divide=False, device=None):
         super().__init__()
-        levels = len(level_channels)
-        ks = [kernel_sizes] * levels if isinstance(kernel_sizes, int) else list(kernel_sizes)
-        ll = [level_layers] * levels if isinstance(level_layers, int) else list(level_layers)
-        er = ([expand_ratio] * levels if isinstance(expand_ratio, (int, float))
-              else list(expand_ratio))
-        assert len(ks) == levels and len(ll) == levels and len(er) == levels
-        self.levels = levels
+        level_units, prev = _hyper_levels(
+            feat_channels, num_classes, kernel_sizes, level_layers, level_channels,
+            expand_ratio, groups, with_out_fc, device)
+        self.levels = len(level_units)
         self.num_classes = num_classes
-        rev_feats = list(feat_channels[::-1])
-
-        level_units: List[List[nn.Module]] = []
-        prev = 0
-        for lv in range(levels):
-            prev += rev_feats[lv]
-            out_ngf = level_channels[lv]
-            units = []
-            for layer in range(ll[lv]):
-                if (not with_out_fc) and lv == levels - 1 and layer == ll[lv] - 1:
-                    out_ngf = num_classes
-                in_ch = prev + 2
-                if ks[lv] > 1:
-                    units.append(InvResUnit(in_ch, out_ngf, int(round(in_ch * er[lv])),
-                                            kernel=ks[lv], device=device))
-                else:
-                    g = groups[lv] if isinstance(groups, (list, tuple)) else groups
-                    units.append(PatchConvUnit(in_ch, out_ngf, kernel=ks[lv], groups=g,
-                                               pad=ks[lv] // 2, bn=True, act="relu",
-                                               device=device))
-                prev = out_ngf
-            level_units.append(units)
+        for lv, units in enumerate(level_units):
             self.add_module(f"level_{lv}", nn.ModuleList(units))
 
         self.dropout = dropout
@@ -342,7 +372,8 @@ class MultiScaleDecoderV1(_Decoder):
         self.hyper_params = sum(hyper)
         min_unit = (max(weight_groups) if isinstance(weight_groups, (list, tuple))
                     else weight_groups)
-        sig_feats = list(divide_feature(signal_channels, hyper, min_unit=min_unit))
+        split = divide_feature_legacy_v02 if legacy_divide else divide_feature
+        sig_feats = list(split(signal_channels, hyper, min_unit=min_unit))
         wg = list(weight_groups) if isinstance(weight_groups, (list, tuple)) else None
         k = 0
         for grp in route_groups:
@@ -372,6 +403,91 @@ class MultiScaleDecoderV1(_Decoder):
             if self.training:
                 p = F.dropout2d(p, self.dropout, generator)
             p = self.out_fc(p, s)
+        return F.resize_bilinear(p, xs[0].shape[2:])
+
+
+class MultiScaleDecoderUnify(_Decoder):
+    """Reference unified-weights MultiScaleDecoder (hyperseg_v1_0_unify.py:
+    96-259), JAX decoder.py:743-869. The levels' units are v1_0's, under
+    `level_blocks.{lv}.{layer}`, and hold no signal2weights: the weights
+    come from `weight_blocks.{i}.signal2weights`, one block for each level
+    below `unify_level` and one fused block for the rest, whose map each of
+    those levels slices by `_ranges`. Unlike v1_0, the blocks' signal
+    indices are cumulative (the reference's index reset does not apply)."""
+
+    def __init__(self, feat_channels, signal_channels, num_classes=3,
+                 kernel_sizes=3, level_layers=1, level_channels=None,
+                 expand_ratio=1, groups=1, weight_groups=1, with_out_fc=False,
+                 dropout=None, unify_level=None, device=None):
+        super().__init__()
+        levels = len(level_channels)
+        assert unify_level is not None and 1 <= unify_level <= levels
+        # no shipped config has an out_fc here; without one dropout acts
+        # nowhere, in the reference too (hyperseg_v1_0_unify.py:180-186)
+        assert not with_out_fc, "unify decoder with out_fc is not used by any config"
+        del dropout
+        level_units, _ = _hyper_levels(
+            feat_channels, num_classes, kernel_sizes, level_layers, level_channels,
+            expand_ratio, groups, with_out_fc, device)
+        self.levels = levels
+        self.unify_level = unify_level
+        self.num_classes = num_classes
+        self.level_blocks = nn.ModuleList(nn.ModuleList(units) for units in level_units)
+
+        level_sums = [sum(u.hyper_params for u in units) for units in level_units]
+        # the fused block's slice of each level from unify_level - 1 on (:175)
+        self._ranges = [0]
+        for lv in range(unify_level - 1, levels):
+            self._ranges.append(self._ranges[-1] + level_sums[lv])
+        targets = level_sums[:unify_level - 1] + [sum(level_sums[unify_level - 1:])]
+        self.param_groups = list(targets)
+        self.hyper_params = sum(targets)
+        min_unit = (max(weight_groups) if isinstance(weight_groups, (list, tuple))
+                    else weight_groups)
+        sig_feats = divide_feature(signal_channels, targets, min_unit=min_unit)
+        wg = list(weight_groups) if isinstance(weight_groups, (list, tuple)) else None
+        self.routes: List[S2W] = []
+        self.weight_blocks = nn.ModuleList()
+        sig_index = 0
+        for i, target in enumerate(targets):
+            g = wg[i] if wg is not None else weight_groups
+            route = S2W(signal_ch=int(sig_feats[i]), signal_index=sig_index, groups=g,
+                        out_ch=next_multiply(target, g), hyper_params=target)
+            block = _HyperConv()
+            block.signal2weights = conv(route.signal_ch, route.out_ch, groups=g, device=device)
+            self.routes.append(route)
+            self.weight_blocks.append(block)
+            sig_index += route.signal_ch
+
+    def block_map(self, s, i):
+        """Weight block i's (B, fh, fw, P) map: in eval K1's generation
+        kernel on the card (its twin on the CPU), float32; in training the
+        differentiable weight_map."""
+        r, w = self.routes[i], self.weight_blocks[i].signal2weights.weight
+        if self.training:
+            return weight_map(s, r, w)
+        return PI.s2w_generate(s[:, r.signal_index:r.signal_index + r.signal_ch], w,
+                               groups=r.groups, p=r.hyper_params)
+
+    def forward(self, xs, s, generator=None):
+        """xs: [input image, feat_s2, ..., feat_s32] (finest -> coarsest,
+        head excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32.
+        `generator` is unused: the decoder has no dropout."""
+        del generator
+        p, shared = None, None
+        for lv, units in enumerate(self.level_blocks):
+            p = self._level_input(p, xs[-lv - 1])
+            if lv < self.unify_level - 1:
+                w = self.block_map(s, lv)
+            else:
+                if shared is None:
+                    shared = self.block_map(s, len(self.routes) - 1)
+                i = lv - self.unify_level + 1
+                w = shared[..., self._ranges[i]:self._ranges[i + 1]]
+            base = 0
+            for u in units:
+                p = u.apply_map(p, w[..., base:base + u.hyper_params])
+                base += u.hyper_params
         return F.resize_bilinear(p, xs[0].shape[2:])
 
 

@@ -1,14 +1,18 @@
 """HyperGen: backbone -> weight mapper (context head) -> dynamic decoder.
 
-Counterpart of the plain forward of hyperseg_tpu/models/hypergen.py:73-110
-(reference process_single_tensor, hyperseg_v1_0.py:52-60) and, in training
-mode (`model.train()`), of its `apply_train` (:133-138): no test-time-
-augmentation pyramid, no per-image decoder loop; BN running statistics are
-written in place, and dropout draws from the generator given to `forward`.
+Counterpart of hyperseg_tpu/models/hypergen.py: the plain forward (:73-110;
+reference process_single_tensor, hyperseg_v1_0.py:52-60), in training mode
+(`model.train()`) its `apply_train` (:133-138), and the test-time
+augmentation `forward_pyramid` (:140-159; hyperseg_v1_0.py:62-91). No
+per-image decoder loop; BN running statistics are written in place in
+training, and dropout draws from the generator given to `forward`.
 """
 
 from __future__ import annotations
 
+import torch
+
+from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import EvalModule
 
 
@@ -16,8 +20,7 @@ class HyperGen(EvalModule):
     def __init__(self, backbone, decoder, weight_mapper, *,
                  inference_hflip=False, inference_gather="mean"):
         super().__init__()
-        # kept for the test-time-augmentation pyramid (not ported yet); the
-        # plain forward does not read them (quirk #5)
+        # read by forward_pyramid only; the plain forward ignores them (quirk #5)
         self.inference_hflip = inference_hflip
         self.inference_gather = inference_gather
         self.backbone = backbone
@@ -34,3 +37,25 @@ class HyperGen(EvalModule):
         feats = self.backbone(x, generator)
         s = self.weight_mapper(feats[-1])
         return self.decoder([x] + feats[:-1], s, generator)
+
+    def forward_pyramid(self, pyramid):
+        """Multi-scale and optional hflip ensembling of a list of (B, 3, H,
+        W) images, finest first (utils/img_utils.py `create_pyramid`): each
+        level's logits - with `inference_hflip` the maximum of the image's
+        and its mirror's, mirrored back - resized to the first level's size,
+        then gathered level by level with `inference_gather`, "mean" as
+        (out + p) * 0.5, else the maximum."""
+        out_hw = pyramid[0].shape[2:]
+        out = None
+        for x in pyramid:
+            p = self(x)
+            if self.inference_hflip:
+                p = torch.maximum(p, self(x.flip(3)).flip(3))
+            p = F.resize_bilinear(p, out_hw)
+            if out is None:
+                out = p
+            elif self.inference_gather == "mean":
+                out = (out + p) * 0.5
+            else:
+                out = torch.maximum(out, p)
+        return out

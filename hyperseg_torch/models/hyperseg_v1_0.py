@@ -21,8 +21,9 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
                    weight_groups=1, with_out_fc=False, decoder_groups=1,
                    decoder_dropout=None, inference_hflip=False,
                    inference_gather="mean", coords_res=None, wm_levels=3,
-                   in_nc=3, device=None) -> HyperGen:
-    """Assemble a v1_0 HyperGen (hyperseg_v1_0.py:33-46).
+                   in_nc=3, legacy_divide=False, device=None) -> HyperGen:
+    """Assemble a v1_0 HyperGen (hyperseg_v1_0.py:33-46); `legacy_divide`
+    splits the signal as v0_2 does (models/hyperseg_v0_2.py).
 
     `inference_hflip` and `inference_gather` are stored on the HyperGen for
     the test-time-augmentation pyramid; the plain forward ignores them, as
@@ -36,9 +37,9 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
         level_layers=level_layers, level_channels=level_channels,
         expand_ratio=expand_ratio, groups=decoder_groups,
         weight_groups=weight_groups, with_out_fc=with_out_fc,
-        dropout=decoder_dropout, device=device)
-    weight_mapper = WeightMapperV1(backbone.feat_channels[-1], levels=wm_levels,
-                                   device=device)
+        dropout=decoder_dropout, legacy_divide=legacy_divide, device=device)
+    weight_mapper = WeightMapperV1(backbone.feat_channels[-1], decoder.param_groups,
+                                   levels=wm_levels, device=device)
     return HyperGen(backbone, decoder, weight_mapper,
                     inference_hflip=inference_hflip,
                     inference_gather=inference_gather)
@@ -57,6 +58,15 @@ def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
     the weight-mapper pyramid depth. Load real weights with
     `load_state_dict(strict=True)`. `pretrained=True` raises: the port
     ships no ImageNet backbone weights."""
+    return make_model(build_hypergen, model_name, pretrained, out_feat_scale, levels,
+                      device, seed, train, kwargs)
+
+
+def make_model(build, model_name, pretrained, out_feat_scale, levels, device, seed,
+               train, kwargs) -> HyperGen:
+    """What the v1_0, v0_2 and v1_0_unify factories share: refuse
+    `pretrained`, build the EfficientNet and `build`'s HyperGen on `device`,
+    draw the weights from `seed`, and set the mode."""
     if pretrained:
         raise ValueError(
             "hyperseg_efficientnet: pretrained=True needs ImageNet backbone "
@@ -64,6 +74,6 @@ def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
             "pretrained=False and load a converted state dict")
     backbone = EfficientNet(model_name, out_feat_scale=out_feat_scale,
                             device=device)
-    model = build_hypergen(backbone, wm_levels=levels, device=device, **kwargs)
+    model = build(backbone, wm_levels=levels, device=device, **kwargs)
     init_params(model, torch.Generator().manual_seed(seed))
     return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

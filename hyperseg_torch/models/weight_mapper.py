@@ -39,10 +39,15 @@ def _conv_bn_relu(block, x, relu=True):
 
 
 class WeightMapperV1(EvalModule):
-    def __init__(self, in_channels, levels=3, device=None):
+    """`out_channels`, the decoder's param_groups, is only recorded, as in
+    the JAX package (weight_mapper.py:58-62): the signal's width is
+    in_channels whatever the decoder makes of it."""
+
+    def __init__(self, in_channels, out_channels=None, levels=3, device=None):
         super().__init__()
         assert in_channels % 2 == 0
         c = in_channels
+        self.out_channels = out_channels
         self.levels = levels
         self.signal_channels = in_channels
         self.in_conv = _conv_bn(c, c // 2, 1, device)

@@ -6,9 +6,10 @@ tensors load straight into the port's B0 model (the config of
 test_golden.py); that test needs no JAX.
 
 The full-config goldens (`slow`: full resolution on the CPU) hold the port's
-HyperSeg-M Cityscapes, HyperSeg-L CamVid and HyperSeg-L VOC against the
-reference's logits in
-tests/golden/{hyperseg_m_cityscapes,hyperseg_l_camvid,hyperseg_l_voc}.npz. Their parameters
+HyperSeg-M Cityscapes, HyperSeg-S Cityscapes (v1_0_unify), HyperSeg-S
+CamVid, HyperSeg-L CamVid and HyperSeg-L VOC against the reference's
+logits in tests/golden/<name>.npz; each config's `module` names the port's
+factory module as well as the JAX package's. Their parameters
 are rebuilt by make_goldens.build_ours (JAX, PRNGKey(0), the artifact's BN
 statistics, fp16-rounded) and cross with jax_to_torch_state_dict."""
 
@@ -44,7 +45,8 @@ def test_golden_b0_logits():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["hyperseg_m_cityscapes", "hyperseg_l_camvid",
+@pytest.mark.parametrize("name", ["hyperseg_m_cityscapes", "hyperseg_s_cityscapes",
+                                  "hyperseg_s_camvid", "hyperseg_l_camvid",
                                   "hyperseg_l_voc"])
 def test_config_golden(name):
     """The port's model of a shipped config, on the golden's parameters and

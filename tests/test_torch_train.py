@@ -342,6 +342,7 @@ def _spy_kernels(monkeypatch, seen):
              K4: {"mbconv_dw": "mbconv_dw_plain", "mbconv_project": "mbconv_project_plain",
                   "mbconv_expand_dw": "mbconv_expand_dw_plain"},
              PI: {"patch_invres_s2w": "patch_invres_s2w_plain",
+                  "s2w_generate": "s2w_generate_plain",
                   "patch_invres": "patch_invres_plain",
                   "patch_invres_v01": "patch_invres_v01_plain"},
              K6: {"resize_bilinear": "resize_bilinear_plain"}}
@@ -353,16 +354,24 @@ def _spy_kernels(monkeypatch, seen):
             monkeypatch.setattr(mod, name, spy)
 
 
-@pytest.mark.parametrize("family", ["v1_0", "v0_1"])
+@pytest.mark.parametrize("family", ["v1_0", "v0_1", "v1_0_unify"])
 def test_train_mode_routes_no_eval_only_kernel(monkeypatch, family):
-    """On the meta device, a train-mode HyperSeg-M (v1_0) or HyperSeg-L VOC
-    (v0_1) at full width reaches K3's raw conv and K6 and no eval-only
-    kernel; after model.eval() the same model reaches the eval kernels
-    again, the stem's BN-folded K3 and not its raw conv."""
+    """On the meta device, a train-mode HyperSeg-M (v1_0), HyperSeg-L VOC
+    (v0_1) or HyperSeg-S Cityscapes (v1_0_unify) at full width reaches K3's
+    raw conv and K6 and no eval-only kernel; after model.eval() the same
+    model reaches the eval kernels again, the stem's BN-folded K3 and not
+    its raw conv (unify: K1's generation kernel for the weight blocks, K2
+    at levels 3-4)."""
     from hyperseg_torch.models import hyperseg_v0_1 as V0
     from hyperseg_torch.models import hyperseg_v1_0 as V1
-    from torch_parity import HYPERSEG_L_VOC_KW
-    if family == "v1_0":
+    from hyperseg_torch.models import hyperseg_v1_0_unify as VU
+    from torch_parity import HYPERSEG_L_VOC_KW, HYPERSEG_S_KW
+    if family == "v1_0_unify":
+        model = VU.hyperseg_efficientnet("efficientnet-b1", device="meta", train=True,
+                                         **HYPERSEG_S_KW)
+        eval_want = {"stem", "mbconv_dw", "mbconv_project", "mbconv_expand_dw",
+                     "s2w_generate", "patch_invres", "resize_bilinear"}
+    elif family == "v1_0":
         model = V1.hyperseg_efficientnet("efficientnet-b1", device="meta", train=True,
                                          **HYPERSEG_M_KW)
         eval_want = {"stem", "mbconv_dw", "mbconv_project", "mbconv_expand_dw",
@@ -388,10 +397,12 @@ def test_train_mode_routes_no_eval_only_kernel(monkeypatch, family):
 
 def test_port_imports_no_jax_and_builds_on_the_card():
     """The repair pass: no module of hyperseg_torch, nor chip_smoke.py,
-    imports jax or hyperseg_tpu; both factories default to "cuda"; no
+    imports jax or hyperseg_tpu; every factory defaults to "cuda"; no
     kernel wrapper module catches an exception."""
     from hyperseg_torch.models import hyperseg_v0_1 as V0
+    from hyperseg_torch.models import hyperseg_v0_2 as V02
     from hyperseg_torch.models import hyperseg_v1_0 as V1
+    from hyperseg_torch.models import hyperseg_v1_0_unify as VU
     files = [os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "hyperseg_torch"))
              for f in fs if f.endswith(".py")] + [os.path.join(ROOT, "chip_smoke.py")]
     for path in files:
@@ -403,7 +414,8 @@ def test_port_imports_no_jax_and_builds_on_the_card():
                 assert n.split(".")[0] not in ("jax", "jaxlib", "hyperseg_tpu"), (path, n)
             if "ops/kernels" in path and path.endswith(".py"):
                 assert not isinstance(node, ast.Try), path
-    for factory in (V0.hyperseg_efficientnet, V1.hyperseg_efficientnet):
+    for factory in (V0.hyperseg_efficientnet, V1.hyperseg_efficientnet,
+                    V02.hyperseg_efficientnet, VU.hyperseg_efficientnet):
         params = inspect.signature(factory).parameters
         assert params["device"].default == "cuda" and params["train"].default is False
 

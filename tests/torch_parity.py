@@ -26,6 +26,22 @@ HYPERSEG_L_VOC_KW = dict(
     decoder_dropout=None, weight_groups=16, num_classes=21,
 )
 
+# HyperSeg-S Cityscapes, v1_0_unify, 19 classes, 768x1536 (tests/golden/make_goldens.py:43-49)
+HYPERSEG_S_KW = dict(
+    levels=2, out_feat_scale=[1.0, 0.166, 0.2, 0.25, 0.4], kernel_sizes=[1, 1, 1, 3, 3],
+    level_channels=[32, 16, 8, 8, 8], expand_ratio=2, with_out_fc=False,
+    decoder_dropout=None, weight_groups=[32, 16, 8, 16, 4], decoder_groups=1,
+    unify_level=4, num_classes=19,
+)
+# HyperSeg-S CamVid, v1_0, 12 classes, 576x768 (tests/golden/make_goldens.py:50-55)
+HYPERSEG_S_CAMVID_KW = dict(
+    levels=2, kernel_sizes=(1, 1, 1, 3, 3), level_channels=[64, 32, 16, 16, 16],
+    expand_ratio=2, with_out_fc=False, decoder_dropout=None,
+    weight_groups=[64, 32, 32, 16, 8], num_classes=12,
+)
+S_PARAM_COUNT = 10108108          # the JAX count of HyperSeg-S Cityscapes' state dict
+S_CAMVID_PARAM_COUNT = 10015856   # and of HyperSeg-S CamVid's
+
 
 def nchw(a):
     """NHWC numpy/JAX array -> NCHW numpy."""
