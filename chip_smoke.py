@@ -41,18 +41,27 @@ Phases (any failure exits non-zero before the result lines):
         the card's float32 output against the CPU's plain forward_pyramid,
         then in bfloat16 its launches, wall ms and device ms per call;
      e. the model's wall seconds;
-  4. the training step of HyperSeg-M (hyperseg_torch.train), float32, TF32
-     off:
-     T3. the main path: five steps at 512x1024, batch 16 (the config's),
-         on one fixed synthetic batch (tiles of labels 0-18, a band of 255,
-         images of the tiles' colours normalised with the config's mean and
-         std), launch counters set to 0 just before and read just after:
-         K3's raw conv once a step and K6 five times, no eval-only kernel;
-         finite losses, step 5's below step 1's; ms per step by CUDA events
-         over steps 2-5, img/s, peak memory; then one step under
-         torch.profiler, split into forward, backward, optimizer and
-         metrics, with its top device kernels;
-     T1. on step 1's own inputs, K3's raw conv (StemConv) and K6
+  4. the training step (hyperseg_torch.train), float32, TF32 off, at each
+     shipped config's crop and batch (train/recipes.py) with its optimizer,
+     schedule and criterion:
+     T3. HyperSeg-M, 512x1024, batch 16; T4. HyperSeg-L CamVid, 768x768,
+         batch 16; T5. HyperSeg-L VOC, 512x512, batch 32. Each as an A/B of
+         the training routes (the levers of ops/patch.py; TRAIN_CELLS:
+         M's and L's InvResUnits on the 6-D gather and the full-map form,
+         V's patch convs on the 6-D forms, the full-map forms and the
+         full-map depthwise alone; then the first route again, timed only,
+         for the drift across the A/B), from the same seed-0 weights on one fixed
+         synthetic batch (tiles of random classes, a band of 255, images of
+         the tiles' colours normalised with the config's mean and std): five
+         steps with the launch counters set to 0 just before and read just
+         after - K3's raw conv once a step and K6 at each decoder upsample,
+         no eval-only kernel; finite losses, step 5's below step 1's; ms per
+         step by CUDA events over steps 2-5, img/s, peak memory (each
+         route's model alone on the card); then one
+         step under torch.profiler, split into forward, backward, optimizer
+         and metrics and by layer, with the top device kernels of the step
+         and of the last decoder level;
+     T1. on T3's step-1 inputs (gather route), K3's raw conv (StemConv) and K6
          (ResizeBilinear): forwards against the twins, gradients against
          the twins' autograd within 1e-5 of the largest magnitude, and the
          forward, twin, library and backward times;
@@ -202,14 +211,22 @@ GENERATION = {"s2w_generate": ("patch_invres", "s2w_generate_plain", K + "patch_
                                P + "patch_invres.py:488")}
 
 
-# The training step of HyperSeg-M (configs/train/cityscapes_efficientnet_b1_hyperseg-m.py):
-# batch 16 at 512x1024, Adam (lr 1e-3, betas (0.5, 0.999)) under PolyLR (power 0.9 over
-# 360 * 4000 // 16 batches), bootstrapped CE ignoring 255, images normalised with the
-# ImageNet mean and std; float32, as the JAX step's default. T2 runs a reduced step.
-TRAIN = dict(batch=16, res=(512, 1024), steps=5, lr=1e-3, max_steps=360 * 4000 // 16,
-             mean=(0.485, 0.456, 0.406), std=(0.229, 0.224, 0.225),
-             reduced_batch=2, reduced_res=(256, 512))
-# the kernels of the training path (the eval-only ones must not launch there), per step
+# The training steps: each model at its shipped config's crop, batch, Adam and PolyLR
+# (hyperseg_torch/train/recipes.py), bootstrapped CE ignoring 255; float32, as the JAX
+# step's default. T2 runs a reduced HyperSeg-M step.
+TRAIN = dict(steps=5, reduced_batch=2, reduced_res=(256, 512))
+# Each cell's A/B, run in this order, the other levers at their defaults: the k=3
+# InvResUnits of M and L on the 6-D gather and on the full-map form; V's patch convs on
+# the 6-D forms, on the full-map forms, and with the full-map depthwise only
+TRAIN_CELLS = {
+    "T3": ("M", {"gather": dict(FULLMAP_INVRES=False), "fullmap": dict(FULLMAP_INVRES=True)}),
+    "T4": ("L", {"gather": dict(FULLMAP_INVRES=False), "fullmap": dict(FULLMAP_INVRES=True)}),
+    "T5": ("V", {"6d": dict(FULLMAP_MIN_BATCH=sys.maxsize),
+                 "fullmap": dict(FULLMAP_MIN_BATCH=1, FULLMAP_POINTWISE=True),
+                 "fullmap_dw": dict(FULLMAP_MIN_BATCH=1, FULLMAP_POINTWISE=False)}),
+}
+# the kernels of the training path (the eval-only ones must not launch there), per step:
+# the raw stem conv once, K6 at each decoder upsample (every model's five)
 TRAIN_KERNELS = {
     "stem_conv": ("stem", "stem_conv_plain", K + "stem.cu", P + "stem.py:173"),
     "resize_bilinear": ("resize", "resize_bilinear_plain", K + "resize.cu", P + "resize.py:152"),
@@ -783,110 +800,170 @@ def phase_profile(key, gpu, inputs, fps, forwards=3):
                   f"ms x{e.count // forwards:<4d} {e.key[:90]}", flush=True)
 
 
-def synthetic_batch(b, hw, seed, device):
-    """A fixed training batch made from a seed on `device`: labels in 0-18
-    as 32x32 tiles of random classes with a band of 255 across the middle
-    rows; the image each tile's class colour plus noise in [0, 1],
-    normalised with the config's mean and std."""
+def synthetic_batch(b, hw, seed, device, num_classes=19):
+    """A fixed training batch made from a seed on `device`: labels as 32x32
+    tiles of random classes with a band of 255 across the middle rows; the
+    image each tile's class colour plus noise in [0, 1], normalised with the
+    configs' mean and std."""
+    from hyperseg_torch.train.recipes import MEAN, STD
     g = torch.Generator(device).manual_seed(seed)
     h, w = hw
-    tiles = torch.randint(0, 19, (b, h // 32, w // 32), generator=g, device=device)
+    tiles = torch.randint(0, num_classes, (b, h // 32, w // 32), generator=g, device=device)
     label = tiles.repeat_interleave(32, 1).repeat_interleave(32, 2)
-    palette = torch.rand(19, 3, generator=g, device=device)
+    palette = torch.rand(num_classes, 3, generator=g, device=device)
     img = (palette[label].permute(0, 3, 1, 2)
            + 0.1 * torch.randn(b, 3, h, w, generator=g, device=device)).clamp(0, 1)
-    mean = torch.tensor(TRAIN["mean"], device=device).view(1, 3, 1, 1)
-    std = torch.tensor(TRAIN["std"], device=device).view(1, 3, 1, 1)
+    mean = torch.tensor(MEAN, device=device).view(1, 3, 1, 1)
+    std = torch.tensor(STD, device=device).view(1, 3, 1, 1)
     label[:, h // 2 - 8:h // 2 + 8] = 255
     return ((img - mean) / std).contiguous(), label
 
 
-def train_model(device, drop):
-    """HyperSeg-M from seed 0 in training mode on `device`, through the
+def train_model(key, device, drop):
+    """Model `key` from seed 0 in training mode on `device`, through its
     factory; `drop` False sets drop connect and dropout to 0."""
-    from hyperseg_torch.models import hyperseg_v1_0 as V1
-    cfg = MODELS["M"]
-    model = V1.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, train=True, **cfg.kw)
+    cfg = MODELS[key]
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
+    model = factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, train=True,
+                                          **cfg.kw)
     if not drop:
         model.backbone.drop_connect_rate = model.backbone.dropout_rate = 0.0
     return model
 
 
-def trainer(model):
-    """The port's train step for `model` with the config's optimizer,
+def trainer(model, key):
+    """The port's train step for `model` with its config's optimizer,
     schedule and criterion."""
     from hyperseg_torch.train import losses as L
-    from hyperseg_torch.train import schedule as S
     from hyperseg_torch.train import step as T
-    opt, sched = T.make_optimizer(model.parameters(), S.poly_lr(TRAIN["lr"], TRAIN["max_steps"]))
+    from hyperseg_torch.train.recipes import RECIPES
+    opt, sched = T.make_optimizer(model.parameters(), RECIPES[key].schedule())
     return T.make_train_step(model, L.BootstrappedCrossEntropyLoss(ignore_index=255), opt,
-                             sched, num_classes=MODELS["M"].kw["num_classes"])
+                             sched, num_classes=MODELS[key].kw["num_classes"])
 
 
-def train_full():
-    """T3: the training main path at full width, 512x1024, batch 16, float32,
-    five steps on one fixed synthetic batch with the launch counters set to 0
-    just before and read just after; step 1's kernel calls recorded for T1.
-    Then one profiled step. Returns (launches, calls, numbers)."""
-    from hyperseg_torch.ops.kernels import LAUNCHES
+def set_levers(levers):
+    """Set the training-route levers of ops/patch.py by name; returns the
+    values they had."""
+    from hyperseg_torch.ops import patch as P
+    old = {k: getattr(P, k) for k in levers}
+    for k, v in levers.items():
+        setattr(P, k, v)
+    return old
 
-    b, res, steps = TRAIN["batch"], TRAIN["res"], TRAIN["steps"]
-    model = train_model("cuda", drop=True)
-    step = trainer(model)
-    img, lbl = synthetic_batch(b, res, 2, "cuda")
-    gen = torch.Generator("cuda").manual_seed(3)
-    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+
+def timed_steps(step, img, lbl, gen, n):
+    """ms per step of n steps by CUDA events, and their losses."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    LAUNCHES.clear()
-    with recording(TRAIN_KERNELS) as calls:
-        losses = [step(img, lbl, gen)["loss"]]
     start.record()
-    for _ in range(steps - 1):
-        losses.append(step(img, lbl, gen)["loss"])
+    losses = [step(img, lbl, gen)["loss"] for _ in range(n)]
     end.record()
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
-    wall = time.perf_counter() - t0
-    losses = [v.item() for v in losses]
-    ms = start.elapsed_time(end) / (steps - 1)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"train  T3 HyperSeg-M {res[0]}x{res[1]} batch {b} float32 (cudnn.allow_tf32 {tf32[0]}, "
-          f"matmul.allow_tf32 {tf32[1]}): losses {losses}", flush=True)
-    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
-        fail(f"training: losses {losses} are not finite or step {steps}'s is not below step 1's")
-    want = {n: per * steps for n, per in TRAIN_PER_STEP.items()}
-    if {n: c for n, c in launches.items() if c} != want:
-        fail(f"training: launches {launches} on the main path, expected {want} "
-             "(no eval-only kernel)")
-    print(f"train  T3 {ms:.3f} ms per step (CUDA events, steps 2-{steps}), "
-          f"{b * 1e3 / ms:.2f} img/s, peak memory {peak / 2**30:.3f} GiB "
-          f"(max_memory_allocated), launches {launches} in {steps} steps "
-          f"({ {n: c / steps for n, c in launches.items()} } per step), "
-          f"{wall:.1f} s wall with step 1", flush=True)
-    split = step_profile(model, step, img, lbl, gen)
-    if "device_ms" in split:
-        split["busy"] = split["device_ms"] / ms
-        print(f"train  T3 device busy {split['busy']:.1%} of a step (the profiled step's device "
-              f"time over the unprofiled steps' {ms:.3f} ms)", flush=True)
+    return start.elapsed_time(end) / n, [v.item() for v in losses]
+
+
+def train_ab(cell):
+    """T3-T5: one model's training step at its config's crop and batch on
+    each route of the cell's A/B, in order, from the same seed-0 weights on
+    one fixed synthetic batch. Per route: five steps with the launch
+    counters set to 0 just before and read just after (step 1's kernel
+    calls recorded at T3's first route, for T1), then one profiled step;
+    each route's model is freed before the next is built, so each peak is
+    the route's own. Last, the first route's model is built once more,
+    takes one step and times four more (the drift across the A/B). Returns
+    (launches summed over the routes, T1's calls, numbers)."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.train.recipes import RECIPES
+
+    key, routes = TRAIN_CELLS[cell]
+    cfg, recipe = MODELS[key], RECIPES[key]
+    b, res, steps = recipe.batch, recipe.crop, TRAIN["steps"]
+    img, lbl = synthetic_batch(b, res, 2, "cuda", cfg.kw["num_classes"])
+    last = f"decoder.level_{len(cfg.kw['kernel_sizes']) - 1}"
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    print(f"train  {cell} {cfg.name.split(' ')[0]} {recipe.config}: {res[0]}x{res[1]} batch {b} "
+          f"float32 (cudnn.allow_tf32 {tf32[0]}, matmul.allow_tf32 {tf32[1]}), lr {recipe.lr}, "
+          f"PolyLR power {recipe.power}", flush=True)
+    launches, calls, numbers = {}, [], dict(model=key, batch=b, res=list(res))
+    for route, levers in routes.items():
+        defaults = set_levers(levers)
+        model = train_model(key, "cuda", drop=True)
+        step = trainer(model, key)
+        gen = torch.Generator("cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        LAUNCHES.clear()
+        record = recording(TRAIN_KERNELS) if not calls and cell == "T3" else \
+            contextlib.nullcontext([])
+        with record as rec:
+            first = step(img, lbl, gen)["loss"]
+        ms, losses = timed_steps(step, img, lbl, gen, steps - 1)
+        got = dict(LAUNCHES)
+        calls += rec
+        losses = [first.item()] + losses
+        peak = torch.cuda.max_memory_allocated()
+        wall = time.perf_counter() - t0
+        print(f"train  {cell} route {route}: losses {losses}", flush=True)
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            fail(f"training {cell} {route}: losses {losses} are not finite or step "
+                 f"{steps}'s is not below step 1's")
+        want = {n: per * steps for n, per in TRAIN_PER_STEP.items()}
+        if {n: c for n, c in got.items() if c} != want:
+            fail(f"training {cell} {route}: launches {got} on the main path, expected "
+                 f"{want} (no eval-only kernel)")
+        print(f"train  {cell} route {route}: {ms:.3f} ms per step (CUDA events, steps "
+              f"2-{steps}), {b * 1e3 / ms:.2f} img/s, peak memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated), launches {got} in {steps} steps, {wall:.1f} s wall "
+              f"with step 1", flush=True)
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
+        split = step_profile(model, step, img, lbl, gen, f"{cell} route {route}", last)
+        if "device_ms" in split:
+            split["busy"] = split["device_ms"] / ms
+            print(f"train  {cell} route {route}: device busy {split['busy']:.1%} of a step "
+                  f"(the profiled step's device time over the unprofiled steps' "
+                  f"{ms:.3f} ms)", flush=True)
+        numbers[route] = dict(ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_bytes=peak,
+                              losses=losses, launches=got, **split)
+        set_levers(defaults)
+        del model, step
+        torch.cuda.empty_cache()
+    route = next(iter(routes))
+    defaults = set_levers(routes[route])
+    model = train_model(key, "cuda", drop=True)
+    step = trainer(model, key)
+    gen = torch.Generator("cuda").manual_seed(3)
+    step(img, lbl, gen)
+    ms, _ = timed_steps(step, img, lbl, gen, steps - 1)
+    set_levers(defaults)
+    numbers[f"{route}_again_ms"] = ms
+    first = numbers[route]
+    print(f"train  {cell} route {route} again, after the others: {ms:.3f} ms per step "
+          f"({(ms / first['ms_per_step'] - 1) * 100:+.2f}% against its first run)", flush=True)
+    for other in list(routes)[1:]:
+        print(f"train  {cell} A/B: {other} against {route}: "
+              f"{numbers[other]['ms_per_step'] / first['ms_per_step']:.4f}x the ms per step, "
+              f"{numbers[other]['peak_bytes'] / first['peak_bytes']:.4f}x the peak", flush=True)
+    numbers["tf32"] = tf32
     del model, step, img, lbl
     torch.cuda.empty_cache()
-    return launches, calls, dict(ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_bytes=peak,
-                                 losses=losses, tf32=tf32, **split)
+    return launches, calls, numbers
 
 
 def layer_ranges(model):
-    """Forward hooks that open a profiler range `layer:<name>` around the
-    backbone, the weight mapper and each decoder level's units; returns
-    the hook handles."""
+    """Profiler ranges `layer:<name>` around the backbone, the weight mapper
+    and each decoder level's units: forward hooks, and for the v0_1
+    decoder's 1x1 units, which the decoder calls through `apply_map`, a
+    wrapper of that method on the instance. Returns an undo function."""
     from torch.profiler import record_function
+
+    from hyperseg_torch.models.decoder import PatchConvUnit
 
     layers = [("backbone", model.backbone), ("weight_mapper", model.weight_mapper)]
     for lv in range(model.decoder.levels):
         layers += [(f"decoder.level_{lv}", u) for u in getattr(model.decoder, f"level_{lv}")]
-    handles = []
+    handles, wrapped = [], []
     for name, m in layers:
         def pre(mod, args, _name=name):
             mod._profile_range = record_function(f"layer:{_name}")
@@ -895,16 +972,28 @@ def layer_ranges(model):
         def post(mod, args, out):
             mod._profile_range.__exit__(None, None, None)
         handles += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
-    return handles
+        if isinstance(m, PatchConvUnit):
+            def apply_map(x, w, _m=m, _name=name, _fn=m.apply_map):
+                with record_function(f"layer:{_name}"):
+                    return _fn(x, w)
+            m.apply_map = apply_map
+            wrapped.append(m)
+
+    def undo():
+        for h in handles:
+            h.remove()
+        for m in wrapped:
+            del m.apply_map
+    return undo
 
 
-def layer_split(events):
-    """{layer: (forward ms, backward ms)} of a profiled step: the forward is
-    what each `layer:` range's ops launched; a backward op (autograd's
+def layer_roots(events):
+    """{layer: (forward roots, backward roots)} of a profiled step: the
+    forward roots are the `layer:` ranges; a backward op (autograd's
     evaluate_function, on its own thread) belongs to the layer whose range
     held the forward op of the same sequence number. What no layer holds
     (the loss, the final upsample, the coordinates, the optimizer) is
-    "other"."""
+    left out."""
     cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
     ranges = [e for e in cpu if e.name.startswith("layer:")]
     owner = {}
@@ -915,16 +1004,25 @@ def layer_split(events):
                 and r.time_range.start <= e.time_range.start <= r.time_range.end]
         if held:
             owner.setdefault(e.sequence_nr, min(held, key=lambda r: r.time_range.elapsed_us()))
-    split = {}
+    roots = {}
     for r in ranges:
-        f, b = split.get(r.name[6:], (0.0, 0.0))
-        split[r.name[6:]] = (f + r.device_time_total / 1e3, b)
+        roots.setdefault(r.name[6:], ([], []))[0].append(r)
     for e in cpu:
-        if e.name.startswith("autograd::engine::evaluate_function"):
-            name = owner[e.sequence_nr].name[6:] if e.sequence_nr in owner else "other"
-            f, b = split.get(name, (0.0, 0.0))
-            split[name] = (f, b + e.device_time_total / 1e3)
-    return split
+        if e.name.startswith("autograd::engine::evaluate_function") and e.sequence_nr in owner:
+            roots[owner[e.sequence_nr].name[6:]][1].append(e)
+    return roots
+
+
+def kernels_under(roots):
+    """{device kernel name: (us, launches)} launched by the ops under roots."""
+    out, stack = {}, list(roots)
+    while stack:
+        e = stack.pop()
+        for k in e.kernels:
+            us, n = out.get(k.name, (0.0, 0))
+            out[k.name] = (us + k.duration, n + 1)
+        stack.extend(e.cpu_children)
+    return out
 
 
 def annotation(e):
@@ -933,26 +1031,27 @@ def annotation(e):
             or e.key.startswith(("train_step.", "layer:")))
 
 
-def step_profile(model, step, img, lbl, gen):
+def step_profile(model, step, img, lbl, gen, tag, level):
     """One more step under torch.profiler: device time per step, split by
     the step's profiler ranges (forward, optimizer and metrics by the
     kernels their own ops launch; backward the rest: autograd launches from
-    its own thread) and by layer (`layer_split`), and the kernels that take
-    most of it."""
+    its own thread) and by layer (`layer_roots`), the kernels that take most
+    of the step, and those that take most of decoder `level`, forward and
+    backward."""
     from torch.profiler import ProfilerActivity, profile
 
-    handles = layer_ranges(model)
+    undo = layer_ranges(model)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         step(img, lbl, gen)
         torch.cuda.synchronize()
-    for h in handles:
-        h.remove()
+    undo()
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # device events, the profiler ranges' own spans on the device left out
     kernels = [e for e in events if e.device_type == cuda and not annotation(e)]
     if not kernels:
-        print("train  profile: the profiler saw no device time (not measured)", flush=True)
+        print(f"train  {tag} profile: the profiler saw no device time (not measured)",
+              flush=True)
         return {}
     total = sum(e.device_time for e in kernels) / 1e3
     split = {}
@@ -961,25 +1060,36 @@ def step_profile(model, step, img, lbl, gen):
                   and e.device_type == torch.autograd.DeviceType.CPU]
         split[phase] = sum(e.device_time_total for e in ranges) / 1e3 if ranges else None
     if any(v is None for v in split.values()):
-        print(f"train  profile: device {total:.3f} ms per step; the step's ranges were not "
-              f"found, split not measured", flush=True)
+        print(f"train  {tag} profile: device {total:.3f} ms per step; the step's ranges were "
+              f"not found, split not measured", flush=True)
         return dict(device_ms=total)
     split["backward"] = total - sum(split.values())
-    print(f"train  profile: device {total:.3f} ms per step ({len(kernels)} device ops): "
+    print(f"train  {tag} profile: device {total:.3f} ms per step ({len(kernels)} device ops): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)
-    layers = {k: v for k, v in layer_split(events).items() if k != "other"}
+    roots = layer_roots(events)
+    layers = {name: (sum(e.device_time_total for e in f) / 1e3,
+                     sum(e.device_time_total for e in b) / 1e3)
+              for name, (f, b) in roots.items()}
     layers["other"] = (split["forward"] - sum(f for f, _ in layers.values()),
                        split["backward"] - sum(b for _, b in layers.values()))
     for name, (f, b) in layers.items():
-        print(f"train  profile: layer {name:22s} forward {f:8.3f} ms  backward {b:8.3f} ms",
-              flush=True)
+        print(f"train  {tag} profile: layer {name:22s} forward {f:8.3f} ms  backward "
+              f"{b:8.3f} ms", flush=True)
     avg = sorted((e for e in prof.key_averages() if e.device_type == cuda
                   and e.self_device_time_total > 0 and not annotation(e)),
                  key=lambda e: e.self_device_time_total, reverse=True)
-    for e in avg[:15]:
-        print(f"train  profile:   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+    for e in avg[:12]:
+        print(f"train  {tag} profile:   {e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
-    return dict(device_ms=total, split_ms=split, layers_ms=layers)
+    top = {}
+    for part, evs in zip(("forward", "backward"), roots.get(level, ([], []))):
+        ks = sorted(kernels_under(evs).items(), key=lambda kv: kv[1][0], reverse=True)
+        top[part] = [(name, us / 1e3, n) for name, (us, n) in ks[:8]]
+        for name, ms, n in top[part]:
+            print(f"train  {tag} profile: {level} {part:8s} {ms:9.3f} ms x{n:<5d} {name[:90]}",
+                  flush=True)
+    return dict(device_ms=total, split_ms=split, layers_ms=layers, level=level,
+                level_top_kernels=top)
 
 
 def grad_check(name, fn, twin, inputs, need):
@@ -1034,8 +1144,9 @@ def train_kernels(calls, launches):
     with torch.no_grad():
         stem = dict(
             name="stem_conv", route="cuda", source=TRAIN_KERNELS["stem_conv"][2],
-            replaces=TRAIN_KERNELS["stem_conv"][3], launches=launches.get("stem_conv", 0),
-            launches_by_model={"M train": launches.get("stem_conv", 0)},
+            replaces=TRAIN_KERNELS["stem_conv"][3],
+            launches=sum(c.get("stem_conv", 0) for c in launches.values()),
+            launches_by_model={f"{m} train": c.get("stem_conv", 0) for m, c in launches.items()},
             max_abs_err=fwd_err, grad_max_abs_err=grad_err, model="M train",
             shape=list(x.shape), dtype="float32",
             ms=cuda_ms(lambda: K3.stem_conv(x, w)),
@@ -1049,7 +1160,7 @@ def train_kernels(calls, launches):
 
     resize = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}, bwd_ms=0.0,
                   max_abs_err=0.0, grad_max_abs_err=0.0, calls=0,
-                  launches=launches.get("resize_bilinear", 0), shapes=[],
+                  launches=sum(c.get("resize_bilinear", 0) for c in launches.values()), shapes=[],
                   bwd_route="eager torch (two float32 matmuls)")
     for c in (c for c in calls if c.name == "resize_bilinear"):
         x, out_hw = c.args
@@ -1102,16 +1213,16 @@ def train_vs_cpu():
     from hyperseg_torch.train import losses as L
     from hyperseg_torch.train import step as T
 
-    cpu = train_model("cpu", drop=False)
+    cpu = train_model("M", "cpu", drop=False)
     gpu = copy.deepcopy(cpu).to("cuda")
     cpu1 = copy.deepcopy(cpu)
     b, res = TRAIN["reduced_batch"], TRAIN["reduced_res"]
-    img, lbl = synthetic_batch(b, res, 4, "cpu")
+    img, lbl = synthetic_batch(b, res, 4, "cpu", MODELS["M"].kw["num_classes"])
     p0 = {k: v.detach().clone() for k, v in cpu.state_dict().items()}
     t0 = time.perf_counter()
-    out_c = trainer(cpu)(img, lbl)
+    out_c = trainer(cpu, "M")(img, lbl)
     t_cpu = time.perf_counter() - t0
-    out_g = trainer(gpu)(img.cuda(), lbl.cuda())
+    out_g = trainer(gpu, "M")(img.cuda(), lbl.cuda())
     torch.cuda.synchronize()
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
@@ -1131,7 +1242,8 @@ def train_vs_cpu():
         if want.abs().max() > 0:
             grad_rel[k] = ((grads_g[k].grad.cpu() - want).norm() / want.norm()).item()
             spread[k] = ((grads_1[k].grad - want).norm() / want.norm()).item()
-    lr = TRAIN["lr"]
+    from hyperseg_torch.train.recipes import RECIPES
+    lr = RECIPES["M"].lr
     sd_c, sd_g = cpu.state_dict(), gpu.state_dict()
     bn_worst, upd_worst, small_flips, rule_worst = 0.0, 0.0, 0, 0.0
     for k, want in sd_c.items():
@@ -1180,10 +1292,14 @@ def train_vs_cpu():
 
 
 def run_training():
-    """The training phase: T3, then T1 on T3's recorded calls, then T2.
-    Returns (main-path launches, kernels-line entries, numbers)."""
+    """The training phase: T3-T5 (each on both routes), then T1 on T3's
+    recorded calls, then T2. Returns ({model: main-path launches},
+    kernels-line entries, numbers)."""
     t0 = time.perf_counter()
-    launches, calls, numbers = train_full()
+    launches, calls, numbers = {}, [], {}
+    for cell, (key, _) in TRAIN_CELLS.items():
+        launches[key], rec, numbers[cell] = train_ab(cell)
+        calls += rec
     stem, resize = train_kernels(calls, launches)
     del calls
     torch.cuda.empty_cache()
@@ -1258,8 +1374,9 @@ def main():
 
     kernels = kernels_line(rows, launches)
     k6 = next(k for k in kernels if k["name"] == "resize_bilinear")
-    k6["launches"] += train_launches["resize_bilinear"]
-    k6["launches_by_model"]["M train"] = train_launches["resize_bilinear"]
+    for m, c in train_launches.items():
+        k6["launches"] += c["resize_bilinear"]
+        k6["launches_by_model"][f"{m} train"] = c["resize_bilinear"]
     k6["train"] = resize_train
     kernels.append(stem_conv)
     print(json.dumps({"kernels": kernels,

@@ -41,6 +41,10 @@ as in the JAX package (decoder.py:150, :302, :402). In training
 batch-statistics BN (ops/patch.py), chosen by the module's mode alone; the
 out_fc unit's input takes channel dropout from the generator passed to
 `forward` (decoder.py:624-625); the upsamples stay K6, differentiable.
+Training has two routes through the patch convs, the 6-D gather and the
+full-map forms, chosen by the levers in ops/patch.py (FULLMAP_INVRES for
+InvResUnit, FULLMAP_MIN_BATCH / FULLMAP_POINTWISE for PatchConvUnit); the
+two compute the same function.
 """
 
 from __future__ import annotations
@@ -119,6 +123,7 @@ class PatchConvUnit(nn.Sequential):
         if bn:
             layers.append(BatchNorm2d(out_ch, BN_EPS, BN_MOMENTUM, device=device))
         super().__init__(*layers)
+        self.training = False       # built in eval mode, as EvalModule
         self.in_ch, self.out_ch = in_ch, out_ch
         self.kernel, self.groups, self.pad = kernel, groups, pad
         self.act = act
@@ -138,9 +143,29 @@ class PatchConvUnit(nn.Sequential):
         self.holder.signal2weights = conv(route.signal_ch, route.out_ch,
                                           groups=route.groups, device=device)
 
+    def fullmap(self, x, fh, fw):
+        """Whether the unit takes a full-map form: the gate of the JAX
+        PatchConvUnit.apply (decoder.py:83-98), in training only - stride
+        1, pad kernel // 2, a patch grid that divides the map, a depthwise
+        kxk (fullmap_depthwise) or a 1x1 with FULLMAP_POINTWISE
+        (fullmap_pointwise) - at a batch of FULLMAP_MIN_BATCH or more."""
+        b, _, h, w = x.shape
+        if not (self.training and b >= P.FULLMAP_MIN_BATCH and self.pad == self.kernel // 2
+                and h % fh == 0 and w % fw == 0):
+            return False
+        if self.kernel == 1:
+            return P.FULLMAP_POINTWISE
+        return self.groups == self.in_ch == self.out_ch
+
     def apply_weights(self, x, w):
         """x: (B, in_ch, H, W); w: (B, hyper_params, fh, fw)."""
         fh, fw = w.shape[2], w.shape[3]
+        if self.fullmap(x, fh, fw):
+            if self.kernel == 1:
+                out = P.fullmap_pointwise(x, w, fh, fw, self.out_ch, self.groups)
+            else:
+                out = P.fullmap_depthwise(x, w, fh, fw, self.kernel)
+            return self._bn_act(out)
         if self.pad > 0:
             xp = P.extract_patches_with_halo(x, fh, fw, (self.pad, self.pad))
         else:
@@ -154,7 +179,7 @@ class PatchConvUnit(nn.Sequential):
         each patch's (out_ch, in_ch) weights with its pixels, reading the
         map in place."""
         b, fh, fw, _ = w.shape
-        if self.kernel > 1 or self.groups > 1:
+        if self.kernel > 1 or self.groups > 1 or self.fullmap(x, fh, fw):
             return self.apply_weights(x, w.permute(0, 3, 1, 2))
         xp = P.block_patches(x, fh, fw)                 # (B, fh, fw, C, ph, pw)
         ph, pw = xp.shape[4:]
@@ -196,12 +221,48 @@ class InvResUnit(EvalModule):
                                    groups=route.groups, device=device)
 
     def _apply_eager(self, x, w):
-        """The unit in torch ops from w: (B, hyper_params, fh, fw), BN in
-        training mode: the training route."""
+        """The unit in torch ops from w: (B, hyper_params, fh, fw), BN in the
+        module's mode: the training route. The full-map form with
+        FULLMAP_INVRES where the JAX InvResUnit.apply takes it (an odd
+        kernel and a patch grid that divides the map, decoder.py:198-204),
+        else the 6-D gather."""
+        fh, fw = w.shape[2], w.shape[3]
+        if (P.FULLMAP_INVRES and self.kernel % 2 == 1
+                and x.shape[2] % fh == 0 and x.shape[3] % fw == 0):
+            return self._apply_fullmap(x, w)
         return P.patch_inverted_residual(
             x, w, hidden=self.hidden, out_ch=self.out_ch, kernel=self.kernel,
             bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS,
-            training=True, momentum=BN_MOMENTUM)
+            training=self.training, momentum=BN_MOMENTUM)
+
+    def _apply_fullmap(self, x, w):
+        """The unit without the 6-D tensor (JAX InvResUnit._apply_fullmap,
+        decoder.py:186-225): the expand once on the unhalo'd map, the halo
+        ring by thin bands with the centre patch's weights, bn1 over the map
+        and its bands together (the halo'd tensor's element multiset), the
+        depthwise on the halo'd blocked layout, the project on the map.
+        w: (B, hyper_params, fh, fw)."""
+        b, _, h, wd = x.shape
+        fh, fw = w.shape[2], w.shape[3]
+        ph, pw = h // fh, wd // fw
+        hid, k, pad = self.hidden, self.kernel, self.kernel // 2
+        r1 = self.in_ch * hid
+        r2 = r1 + hid * k * k
+        r3 = r2 + hid * self.out_ch
+        w1 = w[:, :r1]
+        parts = ((P.fullmap_pointwise(x, w1, fh, fw, hid),)
+                 + P.halo_bands_pointwise(x, w1, fh, fw, pad, hid))
+        if self.training:
+            parts = F.batch_norm_multi(parts, *self.bn1.params, eps=BN_EPS,
+                                       momentum=BN_MOMENTUM)
+        else:
+            parts = [F.batch_norm_dim(t, self.bn1.params, 1, eps=BN_EPS) for t in parts]
+        a, top, bot, lft, rgt = (F.relu6(t) for t in parts)
+        xb = P.assemble_halo_blocked(a.view(b, hid, fh, ph, fw, pw), top, bot, lft, rgt)
+        d = P.blocked_depthwise_valid(xb, w[:, r1:r2], (k, k)).view(b, hid, h, wd)
+        d = F.relu6(self.bn2(d))
+        o = self.bn3(P.fullmap_pointwise(d, w[:, r2:r3], fh, fw, self.out_ch))
+        return o + x if self.in_ch == self.out_ch else o
 
     def apply_weights(self, x, w):
         """The unit from a given weight map w: (B, hyper_params, fh, fw)."""

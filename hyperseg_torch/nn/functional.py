@@ -161,6 +161,69 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, *, eps=1e-5,
     return y
 
 
+class _BatchNormMulti(torch.autograd.Function):
+    """Training-mode BN whose statistics are those of the union of several
+    tensors, channel axis 1 in each: one mean and variance over every
+    element of every part, float32 two-pass, and BN's closed-form backward
+    with the sums taken over all the parts, so each part's gradient sees
+    the others. Keeps the parts, not a concatenation of them."""
+
+    @staticmethod
+    def forward(ctx, weight, bias, eps, stats, *parts):
+        n = sum(p.numel() // p.shape[1] for p in parts)
+        mean = sum(p.float().sum(_other_dims(p)) for p in parts) / n
+        var = sum((p.float() - _per_channel(mean, p)).square().sum(_other_dims(p))
+                  for p in parts) / n
+        invstd = torch.rsqrt(var + eps)
+        s = weight.float() * invstd
+        b = bias.float() - mean * s
+        stats.extend((mean, var, n))
+        ctx.save_for_backward(weight, mean, invstd, *parts)
+        return tuple(p * _per_channel(s, p).to(p.dtype) + _per_channel(b, p).to(p.dtype)
+                     for p in parts)
+
+    @staticmethod
+    def backward(ctx, *dys):
+        weight, mean, invstd, *parts = ctx.saved_tensors
+        n = sum(p.numel() // p.shape[1] for p in parts)
+        xhats = [(p.float() - _per_channel(mean, p)) * _per_channel(invstd, p) for p in parts]
+        sum_dy = sum(dy.float().sum(_other_dims(dy)) for dy in dys)
+        sum_dy_xhat = sum((dy.float() * xh).sum(_other_dims(dy)) for dy, xh in zip(dys, xhats))
+        scale = weight.float() * invstd
+        dxs = tuple((_per_channel(scale, p) * (dy.float() - _per_channel(sum_dy / n, p)
+                                              - xh * _per_channel(sum_dy_xhat / n, p))).to(p.dtype)
+                    for p, dy, xh in zip(parts, dys, xhats))
+        return (sum_dy_xhat, sum_dy, None, None) + dxs
+
+
+def _other_dims(t):
+    return [d for d in range(t.dim()) if d != 1]
+
+
+def _per_channel(v, like):
+    """A (C,) vector shaped to broadcast over `like`'s channel axis 1."""
+    return v.view([1, -1] + [1] * (like.dim() - 2))
+
+
+def batch_norm_multi(parts, weight, bias, running_mean, running_var, *, eps=1e-5,
+                     momentum=0.1):
+    """Training-mode BN of several tensors, channel axis 1 in each, with the
+    batch statistics of their union (hyperseg_tpu/nn/functional.py:236-268
+    `apply_bn_multi`): a map and its halo bands, whose union is the element
+    multiset of the halo'd patch tensor (the reflected border pixels
+    counted as often as the halos hold them, quirk #6). Returns the
+    normalized parts in order and writes the running statistics in place
+    as batch_norm_train does, the variance unbiased over the union's count
+    n, n / (n - 1)."""
+    stats = []
+    out = _BatchNormMulti.apply(weight, bias, eps, stats, *parts)
+    mean, var, n = stats
+    with torch.no_grad():
+        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
+        running_var.mul_(1 - momentum).add_(var, alpha=momentum * n / max(n - 1, 1))
+    return out
+
+
 _CALIBRATING = contextvars.ContextVar("hyperseg_torch_bn_calibrating", default=False)
 
 

@@ -427,3 +427,38 @@ def test_saved_bytes_counts_each_storage_once():
     x = torch.randn(5, 4, requires_grad=True)
     assert saved_bytes(torch.nn.Linear(4, 3), x, None, lambda y, _: y.sum()) == (20 + 12) * 4
     assert saved_bytes(lambda a: a * a + a * a, x, None, lambda y, _: y.sum()) == 20 * 4
+
+
+@pytest.mark.parametrize("key", ["M", "L", "V"])
+def test_recipes_match_the_shipped_configs(key):
+    """train/recipes.py against configs/train/*.py's build_kwargs: batch,
+    crop (RandomCrop, or VOC's ConstantPad to a square), Adam's lr and
+    betas, PolyLR's power and length, per-batch or per-epoch stepping and
+    the steps of an epoch; a per-epoch schedule holds its rate through an
+    epoch."""
+    import importlib.util
+    from hyperseg_torch.train import schedule as S
+    from hyperseg_torch.train.recipes import RECIPES
+    from hyperseg_torch.train.step import make_optimizer
+
+    r = RECIPES[key]
+    path = os.path.join(ROOT, "configs", "train", r.config)
+    spec = importlib.util.spec_from_file_location(f"recipe_{key}", path)
+    cfg = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cfg)
+    kw = cfg.build_kwargs()
+    crop = {t.target.rsplit(".", 1)[1]: t.args for t in kw["train_img_transforms"]}
+    size = crop["RandomCrop"][0] if "RandomCrop" in crop else [crop["ConstantPad"][0]] * 2
+    assert (r.batch, tuple(size)) == (kw["batch_size"], r.crop)
+    assert r.lr == kw["optimizer"]["lr"]
+    opt, _ = make_optimizer([torch.zeros(1, requires_grad=True)], r.schedule())
+    assert opt.defaults["betas"] == tuple(kw["optimizer"]["betas"])
+    assert (r.power, r.max_epoch) == (kw["scheduler"]["power"], kw["scheduler"]["max_epoch"])
+    assert r.per_batch == kw["batch_scheduler"]
+    assert r.steps_per_epoch == kw["train_iterations"] // kw["batch_size"]
+    poly, sched = S.poly_lr(r.lr, r.max_epoch, r.power), r.schedule()
+    if r.per_batch:
+        assert [sched(t) for t in (0, 1, 7)] == [poly(t) for t in (0, 1, 7)]
+    else:
+        n = r.steps_per_epoch
+        assert sched(0) == sched(n - 1) == poly(0) and sched(n) == poly(1) > sched(2 * n)
