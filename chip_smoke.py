@@ -41,6 +41,20 @@ Phases (any failure exits non-zero before the result lines):
         the card's float32 output against the CPU's plain forward_pyramid,
         then in bfloat16 its launches, wall ms and device ms per call;
      e. the model's wall seconds;
+     f. the bfloat16 forward captured once as a CUDA graph
+        (core/predictor.py `graphed`) at batch 1 and 8: the launch counters
+        read around the capture, the replayed logits against the eager
+        forward's (within KERNEL_TOL[bf16] of the largest magnitude, argmax
+        agreement >= GRAPH_AGREE), device ms per replay (CUDA events, and
+        the profiler's kernel sum), wall ms per synchronised replay and
+        img/s beside 3c's eager numbers, and the host cast and pageable
+        uploads that test_fps times with each batch;
+  FPS. hyperseg_torch.cli.test_fps on HyperSeg-M from the reference's arch
+     string (the registry's alias table), 512x1024, bfloat16, batch 1 and 8,
+     50 batches a pass, without and with remove_bn: the eval step captured
+     once and replayed per batch; the parameter count of bench.py:92, the
+     launch counters set to 0 just before each run and read just after, the
+     scores it writes, and its img/s beside 3c's eager img/s;
   4. the training step (hyperseg_torch.train), float32, TF32 off, at each
      shipped config's crop and batch (train/recipes.py) with its optimizer,
      schedule and criterion:
@@ -68,7 +82,9 @@ Phases (any failure exits non-zero before the result lines):
      T2. one step at batch 2, 256x512, on the card against the same step on
          the CPU's plain path from seed 0's weights, drop rates 0: loss,
          gradients of the stem, every signal2weights and the weight
-         mapper's convs, every BN running statistic, the Adam updates;
+         mapper's convs, every BN running statistic, the Adam updates; and
+         both float32 steps read against the same step on the CPU in
+         float64 (printed, not gated);
   5. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
 
@@ -209,6 +225,19 @@ KERNELS = {
 # listed under K1's entry as a mode
 GENERATION = {"s2w_generate": ("patch_invres", "s2w_generate_plain", K + "patch_invres.cu",
                                P + "patch_invres.py:488")}
+
+
+# 3f: the graphed forward's argmax agreement with the eager forward's (the same
+# kernels on the same inputs: equal logits are expected)
+GRAPH_AGREE = 0.999
+# The FPS phase: hyperseg_torch.cli.test_fps on HyperSeg-M from the reference's
+# arch string (__graft_entry__.py:44-48's kwargs; the CLI adds num_classes)
+FPS_ARCH = ("hyperseg.models.hyperseg_v1_0.hyperseg_efficientnet('efficientnet-b1', levels=2, "
+            "out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25], kernel_sizes=[1, 1, 1, 3, 3], "
+            "level_channels=[64, 32, 16, 16, 16], expand_ratio=2, "
+            "weight_groups=[32, 16, 8, 16, 4])")
+M_PARAM_COUNT = (10378108, 10311214)      # bench.py:92, (total, trainable)
+FPS = dict(batches=(1, 8), iterations=50, remove_bn=(False, True))
 
 
 # The training steps: each model at its shipped config's crop, batch, Adam and PolyLR
@@ -765,8 +794,8 @@ def run_model(key, rows):
             None)
     for b in (1, 8):
         print(f"model  {cfg.name} bf16 batch {b}: {fps[b]:.2f} img/s", flush=True)
-    phase_profile(key, gpu, {1: xb1, 8: xb8}, fps)
-    extra = {}
+    eager_dev = phase_profile(key, gpu, {1: xb1, 8: xb8}, fps)
+    extra = {"graph": graph_check(key, gpu, {1: xb1, 8: xb8}, cfg.per_forward, fps, eager_dev)}
     if cfg.unify:
         extra["unify_copy"] = unify_copy(key, gpu, {1: xb1, 8: xb8})
     if cfg.hflip:
@@ -777,9 +806,11 @@ def run_model(key, rows):
 def phase_profile(key, gpu, inputs, fps, forwards=3):
     """Where a bf16 forward's device time goes (torch.profiler): device time
     per forward, its share of the unprofiled wall time per forward (the rest
-    is the card idling on the host), and the kernels that take most of it."""
+    is the card idling on the host), and the kernels that take most of it.
+    Returns {batch: device ms per forward} (None where not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
+    dev = {}
     for b, x in inputs.items():
         with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(forwards):
@@ -788,8 +819,9 @@ def phase_profile(key, gpu, inputs, fps, forwards=3):
         events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
         if not events:
             print(f"profile {key} batch {b}: the profiler saw no device time (not measured)")
+            dev[b] = None
             continue
-        device_ms = sum(e.self_device_time_total for e in events) / 1e3 / forwards
+        device_ms = dev[b] = sum(e.self_device_time_total for e in events) / 1e3 / forwards
         wall_ms = 1e3 * b / fps[b]
         print(f"profile {key} batch {b}: device {device_ms:.3f} ms per forward, wall "
               f"{wall_ms:.3f} ms, device busy {device_ms / wall_ms:.1%}, "
@@ -798,6 +830,145 @@ def phase_profile(key, gpu, inputs, fps, forwards=3):
         for e in events[:14]:
             print(f"profile {key} batch {b}:   {e.self_device_time_total / 1e3 / forwards:8.3f} "
                   f"ms x{e.count // forwards:<4d} {e.key[:90]}", flush=True)
+    return dev
+
+
+def host_ms(fn, iters):
+    """Mean host-clock ms of fn() followed by a device sync."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def graph_check(key, gpu, inputs, per_forward, fps, eager_dev):
+    """3f. The bfloat16 forward captured once as a CUDA graph
+    (core/predictor.py `graphed`, as the Predictor and test_fps replay it)
+    against the eager forward, at each batch: the launch counters read
+    around the capture (a replay calls no wrapper), which must hold the
+    warm-up's and the capture's forwards; the replayed logits against the
+    eager ones (max abs difference within KERNEL_TOL[bf16] of the largest
+    magnitude, argmax agreement >= GRAPH_AGREE; the same kernels on the
+    same data, so 0 is expected); device ms per replay (CUDA events over
+    back-to-back replays, and the profiler's kernel sum), wall ms per
+    synchronised replay, img/s, beside 3c's eager numbers; and what
+    test_fps adds in its timed window: the host's bfloat16 cast of a
+    float32 batch and its pageable upload, image and int32 label."""
+    import numpy as np
+    from hyperseg_torch.core.predictor import GRAPH_WARMUP, graphed
+    from hyperseg_torch.ops.kernels import LAUNCHES
+
+    def forward(x):
+        with torch.no_grad():
+            return gpu(x)
+
+    out = {}
+    for b, x in inputs.items():
+        want = forward(x)
+        torch.cuda.synchronize()
+        LAUNCHES.clear()
+        replay = graphed(forward, x)
+        launches = dict(LAUNCHES)
+        n = GRAPH_WARMUP + 1
+        for name, per in per_forward.items():
+            if launches.get(name, 0) != per * n:
+                fail(f"{key} b{b} graph capture: {name}: {launches.get(name, 0)} launches, "
+                     f"expected {per} x {n} forwards (warm-up and capture)")
+        got = replay(x).clone()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        tol = KERNEL_TOL[torch.bfloat16] * want.float().abs().max().item()
+        agree = (got.argmax(1) == want.argmax(1)).float().mean().item()
+        ok = bool(torch.isfinite(got).all()) and err <= tol and agree >= GRAPH_AGREE
+        print(f"graph  {key} b{b} bf16 replay vs eager: max_abs_err {err:.3e} (tol {tol:.3e}) "
+              f"label agreement {agree:.5f} (min {GRAPH_AGREE}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            fail(f"{key} b{b}: the graph's logits disagree with the eager forward's")
+        dev = cuda_ms(replay.graph.replay, iters=20 if b == 1 else 10)
+        kernels = device_ms(lambda: replay(x))
+        wall = host_ms(lambda: replay(x), 20 if b == 1 else 10)
+        host = x.float().cpu().numpy()
+        image = torch.from_numpy(host)
+        label = torch.zeros(x.shape[0], *x.shape[2:], dtype=torch.int32)
+        buf_x, buf_l = torch.empty_like(x), label.cuda()
+        cast = host_ms(lambda: image.to(torch.bfloat16), 5)
+        cast_x = image.to(torch.bfloat16)
+        up_x = host_ms(lambda: buf_x.copy_(cast_x), 5)
+        up_l = host_ms(lambda: buf_l.copy_(label), 5)
+        eager_wall = 1e3 * b / fps[b]
+        out[str(b)] = dict(max_abs_err=err, tol=tol, agreement=agree, launches=launches,
+                           graph_device_ms=dev, graph_kernel_ms=kernels, graph_wall_ms=wall,
+                           graph_img_per_s=1e3 * b / wall, eager_device_ms=eager_dev[b],
+                           eager_wall_ms=eager_wall, eager_img_per_s=fps[b],
+                           host_cast_ms=cast, upload_image_ms=up_x, upload_label_ms=up_l)
+        print(f"graph  {key} b{b} bf16: device {dev:.3f} ms per replay (events), kernels "
+              f"{'not measured' if kernels is None else f'{kernels:.3f} ms'} (profiler), "
+              f"wall {wall:.3f} ms per synchronised replay, {1e3 * b / wall:.2f} img/s; eager "
+              f"device {'not measured' if eager_dev[b] is None else f'{eager_dev[b]:.3f} ms'}"
+              f", wall {eager_wall:.3f} ms, {fps[b]:.2f} img/s; test_fps's window adds the "
+              f"host cast {cast:.3f} ms, image upload {up_x:.3f} ms, label upload "
+              f"{up_l:.3f} ms", flush=True)
+        del replay, got, want, buf_x, buf_l
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_fps(eager_fps):
+    """The FPS phase: hyperseg_torch.cli.test_fps on HyperSeg-M built from
+    its reference-path arch string (FPS_ARCH; the registry's alias table
+    maps it onto the port), 512x1024, bfloat16, batch 1 and 8, FPS["iterations"]
+    batches a pass, without and with remove_bn. The parameter count of the
+    arch is checked against bench.py:92's on the meta device; the launch
+    counters are set to 0 just before each run and read just after: the
+    eval step is captured once, so each kernel launches through its wrapper
+    in the warm-up's and the capture's forwards only. img/s beside 3c's
+    eager img/s of the calibrated model at the same batch."""
+    import tempfile
+    import numpy as np
+    from hyperseg_torch.cli import test_fps
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.core.predictor import GRAPH_WARMUP
+    from hyperseg_torch.ops.kernels import LAUNCHES
+
+    sd = registry.build(FPS_ARCH, num_classes=19, device="meta").state_dict()
+    count = (sum(v.numel() for v in sd.values()),
+             sum(v.numel() for k, v in sd.items() if not k.endswith(("running_mean",
+                                                                     "running_var"))))
+    if count != M_PARAM_COUNT:
+        fail(f"test_fps: {FPS_ARCH} has {count} parameters, expected {M_PARAM_COUNT}")
+    print(f"fps    M arch {FPS_ARCH}: parameters {count} (bench.py:92)", flush=True)
+    per_forward, out, launches_total = MODELS["M"].per_forward, {}, {}
+    with tempfile.TemporaryDirectory() as exp_dir:
+        for remove_bn in FPS["remove_bn"]:
+            for b in FPS["batches"]:
+                LAUNCHES.clear()
+                img_s = test_fps.main(exp_dir, arch=FPS_ARCH, batch_size=b,
+                                      iterations=FPS["iterations"], res=MODELS["M"].res,
+                                      num_classes=19, compute_dtype="bfloat16",
+                                      with_remove_bn=remove_bn)
+                launches = dict(LAUNCHES)
+                for name, per in per_forward.items():
+                    if launches.get(name, 0) != per * (GRAPH_WARMUP + 1):
+                        fail(f"test_fps b{b} remove_bn {remove_bn}: {name}: "
+                             f"{launches.get(name, 0)} launches, expected {per} x "
+                             f"{GRAPH_WARMUP + 1} (warm-up and capture)")
+                    launches_total[name] = launches_total.get(name, 0) + launches.get(name, 0)
+                with np.load(os.path.join(exp_dir, "test_fps", "scores.npz")) as z:
+                    iou = z["class_iou"]
+                if iou.shape != (19,) or not np.isfinite(iou).all() or not img_s > 0:
+                    fail(f"test_fps b{b}: scores {iou} at {img_s} img/s")
+                tag = f"b{b}" + (" remove_bn" if remove_bn else "")
+                out[tag] = dict(img_per_s=img_s, eager_img_per_s=eager_fps[b],
+                                launches=launches)
+                print(f"fps    M test_fps {tag} bf16 512x1024: {img_s:.2f} img/s (CUDA graph, "
+                      f"{FPS['iterations']} batches, upload in the window); phase 3c eager "
+                      f"{eager_fps[b]:.2f} img/s (no upload)", flush=True)
+                torch.cuda.empty_cache()
+    return out, launches_total
 
 
 def synthetic_batch(b, hw, seed, device, num_classes=19):
@@ -1209,13 +1380,18 @@ def train_vs_cpu():
     mapper's convs, every BN running statistic, and the post-Adam
     parameters. Every number is printed before any gate is read. For
     scale, the CPU's own gradients once more at one thread (the float32
-    spread from the summation order alone)."""
+    spread from the summation order alone), and the same step on the CPU
+    in float64 (the port's step computes in the parameters' dtype
+    throughout, tests/test_torch_train.py), against which both float32
+    steps are read: the card as far from it as the CPU's float32 step is
+    float32 spread, the card much further a fault (not gated)."""
     from hyperseg_torch.train import losses as L
     from hyperseg_torch.train import step as T
 
     cpu = train_model("M", "cpu", drop=False)
     gpu = copy.deepcopy(cpu).to("cuda")
     cpu1 = copy.deepcopy(cpu)
+    cpu64 = copy.deepcopy(cpu).double()
     b, res = TRAIN["reduced_batch"], TRAIN["reduced_res"]
     img, lbl = synthetic_batch(b, res, 4, "cpu", MODELS["M"].kw["num_classes"])
     p0 = {k: v.detach().clone() for k, v in cpu.state_dict().items()}
@@ -1228,20 +1404,27 @@ def train_vs_cpu():
     torch.set_num_threads(1)
     L.BootstrappedCrossEntropyLoss(ignore_index=255)(cpu1(img), lbl).backward()
     torch.set_num_threads(threads)
+    t0 = time.perf_counter()
+    out_64 = trainer(cpu64, "M")(img.double(), lbl)
+    t_64 = time.perf_counter() - t0
 
     lc, lg = out_c["loss"].item(), out_g["loss"].item()
     loss_rel = abs(lg - lc) / abs(lc)
     grads_c, grads_g = dict(cpu.named_parameters()), dict(gpu.named_parameters())
     grads_1 = dict(cpu1.named_parameters())
+    grads_64 = dict(cpu64.named_parameters())
     sel = [k for k in grads_g
            if k == "backbone._conv_stem.weight" or k.endswith("signal2weights.weight")
            or (k.startswith("weight_mapper.") and k.endswith(".0.weight"))]
-    grad_rel, spread = {}, {}
+    grad_rel, spread, card_64, cpu_64 = {}, {}, {}, {}
     for k in sel:
         want = grads_c[k].grad
         if want.abs().max() > 0:
             grad_rel[k] = ((grads_g[k].grad.cpu() - want).norm() / want.norm()).item()
             spread[k] = ((grads_1[k].grad - want).norm() / want.norm()).item()
+            w64 = grads_64[k].grad
+            card_64[k] = ((grads_g[k].grad.cpu().double() - w64).norm() / w64.norm()).item()
+            cpu_64[k] = ((want.double() - w64).norm() / w64.norm()).item()
     from hyperseg_torch.train.recipes import RECIPES
     lr = RECIPES["M"].lr
     sd_c, sd_g = cpu.state_dict(), gpu.state_dict()
@@ -1272,9 +1455,15 @@ def train_vs_cpu():
     }
     print(f"train  T2 b{b} {res[0]}x{res[1]} loss card {lg:.7f} cpu {lc:.7f} rel {loss_rel:.3e} "
           f"(max {STEP_LOSS_RTOL}; cpu step {t_cpu:.1f} s)", flush=True)
+    l64 = out_64["loss"].item()
+    print(f"train  T2 float64 cpu step ({t_64:.1f} s): loss {l64:.12f}; card float32 vs it "
+          f"{abs(lg - l64) / abs(l64):.3e}, cpu float32 vs it {abs(lc - l64) / abs(l64):.3e}",
+          flush=True)
     for k in grad_rel:
         print(f"train  T2 gradient {k}: card vs cpu rel L2 {grad_rel[k]:.3e} (max "
-              f"{STEP_GRAD_REL_L2}); cpu at 1 thread vs cpu {spread[k]:.3e}", flush=True)
+              f"{STEP_GRAD_REL_L2}); cpu at 1 thread vs cpu {spread[k]:.3e}; vs the float64 "
+              f"step: card {card_64[k]:.3e}, cpu {cpu_64[k]:.3e} (ratio "
+              f"{card_64[k] / cpu_64[k]:.2f})", flush=True)
     print(f"train  T2 BN running statistics: largest error {bn_worst:.3e} of scale beyond "
           f"rtol 1e-3 (max 1e-4); Adam updates where |g| > {STEP_ADAM_MASK} max|g|: largest "
           f"difference {upd_worst:.3e} (max {lr * 2e-2:.0e}); updates off by more than that "
@@ -1287,7 +1476,10 @@ def train_vs_cpu():
         fail(f"training: the card's reduced step disagrees with the CPU's: "
              f"{[k for k, ok in gates.items() if not ok]}")
     return dict(loss_rel=loss_rel, grad_rel_l2=grad_rel[worst], grad_rel_l2_of=worst,
-                cpu_thread_spread_rel_l2=max(spread.values()), bn_err=bn_worst,
+                cpu_thread_spread_rel_l2=max(spread.values()),
+                card_vs_f64_rel_l2=card_64, cpu_vs_f64_rel_l2=cpu_64,
+                loss_card_vs_f64=abs(lg - l64) / abs(l64), loss_cpu_vs_f64=abs(lc - l64) / abs(l64),
+                bn_err=bn_worst,
                 adam_err=upd_worst, adam_rule_err=rule_worst, small_grad_flips=small_flips)
 
 
@@ -1370,9 +1562,17 @@ def main():
         launches[key], fps[key], extra[key] = run_model(key, rows)
         print(f"model  {key} done in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
+    t0 = time.perf_counter()
+    fps_runs, fps_launches = run_fps(fps["M"])
+    print(f"fps    done in {time.perf_counter() - t0:.1f} s wall", flush=True)
+
     train_launches, stem_conv, resize_train, train = run_training()
 
     kernels = kernels_line(rows, launches)
+    for k in kernels:
+        if fps_launches.get(k["name"]):
+            k["launches"] += fps_launches[k["name"]]
+            k["launches_by_model"]["M test_fps"] = fps_launches[k["name"]]
     k6 = next(k for k in kernels if k["name"] == "resize_bilinear")
     for m, c in train_launches.items():
         k6["launches"] += c["resize_bilinear"]
@@ -1382,7 +1582,8 @@ def main():
     print(json.dumps({"kernels": kernels,
                       "img_per_s": {m: {str(b): v for b, v in f.items()}
                                     for m, f in fps.items()},
-                      "train": train,
+                      "graph": {m: e["graph"] for m, e in extra.items()},
+                      "test_fps": fps_runs, "train": train,
                       "unify_copy": extra["SC"]["unify_copy"], "tta": extra["SV"]["tta"]}),
           flush=True)
     print(smi.stdout.strip(), flush=True)

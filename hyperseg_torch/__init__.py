@@ -13,13 +13,21 @@ find; inside, the code is plain PyTorch:
     CUDA tensor each kernel wrapper in `ops/kernels` launches its CUDA kernel
     (or raises); on a CPU tensor it runs the kernel's plain PyTorch twin.
 
-Ported so far: the eval forward of the v1_0 family
-(`models.hyperseg_v1_0`: HyperSeg-M Cityscapes, HyperSeg-L CamVid) and of the
-v0_1 family (`models.hyperseg_v0_1`: HyperSeg-L VOC), with a hand-written
-Hopper kernel for each of the JAX package's seven Pallas kernels (K1-K7);
-and the training step (`train/`: train-mode BN and dropout, bootstrapped
-CE, Adam under PolyLR, confusion-matrix metrics), in which K3's raw conv and
-K6 run as autograd Functions and the eval-only kernels do not run.
+Ported so far: the eval forward of every model family of the JAX package
+(`models.hyperseg_v1_0`: HyperSeg-M Cityscapes, HyperSeg-L and -S CamVid;
+`models.hyperseg_v1_0_unify`: HyperSeg-S Cityscapes; `models.hyperseg_v0_2`;
+`models.hyperseg_v0_1`: HyperSeg-L VOC), with the test-time augmentation
+(`HyperGen.forward_pyramid`) and a hand-written Hopper kernel for each of
+the JAX package's seven Pallas kernels (K1-K7); the training step (`train/`:
+train-mode BN and dropout, bootstrapped CE, Adam under PolyLR,
+confusion-matrix metrics), in which K3's raw conv and K6 run as autograd
+Functions and the eval-only kernels do not run, on the 6-D gather or the
+full-map forms of `ops/patch.py`; `core/` (the registry of arch strings,
+checkpoints in the JAX package's container, the reference .pth importer,
+BN folding, and the bucketed `Predictor`, which replays each bucket's
+forward from a CUDA graph); ImageNet backbone weights from a local file
+(`models/backbones/pretrained.py`); and the `cli.test_fps` and
+`cli.convert` entry points.
 
 This package imports neither JAX nor `hyperseg_tpu`.
 """

@@ -35,7 +35,7 @@ import torch
 from torch import nn
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
+from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv, init_params
 from hyperseg_torch.ops.kernels import mbconv as K4
 from hyperseg_torch.ops.kernels import stem as K3
 
@@ -304,3 +304,19 @@ class EfficientNet(EvalModule):
             x = F.dropout(x, self.dropout_rate, generator)
         feats.append(x)
         return feats
+
+
+def efficientnet(model_name, pretrained=False, weights_path=None, *, device="cuda", seed=0,
+                 **kwargs) -> EfficientNet:
+    """Factory mirroring the JAX package's efficientnet (efficientnet.py:508-519):
+    the feature extractor on `device` (the card unless the caller passes
+    "cpu"), weights from `seed`, in eval mode without gradients.
+    `pretrained` (True or a local path) or `weights_path` loads ImageNet
+    weights from a local file, and raises when there is none
+    (backbones/pretrained.py)."""
+    from hyperseg_torch.models.backbones.pretrained import load_pretrained_backbone
+    model = EfficientNet(model_name, device=device, **kwargs)
+    init_params(model, torch.Generator().manual_seed(seed))
+    if pretrained or weights_path:
+        load_pretrained_backbone(model, model_name, weights_path or pretrained)
+    return model.eval().requires_grad_(False)

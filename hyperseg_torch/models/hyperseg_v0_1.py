@@ -8,13 +8,11 @@ those maps.
 
 from __future__ import annotations
 
-import torch
-
+from hyperseg_torch.models import hyperseg_v1_0 as V1
 from hyperseg_torch.models.backbones.efficientnet import EfficientNet
 from hyperseg_torch.models.decoder import MultiScaleDecoderV0
 from hyperseg_torch.models.hypergen import HyperGen
 from hyperseg_torch.models.weight_mapper import WeightMapperV0
-from hyperseg_torch.nn.modules import init_params
 
 
 def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
@@ -40,7 +38,7 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
 
 
 def hyperseg_efficientnet(model_name, pretrained=False, levels=3, down_groups=1,
-                          flat_groups=1, weight_groups=1, avg_pool=True, *,
+                          flat_groups=1, weight_groups=1, avg_pool=True, weights_path=None, *,
                           device="cuda", seed=0, train=False, **kwargs) -> HyperGen:
     """Factory mirroring hyperseg_v0_1.hyperseg_efficientnet (:409-424).
 
@@ -49,17 +47,10 @@ def hyperseg_efficientnet(model_name, pretrained=False, levels=3, down_groups=1,
     the caller passes "cpu"), weights drawn from a torch.Generator seeded by
     `seed`, in eval mode without gradients (`train=True`: in training mode
     with gradients, as the v1_0 factory). `levels` is the weight mapper's
-    pyramid depth. Real weights load with `load_state_dict(strict=True)`
-    from a state dict the caller reads; there is no `weights_path`.
-    `pretrained=True` raises: the port ships no ImageNet backbone weights."""
-    if pretrained:
-        raise ValueError(
-            "hyperseg_efficientnet: pretrained=True needs ImageNet backbone "
-            "weights, which hyperseg_torch does not ship; build with "
-            "pretrained=False and load a converted state dict")
-    backbone = EfficientNet(model_name, out_feat_scale=0.25, device=device)
-    model = build_hypergen(backbone, wm_levels=levels, down_groups=down_groups,
-                           flat_groups=flat_groups, weight_groups=weight_groups,
-                           avg_pool=avg_pool, device=device, **kwargs)
-    init_params(model, torch.Generator().manual_seed(seed))
-    return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)
+    pyramid depth. `pretrained` and `weights_path` as in the v1_0 factory:
+    ImageNet backbone weights from a local file (raising when there is
+    none), or every tensor of a checkpoint that matches by key and shape."""
+    return V1.make_model(build_hypergen, model_name, pretrained, weights_path, 0.25, levels,
+                         device, seed, train,
+                         dict(kwargs, down_groups=down_groups, flat_groups=flat_groups,
+                              weight_groups=weight_groups, avg_pool=avg_pool))

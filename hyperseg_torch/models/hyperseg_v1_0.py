@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from hyperseg_torch.models.backbones.efficientnet import EfficientNet
+from hyperseg_torch.models.backbones.pretrained import load_matching, load_pretrained_backbone
 from hyperseg_torch.models.decoder import MultiScaleDecoderV1
 from hyperseg_torch.models.hypergen import HyperGen
 from hyperseg_torch.models.weight_mapper import WeightMapperV1
@@ -46,8 +47,8 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
 
 
 def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
-                          levels=3, *, device="cuda", seed=0, train=False,
-                          **kwargs) -> HyperGen:
+                          levels=3, weights_path=None, *, device="cuda", seed=0,
+                          train=False, **kwargs) -> HyperGen:
     """Factory mirroring hyperseg_v1_0.hyperseg_efficientnet (:813-827).
 
     Builds the model on `device` (the card unless the caller passes "cpu"),
@@ -55,25 +56,30 @@ def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
     without gradients, or with `train=True` in training mode with
     `requires_grad` on every parameter (the BN running statistics are
     buffers, not trainable: train/step.py `is_trainable`). `levels` is
-    the weight-mapper pyramid depth. Load real weights with
-    `load_state_dict(strict=True)`. `pretrained=True` raises: the port
-    ships no ImageNet backbone weights."""
-    return make_model(build_hypergen, model_name, pretrained, out_feat_scale, levels,
-                      device, seed, train, kwargs)
+    the weight-mapper pyramid depth. `pretrained` (True or a local path)
+    loads ImageNet backbone weights from a local file, and raises when there
+    is none (backbones/pretrained.py); `weights_path`, a checkpoint of
+    either package or a reference .pth, initializes every tensor that
+    matches by key and shape (then `pretrained` is not read). Real weights
+    also load with `load_state_dict(strict=True)`."""
+    return make_model(build_hypergen, model_name, pretrained, weights_path, out_feat_scale,
+                      levels, device, seed, train, kwargs)
 
 
-def make_model(build, model_name, pretrained, out_feat_scale, levels, device, seed,
-               train, kwargs) -> HyperGen:
-    """What the v1_0, v0_2 and v1_0_unify factories share: refuse
-    `pretrained`, build the EfficientNet and `build`'s HyperGen on `device`,
-    draw the weights from `seed`, and set the mode."""
-    if pretrained:
-        raise ValueError(
-            "hyperseg_efficientnet: pretrained=True needs ImageNet backbone "
-            "weights, which hyperseg_torch does not ship; build with "
-            "pretrained=False and load a converted state dict")
+def make_model(build, model_name, pretrained, weights_path, out_feat_scale, levels, device,
+               seed, train, kwargs) -> HyperGen:
+    """What every HyperGen factory shares: build the EfficientNet and
+    `build`'s HyperGen on `device`, draw the weights from `seed`, then load
+    ImageNet backbone weights (`pretrained`, unless `weights_path` is
+    given) or the tensors of `weights_path` that match by key and shape,
+    and set the mode: eval without gradients or, with `train`, training
+    with gradients."""
     backbone = EfficientNet(model_name, out_feat_scale=out_feat_scale,
                             device=device)
     model = build(backbone, wm_levels=levels, device=device, **kwargs)
     init_params(model, torch.Generator().manual_seed(seed))
+    if pretrained and weights_path is None:
+        load_pretrained_backbone(model, model_name, pretrained)
+    if weights_path is not None:
+        load_matching(model, weights_path)
     return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)

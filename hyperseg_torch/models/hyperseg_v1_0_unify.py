@@ -39,11 +39,11 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
 
 
 def hyperseg_efficientnet(model_name, pretrained=False, out_feat_scale=0.25,
-                          levels=3, *, device="cuda", seed=0, train=False,
-                          **kwargs) -> HyperGen:
+                          levels=3, weights_path=None, *, device="cuda", seed=0,
+                          train=False, **kwargs) -> HyperGen:
     """Factory mirroring hyperseg_v1_0_unify.hyperseg_efficientnet, with the
     v1_0 factory's conventions: built on `device` (the card unless the
     caller passes "cpu"), weights from `seed`, eval without gradients unless
-    `train=True`; `pretrained=True` raises."""
-    return V1.make_model(build_hypergen, model_name, pretrained, out_feat_scale, levels,
-                         device, seed, train, kwargs)
+    `train=True`; `pretrained` and `weights_path` as there."""
+    return V1.make_model(build_hypergen, model_name, pretrained, weights_path,
+                         out_feat_scale, levels, device, seed, train, kwargs)

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as TF
 
 from hyperseg_torch.ops.kernels import resize as K6
+from hyperseg_torch.ops.kernels import wide
 
 # ---------------------------------------------------------------------------
 # Padding
@@ -85,9 +86,20 @@ def fold_bn(scale, bias, mean, var, eps):
     return s, bias.float() - mean.float() * s
 
 
+# When True every eval BN outside a kernel (batch_norm, batch_norm_dim) is the
+# identity and launches nothing: the counterpart of the JAX package's
+# F.BN_IDENTITY, the reference's remove_bn protocol (test_fps.py:319-332),
+# which benchmarks a BN-free network. Set only by cli/test_fps.py, which
+# restores it in a `finally`; the kernels that fold BN read its parameters,
+# so the caller also neutralizes those (cli/test_fps.py remove_bn).
+BN_IDENTITY = False
+
+
 def batch_norm(x, scale, bias, mean, var, *, eps=1e-5):
     """Running-stats BN over the channel axis (dim 1) of an NCHW tensor: one
     torch call, which computes in float32 for a bfloat16 input."""
+    if BN_IDENTITY:
+        return x
     if _CALIBRATING.get():
         _record_batch_stats(x, (scale, bias, mean, var), 1)
     return TF.batch_norm(x, mean, var, scale, bias, False, 0.0, eps)
@@ -96,6 +108,8 @@ def batch_norm(x, scale, bias, mean, var, *, eps=1e-5):
 def batch_norm_dim(x, bn, channel_dim, *, eps=1e-5):
     """Running-stats BN with its channel axis at `channel_dim` (the decoder's
     patch-blocked tensors); bn is (weight, bias, running_mean, running_var)."""
+    if BN_IDENTITY:
+        return x
     if _CALIBRATING.get():
         _record_batch_stats(x, bn, channel_dim)
     s, b = fold_bn(*bn, eps)
@@ -115,12 +129,12 @@ class _BatchNormTrain(torch.autograd.Function):
         dims = [d for d in range(x.dim()) if d != channel_dim]
         shape = [1] * x.dim()
         shape[channel_dim] = -1
-        x32 = x.float()
+        x32 = wide(x)
         mean = x32.mean(dims)
         var = (x32 - mean.view(shape)).square().mean(dims)
         invstd = torch.rsqrt(var + eps)
-        s = weight.float() * invstd
-        b = bias.float() - mean * s
+        s = wide(weight) * invstd
+        b = wide(bias) - mean * s
         stats.extend((mean, var))
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.channel_dim = channel_dim
@@ -133,12 +147,12 @@ class _BatchNormTrain(torch.autograd.Function):
         dims = [d for d in range(x.dim()) if d != c]
         shape = [1] * x.dim()
         shape[c] = -1
-        dy32 = dy.float()
-        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dy32 = wide(dy)
+        xhat = (wide(x) - mean.view(shape)) * invstd.view(shape)
         mean_dy = dy32.mean(dims)
         mean_dy_xhat = (dy32 * xhat).mean(dims)
         n = x.numel() // x.shape[c]
-        dx = ((weight.float() * invstd).view(shape)
+        dx = ((wide(weight) * invstd).view(shape)
               * (dy32 - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape)))
         return dx.to(x.dtype), mean_dy_xhat * n, mean_dy * n, None, None, None
 
@@ -171,12 +185,12 @@ class _BatchNormMulti(torch.autograd.Function):
     @staticmethod
     def forward(ctx, weight, bias, eps, stats, *parts):
         n = sum(p.numel() // p.shape[1] for p in parts)
-        mean = sum(p.float().sum(_other_dims(p)) for p in parts) / n
-        var = sum((p.float() - _per_channel(mean, p)).square().sum(_other_dims(p))
+        mean = sum(wide(p).sum(_other_dims(p)) for p in parts) / n
+        var = sum((wide(p) - _per_channel(mean, p)).square().sum(_other_dims(p))
                   for p in parts) / n
         invstd = torch.rsqrt(var + eps)
-        s = weight.float() * invstd
-        b = bias.float() - mean * s
+        s = wide(weight) * invstd
+        b = wide(bias) - mean * s
         stats.extend((mean, var, n))
         ctx.save_for_backward(weight, mean, invstd, *parts)
         return tuple(p * _per_channel(s, p).to(p.dtype) + _per_channel(b, p).to(p.dtype)
@@ -186,11 +200,11 @@ class _BatchNormMulti(torch.autograd.Function):
     def backward(ctx, *dys):
         weight, mean, invstd, *parts = ctx.saved_tensors
         n = sum(p.numel() // p.shape[1] for p in parts)
-        xhats = [(p.float() - _per_channel(mean, p)) * _per_channel(invstd, p) for p in parts]
-        sum_dy = sum(dy.float().sum(_other_dims(dy)) for dy in dys)
-        sum_dy_xhat = sum((dy.float() * xh).sum(_other_dims(dy)) for dy, xh in zip(dys, xhats))
-        scale = weight.float() * invstd
-        dxs = tuple((_per_channel(scale, p) * (dy.float() - _per_channel(sum_dy / n, p)
+        xhats = [(wide(p) - _per_channel(mean, p)) * _per_channel(invstd, p) for p in parts]
+        sum_dy = sum(wide(dy).sum(_other_dims(dy)) for dy in dys)
+        sum_dy_xhat = sum((wide(dy) * xh).sum(_other_dims(dy)) for dy, xh in zip(dys, xhats))
+        scale = wide(weight) * invstd
+        dxs = tuple((_per_channel(scale, p) * (wide(dy) - _per_channel(sum_dy / n, p)
                                               - xh * _per_channel(sum_dy_xhat / n, p))).to(p.dtype)
                     for p, dy, xh in zip(parts, dys, xhats))
         return (sum_dy_xhat, sum_dy, None, None) + dxs

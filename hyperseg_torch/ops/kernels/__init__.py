@@ -23,4 +23,13 @@ backward; the others fold running statistics into eval BN.
 
 from collections import Counter
 
+import torch
+
 LAUNCHES: Counter = Counter()
+
+
+def wide(t):
+    """t in float32, where the twins and the training step sum and take
+    statistics, or kept in float64: a float64 run on the CPU (the reference
+    that the card's float32 step is read against) stays float64 throughout."""
+    return t if t.dtype == torch.float64 else t.float()

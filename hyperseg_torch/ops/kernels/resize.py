@@ -26,7 +26,7 @@ import functools
 import numpy as np
 import torch
 
-from hyperseg_torch.ops.kernels import LAUNCHES
+from hyperseg_torch.ops.kernels import LAUNCHES, wide
 from hyperseg_torch.ops.kernels import build
 
 SCALES = (2, 3, 4)
@@ -69,9 +69,10 @@ def resize_bilinear_plain(x, out_hw):
     matrices, as the JAX package computes it outside the kernel."""
     s = integer_scale(x.shape[2:], out_hw)
     h, w = x.shape[2:]
-    my = row_matrix(h, s).to(x.device)
-    mx = row_matrix(w, s).to(x.device)
-    y = torch.einsum("oh,bchw,pw->bcop", my, x.float(), mx)
+    x32 = wide(x)
+    my = row_matrix(h, s).to(x.device, x32.dtype)
+    mx = row_matrix(w, s).to(x.device, x32.dtype)
+    y = torch.einsum("oh,bchw,pw->bcop", my, x32, mx)
     return y.to(x.dtype)
 
 
@@ -108,8 +109,9 @@ def resize_bilinear_backward(g, in_hw):
     g's dtype (the JAX `_bwd`, resize.py:162-172). An edge row gets the
     weight of every clamped tap that reads it."""
     (h, w), s = in_hw, integer_scale(in_hw, g.shape[2:])
-    t = torch.matmul(g.float(), _tap_matrix(w, s, g.device))          # (B, C, sH, W)
-    return torch.matmul(_tap_matrix(h, s, g.device).t(), t).to(g.dtype)
+    g32 = wide(g)
+    t = torch.matmul(g32, _tap_matrix(w, s, g.device).to(g32.dtype))  # (B, C, sH, W)
+    return torch.matmul(_tap_matrix(h, s, g.device).to(g32.dtype).t(), t).to(g.dtype)
 
 
 class ResizeBilinear(torch.autograd.Function):

@@ -31,7 +31,7 @@ import torch
 import torch.nn.functional as TF
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.ops.kernels import LAUNCHES
+from hyperseg_torch.ops.kernels import LAUNCHES, wide
 from hyperseg_torch.ops.kernels import build
 
 THREADS = 128                 # four warps a block
@@ -58,7 +58,7 @@ def stem_out_hw(h, w):
 def stem_plain(x, weight, bn, eps=1e-3, act="swish"):
     """Plain twin: the same function in float32 torch ops; bn None is the
     identity BN, act None no activation."""
-    y = TF.conv2d(F.pad2d(x.float(), ((0, 1), (0, 1))), weight.float(), stride=2)
+    y = TF.conv2d(F.pad2d(wide(x), ((0, 1), (0, 1))), wide(weight), stride=2)
     if bn is not None:
         y = F.batch_norm(y, *bn, eps=eps)
     return (F.swish(y) if act == "swish" else y).to(x.dtype)

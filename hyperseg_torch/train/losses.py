@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from hyperseg_torch.ops.kernels import wide
+
 
 def softmax_cross_entropy(logits, labels, *, ignore_index=255, weight=None):
     """Per-pixel cross entropy. logits: (B, C, H, W); labels: (B, H, W)
@@ -20,10 +22,10 @@ def softmax_cross_entropy(logits, labels, *, ignore_index=255, weight=None):
     valid mask). `weight`: a per-class weight (C,) or None."""
     valid = labels != ignore_index
     safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
-    logp = torch.log_softmax(logits.float(), dim=1)
+    logp = torch.log_softmax(wide(logits), dim=1)
     nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
     if weight is not None:
-        nll = nll * weight.to(nll.device, torch.float32)[safe]
+        nll = nll * weight.to(nll.device, nll.dtype)[safe]
     return torch.where(valid, nll, torch.zeros_like(nll)), valid
 
 
@@ -54,9 +56,9 @@ def bootstrapped_cross_entropy(logits, labels, *, k=4096, thresh=0.3, ignore_ind
     else:
         strict = flat > t_k
         tied = flat == t_k
-        tie_w = (kk - strict.sum(1, keepdim=True)) / tied.sum(1, keepdim=True).clamp_min(1)
-        w = torch.where(strict, torch.ones_like(flat),
-                        torch.where(tied, tie_w.to(flat.dtype), zero))
+        tie_w = ((kk - strict.sum(1, keepdim=True)).to(flat.dtype)
+                 / tied.sum(1, keepdim=True).clamp_min(1))
+        w = torch.where(strict, torch.ones_like(flat), torch.where(tied, tie_w, zero))
         mean_topk = (w * flat).sum(1) / kk
     return torch.where(take_all, mean_above, mean_topk).mean()
 

@@ -1,7 +1,9 @@
 """Segmentation metrics (hyperseg_tpu/train/metrics.py).
 
-The confusion matrix is accumulated on the tensors' device, one bincount per
-batch; the scores are derived on the host from the accumulated matrix.
+The confusion matrix is accumulated on the tensors' device, one scatter-add
+per batch into a buffer of fixed size (no host read: the eval step replays
+from a CUDA graph); the scores are derived on the host from the accumulated
+matrix.
 """
 
 from __future__ import annotations
@@ -13,14 +15,19 @@ import torch
 def confusion_matrix(labels, preds, num_classes: int, ignore_index=255):
     """(num_classes, num_classes) int64 matrix, rows the ground truth,
     columns the prediction. labels/preds: integer tensors of one shape;
-    labels outside [0, num_classes) or equal to ignore_index are skipped."""
+    labels outside [0, num_classes) or equal to ignore_index are skipped:
+    they count into a last, trash bin that is dropped. The counts are added
+    into a preallocated num_classes**2 + 1 buffer (`index_add_`), where
+    `torch.bincount` would read the largest index back to the host to size
+    its output, which a CUDA graph cannot do."""
     labels, preds = labels.reshape(-1).long(), preds.reshape(-1).long()
     valid = (labels >= 0) & (labels < num_classes)
     if ignore_index is not None:
         valid &= labels != ignore_index
     idx = torch.where(valid, labels * num_classes + preds,
                       torch.full_like(labels, num_classes * num_classes))
-    hist = torch.bincount(idx, minlength=num_classes * num_classes + 1)
+    hist = torch.zeros(num_classes * num_classes + 1, dtype=torch.int64, device=idx.device)
+    hist.index_add_(0, idx, torch.ones_like(idx))
     return hist[:-1].reshape(num_classes, num_classes)
 
 

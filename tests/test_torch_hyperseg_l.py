@@ -20,7 +20,7 @@ import jax.numpy as jnp
 from hyperseg_torch.core.convert import jax_to_torch_state_dict
 from hyperseg_torch.models import hyperseg_v1_0 as V1
 
-from torch_parity import HYPERSEG_L_KW, assert_close_rel, nchw, nhwc
+from torch_parity import HYPERSEG_L_KW, assert_close_rel, nchw, nhwc, no_pretrained_files
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -86,15 +86,18 @@ def test_hyperseg_l_param_count_matches_jax(jax_l):
     assert chip_smoke.MODELS["L"].param_count == total
 
 
-def test_factory_takes_the_camvid_l_config_kwargs():
+def test_factory_takes_the_camvid_l_config_kwargs(monkeypatch, tmp_path):
     """The shipped config's kwargs build (pretrained off: no ImageNet weights
     ship with the port); inference_hflip is stored, not used by the plain
-    forward (quirk #5); coords_res is a no-op; pretrained=True is refused."""
+    forward (quirk #5); coords_res is a no-op; pretrained=True with no local
+    ImageNet file is refused."""
     m = V1.hyperseg_efficientnet("efficientnet-b1", device="cpu", **CAMVID_L_CONFIG_KW)
     assert m.inference_hflip is True and m.inference_gather == "mean"
     plain = V1.hyperseg_efficientnet("efficientnet-b1", device="cpu", **HYPERSEG_L_KW)
     x = torch.randn(1, 3, 64, 64, generator=torch.Generator().manual_seed(0))
     assert torch.equal(m(x), plain(x))
-    with pytest.raises(ValueError, match="pretrained"):
+    # no local ImageNet file in any search dir: the factory raises
+    no_pretrained_files(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="pretrained=True"):
         V1.hyperseg_efficientnet("efficientnet-b1", device="cpu",
                                  **{**CAMVID_L_CONFIG_KW, "pretrained": True})

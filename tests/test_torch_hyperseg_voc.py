@@ -21,7 +21,7 @@ from hyperseg_torch.core.convert import jax_to_torch_state_dict
 from hyperseg_torch.models import hyperseg_v0_1 as V0
 from hyperseg_torch.ops.kernels import LAUNCHES
 
-from torch_parity import HYPERSEG_L_VOC_KW, assert_close_rel, nchw, nhwc
+from torch_parity import HYPERSEG_L_VOC_KW, assert_close_rel, nchw, nhwc, no_pretrained_files
 
 # configs/train/vocsbd_efficientnet_b3_hyperseg-l.py:19-22, pretrained off
 VOC_L_CONFIG_KW = dict(
@@ -89,16 +89,19 @@ def test_hyperseg_l_voc_param_count_matches_jax(jax_voc):
     assert chip_smoke.MODELS["V"].param_count == total
 
 
-def test_factory_takes_the_voc_l_config_kwargs():
+def test_factory_takes_the_voc_l_config_kwargs(monkeypatch, tmp_path):
     """The shipped config's kwargs build (pretrained off: no ImageNet weights
     ship with the port); inference_hflip is stored, not used by the plain
-    forward (quirk #5); pretrained=True is refused."""
+    forward (quirk #5); pretrained=True with no local
+    ImageNet file is refused."""
     m = V0.hyperseg_efficientnet("efficientnet-b3", device="cpu", num_classes=21,
                                  **VOC_L_CONFIG_KW)
     assert m.inference_hflip is True and m.inference_gather == "mean"
     plain = V0.hyperseg_efficientnet("efficientnet-b3", device="cpu", **HYPERSEG_L_VOC_KW)
     x = torch.randn(1, 3, 128, 128, generator=torch.Generator().manual_seed(0))
     assert torch.equal(m(x), plain(x))
-    with pytest.raises(ValueError, match="pretrained"):
+    # no local ImageNet file in any search dir: the factory raises
+    no_pretrained_files(monkeypatch, tmp_path)
+    with pytest.raises(RuntimeError, match="pretrained=True"):
         V0.hyperseg_efficientnet("efficientnet-b3", device="cpu",
                                  **{**VOC_L_CONFIG_KW, "pretrained": True})

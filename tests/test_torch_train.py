@@ -462,3 +462,62 @@ def test_recipes_match_the_shipped_configs(key):
     else:
         n = r.steps_per_epoch
         assert sched(0) == sched(n - 1) == poly(0) and sched(n) == poly(1) > sched(2 * n)
+
+
+def test_step_runs_in_float64_on_the_cpu():
+    """The training step of a model cast to float64 computes in float64
+    throughout (BN statistics, the twins, the loss and its bootstrap
+    weights), so it can stand as the reference against which a float32
+    step is read (chip_smoke.py T2): no op makes a float32 tensor but the
+    optimizer's step counters (0-d) and constants lifted from numpy (the
+    coordinate grids, the upsample taps), which are exact or shared with
+    the float32 run. Its loss equals the float32 step's to float32 accuracy."""
+    import copy
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from hyperseg_torch.models import hyperseg_v1_0 as V1
+
+    class Float32Ops(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for o in out if isinstance(out, (tuple, list)) else [out]:
+                if (isinstance(o, torch.Tensor) and o.dim() and o.dtype != torch.float64
+                        and o.is_floating_point()):
+                    self.ops.add(str(func))
+            return out
+
+    model = V1.hyperseg_efficientnet(
+        "efficientnet-b0", device="cpu", train=True, levels=2, kernel_sizes=[1, 3],
+        level_channels=[16, 16], expand_ratio=2, weight_groups=[8, 8], num_classes=5)
+    model.backbone.drop_connect_rate = model.backbone.dropout_rate = 0.0
+    model64 = copy.deepcopy(model).double()
+    g = torch.Generator().manual_seed(0)
+    img = torch.randn(2, 3, 64, 128, generator=g)
+    lbl = torch.randint(0, 5, (2, 64, 128), generator=g)
+    lbl[:, :4] = 255
+
+    def step(m, x):
+        opt, sched = T.make_optimizer(m.parameters(), S.poly_lr(1e-3, 10))
+        return T.make_train_step(m, L.BootstrappedCrossEntropyLoss(ignore_index=255), opt,
+                                 sched, num_classes=5)(x, lbl)
+
+    # one thread: float64 ops run ATen's own parallel loops, which crawl when
+    # the test workers' thread pools oversubscribe the cores
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        loss32 = step(model, img)["loss"].item()
+        spy = Float32Ops()
+        with spy:
+            out = step(model64, img.double())
+    finally:
+        torch.set_num_threads(threads)
+    assert spy.ops == {"aten.lift_fresh.default"}, spy.ops
+    assert out["loss"].dtype == torch.float64
+    grads = [p.grad for p in model64.parameters() if p.grad is not None]
+    assert len(grads) > 100 and all(g.dtype == torch.float64 for g in grads)
+    assert all(p.dtype == torch.float64 for p in model64.parameters())
+    assert abs(out["loss"].item() - loss32) <= 1e-5 * abs(loss32)

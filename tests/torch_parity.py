@@ -80,3 +80,44 @@ def assert_close_rel(got, want, rtol, what=""):
     assert std > 1e-2, f"{what}: degenerate reference output (std {std})"
     err = np.abs(got - want).max()
     assert err <= rtol * std, f"{what}: max err {err} > {rtol} * std {std}"
+
+
+def no_pretrained_files(monkeypatch, tmp_path):
+    """Point every search dir of hyperseg_torch's pretrained resolver at
+    empty places under tmp_path; returns the env-var dir."""
+    from hyperseg_torch.models.backbones import pretrained as P
+    cache = tmp_path / "pretrained"
+    cache.mkdir()
+    monkeypatch.setenv(P.ENV_DIR, str(cache))
+    monkeypatch.setenv("HOME", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    return cache
+
+
+# the tiny arch of tests/test_cli.py:12-14 (B0, two decoder levels), written
+# with each module path the port's registry resolves
+TINY_KW = ("'efficientnet-b0', levels=2, kernel_sizes=[1, 3], level_channels=[16, 16], "
+           "expand_ratio=2, weight_groups=[8, 8]")
+TINY_ARCHS = {
+    "reference": f"hyperseg.models.hyperseg_v1_0.hyperseg_efficientnet({TINY_KW})",
+    "short": f"hyperseg_v1_0.hyperseg_efficientnet({TINY_KW})",
+    "jax": f"hyperseg_tpu.models.hyperseg_v1_0.hyperseg_efficientnet({TINY_KW})",
+}
+TINY_CLASSES = 12
+
+
+def tiny_jax_params(num_classes=TINY_CLASSES):
+    """(JAX tiny model, its parameters, numpy, JAX layout): the port's seed-0
+    init, perturbed so every BN acts and the logits are not degenerate (the
+    zero-initialized head makes a fresh model's logits exactly 0;
+    tests/test_cli.py:188-195). The port's init stands in for JAX's
+    PRNGKey(0) init, which costs tens of seconds on the CPU."""
+    from hyperseg_tpu.core import registry as JR
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.core.convert import torch_to_jax_params
+    jm = JR.build(TINY_ARCHS["jax"], num_classes=num_classes)
+    tm = registry.build(TINY_ARCHS["jax"], num_classes=num_classes, device="cpu")
+    rs = np.random.RandomState(1)
+    return jm, {k: ((rs.rand(*v.shape) + 0.5).astype(np.float32) if k.endswith(".running_var")
+                    else v + (rs.randn(*v.shape) * 0.05).astype(np.float32))
+                for k, v in torch_to_jax_params(tm.state_dict()).items()}
