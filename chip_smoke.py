@@ -55,6 +55,27 @@ Phases (any failure exits non-zero before the result lines):
      once and replayed per batch; the parameter count of bench.py:92, the
      launch counters set to 0 just before each run and read just after, the
      scores it writes, and its img/s beside 3c's eager img/s;
+  TEST. hyperseg_torch.cli.test end to end, as a user runs it, on synthetic
+     trees at real file sizes (the native host ops built first, by g++):
+     M on 20 Cityscapes val frames, 2048x1024 PNGs in two cities, images
+     ImageResize'd to 512x1024 and labels at 1024x2048 (the shipped test
+     config), labelled by M itself (seed 0, BN calibrated; eager float32 in
+     the CLI's batches of 4, a band of void ids across each frame); the CLI
+     (a) in float32 at batch 4 with 4 workers, then (b) in bfloat16 at batch
+     8 (its last batch padded); each with the launch counters set to 0 just
+     before and read just after (the capture's forwards only, K6 once more
+     each for the labels' resolution); its confusion matrix against the eager
+     eval step's over the same loader's batches (equal), its per-image ious
+     against numpy's per_image_jaccard on batch 0's predictions (equal), the
+     loader's first batch against the plain path's (the native ops' twins, a
+     numpy stack; equal), in (a) global_acc >= 0.999 and every present
+     class's IoU >= 0.99; K6 at the labels' resolution against its twin,
+     timed; the step's parts timed; the loader alone, worker processes
+     against threads; the scores cache read by a run without `forced`;
+     then V on 8 VOC + SBD images (500x375 and 375x500, ConstantPad to
+     512x512) at batch 4, the same gates but the accuracy; a `test` line
+     per run: img/s end to end, ms a batch waiting on the loader, in the
+     upload, the replay and the host's jaccard;
   4. the training step (hyperseg_torch.train), float32, TF32 off, at each
      shipped config's crop and batch (train/recipes.py) with its optimizer,
      schedule and criterion:
@@ -95,6 +116,7 @@ CUDA device or when the hyperseg_torch package is not beside it.
 import contextlib
 import copy
 import functools
+import gc
 import importlib
 import json
 import math
@@ -971,6 +993,498 @@ def run_fps(eager_fps):
     return out, launches_total
 
 
+# The TEST phase: hyperseg_torch.cli.test end to end on synthetic datasets at their
+# real file sizes. M on Cityscapes val as the shipped config runs it
+# (configs/test/cityscapes_efficientnet_b1_hyperseg-m.py: images ImageResize'd to
+# 512x1024, labels at 1024x2048), labelled by the model itself; then V on VOC + SBD
+# (configs/test/vocsbd_efficientnet_b3_hyperseg-l.py: ConstantPad to 512x512).
+TEST = dict(images=20, cities=("frankfurt", "lindau"), size=(1024, 2048), res=(512, 1024),
+            void_rows=64, voc_images=8, voc_batch=4,
+            # (tag, compute dtype, batch, workers): the config's own run, then bf16 b8
+            runs=(("a", "float32", 4, 4), ("b", "bfloat16", 8, 4)))
+V_ARCH = ("hyperseg.models.hyperseg_v0_1.hyperseg_efficientnet('efficientnet-b3', levels=3, "
+          "kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2, with_out_fc=False, "
+          "decoder_dropout=None, weight_groups=16)")
+TEST_GLOBAL_ACC = 0.999     # (a) on the labels the model made of the same images
+TEST_CLASS_IOU = 0.99       # (a) every class present in the labels
+
+
+def structured_image(rng, h, w):
+    """A smooth image with structure and noise, uint8 (H, W, 3): per channel
+    a gradient and two plane waves, rectangles of flat colour, noise of std 2:
+    about 2.8 MB as a 2048x1024 PNG, near a Cityscapes frame's (the 5000
+    frames of leftImg8bit_trainvaltest.zip take 11 GB)."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    yy /= h
+    xx /= w
+    img = np.empty((h, w, 3), np.float32)
+    for c in range(3):
+        f = rng.uniform(1, 6, 4)
+        img[..., c] = (110 + 50 * yy + 40 * np.sin(2 * np.pi * (f[0] * xx + f[1] * yy))
+                       + 30 * np.cos(2 * np.pi * (f[2] * xx - f[3] * yy)))
+    for _ in range(12):
+        y0, x0 = rng.randint(0, h - h // 8), rng.randint(0, w - w // 8)
+        img[y0:y0 + rng.randint(h // 16, h // 4), x0:x0 + rng.randint(w // 16, w // 4)] = \
+            rng.uniform(0, 255, 3)
+    img += rng.normal(0, 2, img.shape).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def save_pngs(items):
+    """Write [(path, uint8 array, or a function that makes it)] as PNGs, eight
+    at a time (numpy and PIL's encoder release the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from PIL import Image
+
+    def save(item):
+        path, a = item
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        Image.fromarray(a() if callable(a) else a).save(path)
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(save, items))
+
+
+def eval_inputs(path, res):
+    """One image as the config's pipeline gives it to the model (ImageResize,
+    ToArray, Normalize), a CHW float32 tensor."""
+    from PIL import Image
+    from hyperseg_torch.data import seg_transforms as T
+    img = Image.open(path).convert("RGB")
+    tf = T.Compose([T.ImageResize(list(res)), T.ToArray(), T.Normalize()])
+    return tf(img, Image.new("L", img.size))[0]
+
+
+def make_cityscapes(root, exp_dir):
+    """The synthetic Cityscapes val tree: TEST["images"] frames in two cities,
+    leftImg8bit PNGs at 2048x1024, and HyperSeg-M (seed 0, BN calibrated on
+    the first frame as phase 3 does, saved to exp_dir under the reference's
+    arch string) run eagerly in float32 on the card over each frame as the
+    config resizes it, in the CLI's batches of 4, its argmax at 1024x2048
+    written back as Cityscapes label ids, with a band of void (ids 0-6,
+    train id 255) across each. Returns the frames' paths."""
+    import numpy as np
+    from hyperseg_torch.core import checkpoint as C
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.data.cityscapes import CLASSES
+    from hyperseg_torch.nn import functional as F
+    from hyperseg_torch.utils.calibrate import calibrate_bn
+
+    t0 = time.perf_counter()
+    h, w = TEST["size"]
+    n, cities = TEST["images"], TEST["cities"]
+    paths = [os.path.join(root, "leftImg8bit", "val", cities[i * len(cities) // n],
+                          f"{cities[i * len(cities) // n]}_000000_{i:06d}_leftImg8bit.png")
+             for i in range(n)]
+    save_pngs([(p, functools.partial(structured_image, np.random.RandomState(i), h, w))
+               for i, p in enumerate(paths)])
+    sizes = [os.path.getsize(p) / 2 ** 20 for p in paths]
+    t_images = time.perf_counter() - t0
+
+    model = registry.build(FPS_ARCH, num_classes=19, device="cpu", seed=0)
+    calibrate_bn(model, eval_inputs(paths[0], TEST["res"])[None])
+    C.save_checkpoint(exp_dir, "model", model, meta={"arch": C.arch_string(FPS_ARCH,
+                                                                           num_classes=19)},
+                      is_best=True)
+    net, _ = C.load_model(os.path.join(exp_dir, "model_best.npz"), device="cuda")
+    to_id = np.zeros(256, np.uint8)
+    for c in reversed(CLASSES):
+        if 0 <= c.train_id < 19:
+            to_id[c.train_id] = c.id
+    labels = []
+    with torch.no_grad():
+        for i in range(0, n, 4):
+            x = torch.stack([eval_inputs(p, TEST["res"]) for p in paths[i:i + 4]]).cuda()
+            labels.append(F.resize_bilinear(net(x), (h, w)).argmax(1).to(torch.uint8).cpu())
+    labels = torch.cat(labels).numpy()
+    items = []
+    for i, p in enumerate(paths):
+        ids = to_id[labels[i]]
+        band = (i * 97) % (h - TEST["void_rows"])
+        ids[band:band + TEST["void_rows"]] = i % 7            # void: ids 0-6
+        items.append((p.replace("leftImg8bit", "gtFine", 1).replace(
+            "_leftImg8bit.png", "_gtFine_labelIds.png"), ids))
+    save_pngs(items)
+    present = np.bincount(labels.reshape(-1), minlength=19)
+    print(f"test   M synthetic Cityscapes val: {n} frames {w}x{h} in {len(cities)} cities, PNG "
+          f"{min(sizes):.2f}-{max(sizes):.2f} MB (written in {t_images:.1f} s); labels by the "
+          f"model itself, {int((present > 0).sum())} classes present "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    del net
+    torch.cuda.empty_cache()
+    return paths
+
+
+def make_voc(root, exp_dir):
+    """The synthetic VOC + SBD val tree: TEST["voc_images"] JPEGs of 500x375
+    and 375x500, as VOC's are, and labels of random class blobs with a
+    255 border around each, as VOC draws them; HyperSeg-L VOC (seed 0, BN
+    calibrated on the first image padded to 512x512) saved to exp_dir."""
+    import numpy as np
+    from PIL import Image
+    from hyperseg_torch.core import checkpoint as C
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.data import seg_transforms as T
+    from hyperseg_torch.utils.calibrate import calibrate_bn
+
+    voc = os.path.join(root, "VOCdevkit", "VOC2012")
+    os.makedirs(os.path.join(voc, "JPEGImages"))
+    os.makedirs(os.path.join(voc, "SegmentationClassAug"))
+    rng = np.random.RandomState(1)
+    lines = []
+    for i in range(TEST["voc_images"]):
+        h, w = (375, 500) if i % 2 == 0 else (500, 375)
+        Image.fromarray(structured_image(rng, h, w)).save(
+            os.path.join(voc, "JPEGImages", f"2007_{i:06d}.jpg"), quality=90)
+        lab = np.zeros((h, w), np.uint8)
+        for _ in range(3):
+            y0, x0 = rng.randint(0, h // 2), rng.randint(0, w // 2)
+            y1, x1 = y0 + rng.randint(h // 8, h // 2), x0 + rng.randint(w // 8, w // 2)
+            lab[y0:y1, x0:x1] = 255
+            lab[y0 + 3:y1 - 3, x0 + 3:x1 - 3] = rng.randint(1, 21)
+        Image.fromarray(lab).save(os.path.join(voc, "SegmentationClassAug", f"2007_{i:06d}.png"))
+        lines.append(f"/JPEGImages/2007_{i:06d}.jpg /SegmentationClassAug/2007_{i:06d}.png")
+    with open(os.path.join(voc, "val.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    model = registry.build(V_ARCH, num_classes=21, device="cpu", seed=0)
+    tf = T.Compose([T.ConstantPad(512, lbl_fill=255), T.ToArray(), T.Normalize()])
+    img = Image.open(os.path.join(voc, "JPEGImages", "2007_000000.jpg")).convert("RGB")
+    calibrate_bn(model, tf(img, Image.new("L", img.size))[0][None])
+    C.save_checkpoint(exp_dir, "model", model, meta={"arch": C.arch_string(V_ARCH,
+                                                                           num_classes=21)},
+                      is_best=True)
+
+
+def test_loaders(spec, img_transforms, batch):
+    """The dataset's loader as the CLI builds it (workers 4, pad_last, pinned,
+    uploaded) and its eager twin step's inputs."""
+    from hyperseg_torch.cli.test import build_transforms
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.data.loader import DataLoader
+    ds = registry.build(spec, transforms=build_transforms(
+        img_transforms, ("seg_transforms.ToArray()", "seg_transforms.Normalize()")))
+    return ds, DataLoader(ds, batch_size=batch, workers=4, pad_last=True, device="cuda")
+
+
+def first_batch_vs_plain(ds, batch, b):
+    """The loader's first batch (workers, native ops, pinned upload) against
+    the plain path's: the same samples in this process through the native
+    ops' *_plain twins, stacked by numpy; bit for bit."""
+    import numpy as np
+    from hyperseg_torch import native
+    saved = {n: getattr(native, n) for n in ("map_labels", "rgb_label_to_index")}
+    try:
+        for n in saved:
+            setattr(native, n, getattr(native, f"{n}_plain"))
+        samples = [ds[i] for i in range(b)]
+    finally:
+        for n, fn in saved.items():
+            setattr(native, n, fn)
+    image = np.stack([s[0].numpy() for s in samples])
+    label = np.stack([s[1].numpy() for s in samples])
+    same = (np.array_equal(batch["image"][:b].cpu().numpy(), image)
+            and np.array_equal(batch["label"][:b].cpu().numpy(), label)
+            and batch["label"].dtype == torch.uint8)
+    if not same:
+        fail("the loader's first batch differs from the plain path's")
+    return same
+
+
+def label_resize_check(call, dtype):
+    """K6 at the label's resolution (the CLI's new call, logits to the
+    labels' 1024x2048) against its twin, and timed beside the twin, the
+    library call and the bound."""
+    got, want = call.kernel(), call.plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    tol = KERNEL_TOL[dtype] * max(1.0, want.float().abs().max().item())
+    if not (bool(torch.isfinite(got).all()) and err <= tol):
+        fail(f"resize_bilinear at the label resolution {tuple(got.shape)} {dtype}: "
+             f"max_abs_err {err:.3e} > {tol:.3e}")
+    del got, want
+    ms, plain_ms = cuda_ms(call.kernel, iters=10), cuda_ms(call.plain, iters=3, warmup=1)
+    lib, lib_fn = call.library()
+    lib_ms = cuda_ms(lib_fn, iters=10)
+    b_ms, by = bound_ms(call.moved(), call.flops(), dtype)
+    torch.cuda.empty_cache()
+    return dict(shape=list(call.args[0].shape), out=list(call.out.shape), dtype=str(dtype),
+                max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library=lib, bound_ms=b_ms, bound_by=by)
+
+
+def eager_pass(exp_dir, loader, dtype, num_classes, record_label_resize):
+    """The eager eval step (train/step.py make_eval_step) over the loader's
+    batches: the summed confusion matrix, the first batch and its host
+    predictions, and K6's label-resolution call of that batch."""
+    import numpy as np
+    from hyperseg_torch.core import checkpoint as C
+    from hyperseg_torch.nn.modules import cast_weights
+    from hyperseg_torch.train.step import make_eval_step
+    net, _ = C.load_model(os.path.join(exp_dir, "model_best.npz"), device="cuda",
+                          num_classes=num_classes)
+    step = make_eval_step(cast_weights(net, dtype), num_classes=num_classes)
+    confmat, first, preds, k6 = 0, None, None, None
+    for batch in loader:
+        if first is None and record_label_resize:
+            with recording({"resize_bilinear": KERNELS["resize_bilinear"]}) as calls:
+                out = step(batch["image"].to(dtype), batch["label"])
+            k6 = next(c for c in calls if tuple(c.out.shape[2:]) == tuple(batch["label"].shape[1:]))
+        else:
+            out = step(batch["image"].to(dtype), batch["label"])
+        if first is None:
+            first, preds = batch, out["preds"].cpu().numpy()
+        confmat = confmat + out["confmat"].cpu().numpy()
+    del net, step
+    return confmat, first, preds, k6
+
+
+def run_cli(tag, key, exp_dir, spec, img_transforms, dtype, batch, workers, per_forward, smi):
+    """One hyperseg_torch.cli.test run with the launch counters set to 0 just
+    before and read just after (the capture's warm-up and capture forwards,
+    nothing per batch), its scores file, and its timings line."""
+    import numpy as np
+    from hyperseg_torch.cli import test as test_cli
+    from hyperseg_torch.core.predictor import GRAPH_WARMUP
+    from hyperseg_torch.ops.kernels import LAUNCHES
+
+    report = {}
+    LAUNCHES.clear()
+    miou = test_cli.main(exp_dir, test_dataset=spec, img_transforms=img_transforms,
+                         batch_size=batch, workers=workers, forced=True,
+                         compute_dtype=dtype, report=report)
+    launches = dict(LAUNCHES)
+    for name, per in per_forward.items():
+        if launches.get(name, 0) != per * (GRAPH_WARMUP + 1):
+            fail(f"test {key} {tag}: {name}: {launches.get(name, 0)} launches, expected "
+                 f"{per} x {GRAPH_WARMUP + 1} (warm-up and capture)")
+    with np.load(os.path.join(exp_dir, "test", "scores.npz")) as z:
+        scores = {k: z[k] for k in z.files}
+    if set(scores) != {"ious", "global_acc", "class_acc", "class_iou"}:
+        fail(f"test {key} {tag}: scores.npz keys {sorted(scores)}")
+    if not all(np.isfinite(v).all() for v in scores.values()) or \
+            scores["ious"].shape != (report["timings"]["images"],):
+        fail(f"test {key} {tag}: scores {scores}")
+    t = report["timings"]
+    print(f"test   {key} {tag} {dtype} b{batch} workers {workers}: {t['images']} images, "
+          f"{t['batches']} batches in {t['seconds']:.3f} s: {t['img_per_s']:.2f} img/s "
+          f"end to end (after the first batch {t['after_first_img_per_s']:.2f}); first batch "
+          f"{t['first_batch_s']:.3f} s (loader start {t['first_wait_s']:.3f} s, capture); per "
+          f"batch: loader wait {t['loader_wait_ms']:.3f} ms, upload {t['upload_ms']:.3f} ms, "
+          f"replay {t['replay_ms']:.3f} ms (events), host jaccard {t['host_ms']:.3f} ms; "
+          f"mIoU {miou:.4f}, global_acc {float(scores['global_acc']):.6f} [{smi}]", flush=True)
+    return report, scores, launches
+
+
+def loader_feed(ds, batch, passes=2):
+    """The loader alone, the replay aside, over `passes` passes of the
+    dataset in one iteration: the port's loader (4 spawned worker processes,
+    pinned, uploaded) against 4 threads mapping the samples as the JAX
+    loader does, then the collate. Returns {kind: (s to the first batch, ms
+    a batch after it)}."""
+    from concurrent.futures import ThreadPoolExecutor
+    from hyperseg_torch.data.loader import DataLoader, PadLast, default_collate
+    order = list(range(len(ds))) * passes
+    out = {}
+    t0 = time.perf_counter()
+    stamps = []
+    for _ in DataLoader(ds, batch_size=batch, sampler=order, workers=4, pad_last=True,
+                        device="cuda"):
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+    out["processes"] = (stamps[0] - t0, 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1))
+    collate = PadLast(default_collate, batch, True, 255)
+    t0 = time.perf_counter()
+    stamps = []
+    with ThreadPoolExecutor(4) as pool:
+        for i in range(0, len(order), batch):
+            collate(list(pool.map(ds.__getitem__, order[i:i + batch])))
+            stamps.append(time.perf_counter())
+    out["threads"] = (stamps[0] - t0, 1e3 * (stamps[-1] - stamps[0]) / (len(stamps) - 1))
+    return out
+
+
+def sample_parts(ds, n=4):
+    """Host ms per sample of each stage of the Cityscapes pipeline, on one
+    core, averaged over the first n frames: PNG decode of the image, the
+    PIL resize, ToArray, Normalize, the label's decode, the id map
+    (native), the label tensor."""
+    import numpy as np
+    from PIL import Image
+    from hyperseg_torch import native
+    from hyperseg_torch.data import seg_transforms as T
+    from hyperseg_torch.data.cityscapes import ID_TO_TRAIN_ID
+    from hyperseg_torch.data.datasets import label_tensor
+    stages = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        stages[name] = stages.get(name, 0.0) + 1e3 * (time.perf_counter() - t0) / n
+        return out
+    resize, to_array, norm = T.ImageResize(list(TEST["res"])), T.ToArray(), T.Normalize()
+    for i in range(n):
+        img = timed("decode image", lambda: Image.open(ds.images[i]).convert("RGB"))
+        img = timed("resize", resize, img)
+        x, _ = timed("ToArray", to_array, img, Image.new("L", (1, 1)))
+        timed("Normalize", norm, x)
+        lbl = timed("decode label", lambda: np.array(Image.open(ds.targets[i][0])))
+        lbl = timed("map ids", native.map_labels, lbl, ID_TO_TRAIN_ID, ID_TO_TRAIN_ID[0])
+        timed("label tensor", label_tensor, Image.fromarray(lbl, mode="P"))
+    return stages
+
+
+def step_parts(exp_dir, batch, dtype, num_classes):
+    """Device ms of the parts of the CLI's batch step on one loaded batch
+    (CUDA events over a warm loop): the forward, K6 to the labels'
+    resolution, the argmax, per_image_confmat and its sum."""
+    from hyperseg_torch.core import checkpoint as C
+    from hyperseg_torch.nn import functional as F
+    from hyperseg_torch.nn.modules import cast_weights
+    from hyperseg_torch.train import metrics as M
+    net, _ = C.load_model(os.path.join(exp_dir, "model_best.npz"), device="cuda",
+                          num_classes=num_classes)
+    cast_weights(net, dtype)
+    x, label = batch["image"].to(dtype), batch["label"]
+    with torch.no_grad():
+        logits = net(x)
+        up = F.resize_bilinear(logits, label.shape[1:])
+        preds = up.argmax(1)
+        parts = dict(forward=cuda_ms(lambda: net(x), iters=5),
+                     resize=cuda_ms(lambda: F.resize_bilinear(logits, label.shape[1:]), iters=5),
+                     argmax=cuda_ms(lambda: up.argmax(1), iters=5),
+                     confmat=cuda_ms(lambda: M.per_image_confmat(label, preds, num_classes)
+                                     .sum(0), iters=5))
+    del net, logits, up, preds
+    torch.cuda.empty_cache()
+    return parts
+
+
+def run_test(smi):
+    """The TEST phase. Returns (numbers, {model: launches}, K6's label-
+    resolution entries)."""
+    import tempfile
+    import numpy as np
+    from hyperseg_torch import native
+    from hyperseg_torch.cli import test as test_cli
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.train import metrics as M
+
+    t_phase = time.perf_counter()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    native.load()
+    if not os.path.isfile(native.library_path()):
+        fail("native: the host ops library was not built")
+    print(f"test   native host ops built with {native.CXX} in {time.perf_counter() - t0:.2f} s:"
+          f" {os.path.relpath(native.library_path(), HERE)}", flush=True)
+    out, launches, label_resize = {"native": native.library_path()}, {}, {}
+    per_forward = dict(MODELS["M"].per_forward)
+    per_forward["resize_bilinear"] += 1           # the logits to the labels' resolution
+    with tempfile.TemporaryDirectory() as tmp:
+        root, exp_dir = os.path.join(tmp, "cityscapes"), os.path.join(tmp, "exp_m")
+        make_cityscapes(root, exp_dir)
+        spec = f"cityscapes.CityscapesDataset({root!r}, 'val', 'fine', 'semantic')"
+        img_tf = [f"seg_transforms.ImageResize({list(TEST['res'])})"]
+        for tag, dtype_name, batch, workers in TEST["runs"]:
+            dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+            report, scores, lc = run_cli(tag, "M", exp_dir, spec, img_tf, dtype_name, batch,
+                                         workers, per_forward, smi)
+            for name, v in lc.items():
+                launches.setdefault("M", {})[name] = launches.get("M", {}).get(name, 0) + v
+            ds, loader = test_loaders(spec, img_tf, batch)
+            eager, first, preds, k6 = eager_pass(exp_dir, loader, dtype, 19, True)
+            if not np.array_equal(report["confmat"], eager):
+                fail(f"test M {tag}: the CLI's confusion matrix differs from the eager step's "
+                     f"by {np.abs(report['confmat'] - eager).sum()} counts")
+            labels = first["label"].cpu().numpy()
+            host = [M.per_image_jaccard(labels[j], preds[j], 19, ignore_index=0)
+                    for j in range(batch)]
+            if list(report["ious"][:batch]) != host:
+                fail(f"test M {tag}: per-image ious {report['ious'][:batch]} != numpy "
+                     f"per_image_jaccard {host}")
+            first_batch_vs_plain(ds, first, batch)
+            present = eager.sum(1) > 0
+            iou = scores["class_iou"][present]
+            print(f"test   M {tag}: confusion matrix equals the eager step's ({int(eager.sum())} "
+                  f"pixels); per-image ious equal numpy per_image_jaccard on batch 0; the "
+                  f"loader's first batch equals the plain path's (native *_plain twins, numpy "
+                  f"stack); classes present {int(present.sum())}, their IoU "
+                  f"{iou.min():.6f}-{iou.max():.6f}", flush=True)
+            if tag == "a" and not (float(scores["global_acc"]) >= TEST_GLOBAL_ACC
+                                   and iou.min() >= TEST_CLASS_IOU):
+                fail(f"test M a: global_acc {float(scores['global_acc'])} (min "
+                     f"{TEST_GLOBAL_ACC}), class IoU {iou.min()} (min {TEST_CLASS_IOU}) on "
+                     f"labels the model made")
+            label_resize[f"b{batch} {dtype_name}"] = r = label_resize_check(k6, dtype)
+            print(f"test   K6 at the label resolution {r['shape']} -> {r['out']} {dtype_name}: "
+                  f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}); kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, interpolate "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+                  flush=True)
+            parts = step_parts(exp_dir, first, dtype, 19)
+            print(f"test   M {tag} the step's parts, device ms (events): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}, "
+                f"replay {report['timings']['replay_ms']:.3f}", flush=True)
+            if tag == "a":
+                stages = out["sample_stages_ms"] = sample_parts(ds)
+                print(f"test   M one sample's host stages, ms on one core: " + ", ".join(
+                    f"{k} {v:.3f}" for k, v in stages.items()) + f"; sum "
+                    f"{sum(stages.values()):.3f}", flush=True)
+            feed = loader_feed(ds, batch)
+            print(f"test   M {tag} loader alone, b{batch}, two passes: " + "; ".join(
+                f"4 {k}: first batch after {v[0]:.3f} s, then {v[1]:.3f} ms a batch"
+                for k, v in feed.items()) + f"; replay {report['timings']['replay_ms']:.3f} "
+                f"ms [{smi}]", flush=True)
+            out[f"M {tag}"] = dict(dtype=dtype_name, batch=batch, workers=workers,
+                                   timings=report["timings"], launches=lc,
+                                   global_acc=float(scores["global_acc"]),
+                                   miou=float(np.mean(scores["class_iou"])),
+                                   classes_present=int(present.sum()),
+                                   min_present_iou=float(iou.min()),
+                                   step_parts_ms=parts, loader_alone=feed)
+            del loader, first, k6
+            torch.cuda.empty_cache()
+        # the cache: a second run without `forced` reads scores.npz, runs nothing
+        LAUNCHES.clear()
+        report = {}
+        miou = test_cli.main(exp_dir, test_dataset=spec, img_transforms=img_tf, report=report)
+        if report["confmat"] is not None or sum(LAUNCHES.values()) or \
+                miou != out["M b"]["miou"]:
+            fail("test M: a run without forced did not read scores.npz")
+        print(f"test   M cached: a run without forced read scores.npz (mIoU {miou:.4f}, no "
+              f"launch)", flush=True)
+
+        root, exp_dir = os.path.join(tmp, "vocsbd"), os.path.join(tmp, "exp_v")
+        make_voc(root, exp_dir)
+        spec = f"voc_sbd.VOCSBDDataset({root!r}, 'val')"
+        img_tf = ["seg_transforms.ConstantPad(512, lbl_fill=255)"]
+        report, scores, launches["V"] = run_cli("voc", "V", exp_dir, spec, img_tf, "float32",
+                                                TEST["voc_batch"], 4, MODELS["V"].per_forward,
+                                                smi)
+        ds, loader = test_loaders(spec, img_tf, TEST["voc_batch"])
+        eager, first, _, _ = eager_pass(exp_dir, loader, torch.float32, 21, False)
+        if not np.array_equal(report["confmat"], eager):
+            fail("test V: the CLI's confusion matrix differs from the eager step's")
+        first_batch_vs_plain(ds, first, TEST["voc_batch"])
+        print(f"test   V voc: confusion matrix equals the eager step's ({int(eager.sum())} "
+              f"pixels); the loader's first batch equals the plain path's", flush=True)
+        out["V voc"] = dict(dtype="float32", batch=TEST["voc_batch"], workers=4,
+                            timings=report["timings"], launches=launches["V"],
+                            miou=float(np.mean(scores["class_iou"])))
+        del loader, first
+    torch.cuda.synchronize()
+    gc.collect()
+    left = torch.cuda.memory_allocated()
+    alive = sorted(((tuple(o.shape), str(o.dtype)) for o in gc.get_objects()
+                    if isinstance(o, torch.Tensor) and o.is_cuda), key=lambda t: -math.prod(t[0]))
+    torch._C._cuda_clearCublasWorkspaces()     # one per stream that ran a cuBLAS call
+    print(f"test   done in {time.perf_counter() - t_phase:.1f} s wall; card memory allocated "
+          f"{held / 2 ** 20:.1f} MiB before the phase, {left / 2 ** 20:.1f} MiB after, "
+          f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB with cuBLAS's workspaces "
+          f"cleared; the largest CUDA tensors alive: {alive[:4]}", flush=True)
+    return out, launches, label_resize
+
+
 def synthetic_batch(b, hw, seed, device, num_classes=19):
     """A fixed training batch made from a seed on `device`: labels as 32x32
     tiles of random classes with a band of 255 across the middle rows; the
@@ -1566,6 +2080,8 @@ def main():
     fps_runs, fps_launches = run_fps(fps["M"])
     print(f"fps    done in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
+    test_runs, test_launches, label_resize = run_test(smi.stdout.strip())
+
     train_launches, stem_conv, resize_train, train = run_training()
 
     kernels = kernels_line(rows, launches)
@@ -1573,7 +2089,12 @@ def main():
         if fps_launches.get(k["name"]):
             k["launches"] += fps_launches[k["name"]]
             k["launches_by_model"]["M test_fps"] = fps_launches[k["name"]]
+    for k in kernels:
+        for m, c in test_launches.items():
+            k["launches"] += c.get(k["name"], 0)
+            k["launches_by_model"][f"{m} test"] = c.get(k["name"], 0)
     k6 = next(k for k in kernels if k["name"] == "resize_bilinear")
+    k6["label_resolution"] = label_resize
     for m, c in train_launches.items():
         k6["launches"] += c["resize_bilinear"]
         k6["launches_by_model"][f"{m} train"] = c["resize_bilinear"]
@@ -1583,7 +2104,7 @@ def main():
                       "img_per_s": {m: {str(b): v for b, v in f.items()}
                                     for m, f in fps.items()},
                       "graph": {m: e["graph"] for m, e in extra.items()},
-                      "test_fps": fps_runs, "train": train,
+                      "test_fps": fps_runs, "test": test_runs, "train": train,
                       "unify_copy": extra["SC"]["unify_copy"], "tta": extra["SV"]["tta"]}),
           flush=True)
     print(smi.stdout.strip(), flush=True)

@@ -26,8 +26,11 @@ full-map forms of `ops/patch.py`; `core/` (the registry of arch strings,
 checkpoints in the JAX package's container, the reference .pth importer,
 BN folding, and the bucketed `Predictor`, which replays each bucket's
 forward from a CUDA graph); ImageNet backbone weights from a local file
-(`models/backbones/pretrained.py`); and the `cli.test_fps` and
-`cli.convert` entry points.
+(`models/backbones/pretrained.py`); the data layer (`data/`: the
+Cityscapes, CamVid and VOC + SBD datasets, the paired transforms, a loader
+of worker processes that uploads pinned batches on a side stream;
+`native/`: the host ops, built with g++ at first use); and the `cli.test`,
+`cli.test_fps` and `cli.convert` entry points.
 
 This package imports neither JAX nor `hyperseg_tpu`.
 """

@@ -5,13 +5,13 @@ Spec(target, args, kwargs), or a string "pkg.mod.fn(a, b=c)" parsed with
 `ast`, whose arguments must be Python literals: nothing is evaluated.
 
 The alias table maps the short module names, the reference's module paths
-("hyperseg.models.*", the arch strings its checkpoints store) and the JAX
-package's ("hyperseg_tpu.models.*", the arch strings its checkpoints store)
-onto this package, so an arch string written by any of the three rebuilds
-this package's model. Only the modules this package has are aliased (the
-models and the EfficientNet backbone); the data and loss aliases come with
-the data and CLI modules. A target that still names `jax` or
-`hyperseg_tpu` after aliasing is refused: this package imports neither.
+("hyperseg.models.*", the arch strings its checkpoints store;
+"hyperseg.datasets.*", "hyperseg.losses.*", its configs') and the JAX
+package's ("hyperseg_tpu.models.*", "hyperseg_tpu.data.*" and its losses
+and schedules, its checkpoints' and configs') onto this package, so an arch
+string or a dataset or transform spec written for any of the three builds
+this package's object. A target that still names `jax` or `hyperseg_tpu`
+after aliasing is refused: this package imports neither.
 """
 
 from __future__ import annotations
@@ -23,21 +23,29 @@ from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Tuple
 
 _MODELS = ("hyperseg_v0_1", "hyperseg_v0_2", "hyperseg_v1_0", "hyperseg_v1_0_unify")
+_DATA = ("seg_transforms", "cityscapes", "camvid", "voc_sbd")
+_TRAIN = ("losses", "schedule")
 
 KNOWN_ALIASES: Dict[str, str] = {
     **{m: f"hyperseg_torch.models.{m}" for m in _MODELS},
     "efficientnet": "hyperseg_torch.models.backbones.efficientnet",
-    # the reference's module paths (its checkpoints' arch strings)
+    **{m: f"hyperseg_torch.data.{m}" for m in _DATA},
+    **{m: f"hyperseg_torch.train.{m}" for m in _TRAIN},
+    # the reference's module paths (its checkpoints' arch strings, its configs)
     **{f"hyperseg.models.{m}": f"hyperseg_torch.models.{m}" for m in _MODELS},
     "hyperseg.models.backbones.efficientnet": "hyperseg_torch.models.backbones.efficientnet",
-    # the JAX package's (its checkpoints' arch strings)
+    **{f"hyperseg.datasets.{m}": f"hyperseg_torch.data.{m}" for m in _DATA},
+    "hyperseg.losses.bootstrapped_ce_loss": "hyperseg_torch.train.losses",
+    # the JAX package's (its checkpoints' arch strings, its configs)
     **{f"hyperseg_tpu.models.{m}": f"hyperseg_torch.models.{m}" for m in _MODELS},
     "hyperseg_tpu.models.backbones.efficientnet": "hyperseg_torch.models.backbones.efficientnet",
+    **{f"hyperseg_tpu.data.{m}": f"hyperseg_torch.data.{m}" for m in _DATA},
+    **{f"hyperseg_tpu.train.{m}": f"hyperseg_torch.train.{m}" for m in _TRAIN},
 }
 # this package's model modules -> the reference's paths, which arch_string
 # writes so that both packages rebuild the model from a checkpoint
 REFERENCE_PATHS: Dict[str, str] = {
-    v: k for k, v in KNOWN_ALIASES.items() if k.startswith("hyperseg.")}
+    v: k for k, v in KNOWN_ALIASES.items() if k.startswith("hyperseg.models.")}
 FOREIGN = ("jax", "jaxlib", "hyperseg_tpu")
 
 

@@ -3,7 +3,9 @@
 The confusion matrix is accumulated on the tensors' device, one scatter-add
 per batch into a buffer of fixed size (no host read: the eval step replays
 from a CUDA graph); the scores are derived on the host from the accumulated
-matrix.
+matrix. The eval CLI ranks its images by per_image_jaccard, made on the
+host from each image's matrix (per_image_confmat, jaccard_from_confmat),
+so it copies (B, C, C) counts off the card, not the predictions.
 """
 
 from __future__ import annotations
@@ -29,6 +31,45 @@ def confusion_matrix(labels, preds, num_classes: int, ignore_index=255):
     hist = torch.zeros(num_classes * num_classes + 1, dtype=torch.int64, device=idx.device)
     hist.index_add_(0, idx, torch.ones_like(idx))
     return hist[:-1].reshape(num_classes, num_classes)
+
+
+def per_image_confmat(labels, preds, num_classes: int, ignore_index=255):
+    """(B, num_classes, num_classes) int64 confusion matrix of each image,
+    labels/preds (B, ...) integer tensors; the same counts as
+    confusion_matrix's, image by image, into one preallocated
+    B * num_classes**2 + 1 buffer (the trash bin last), so it too runs
+    inside a CUDA graph. Its sum over the batch is the batch's
+    confusion_matrix."""
+    b = labels.shape[0]
+    labels, preds = labels.reshape(b, -1).long(), preds.reshape(b, -1).long()
+    valid = (labels >= 0) & (labels < num_classes)
+    if ignore_index is not None:
+        valid &= labels != ignore_index
+    cells = num_classes * num_classes
+    image = torch.arange(b, device=labels.device).view(b, 1) * cells
+    idx = torch.where(valid, image + labels * num_classes + preds,
+                      torch.full_like(labels, b * cells)).reshape(-1)
+    hist = torch.zeros(b * cells + 1, dtype=torch.int64, device=idx.device)
+    hist.index_add_(0, idx, torch.ones_like(idx))
+    return hist[:-1].reshape(b, num_classes, num_classes)
+
+
+def jaccard_from_confmat(confmat, ignore_index=0, eps=1e-6):
+    """per_image_jaccard of one image from its (C, C) confusion matrix (one
+    slice of per_image_confmat): the pixels labelled ignore_index leave the
+    matrix (its row is zeroed) when it names a class, and the score follows
+    per_image_jaccard's arithmetic, so the two agree exactly."""
+    confmat = np.array(confmat, dtype=np.int64)
+    num_classes = confmat.shape[0]
+    ignored = ignore_index is not None and 0 <= ignore_index < num_classes
+    if ignored:
+        confmat[ignore_index] = 0
+    inter = np.diag(confmat)
+    union = confmat.sum(1) + confmat.sum(0) - inter
+    if ignored:
+        union[ignore_index] = 0
+    sel = (inter / (union + eps))[union > 0]
+    return float(sel.mean()) if sel.size else 0.0
 
 
 def scores_from_confmat(hist):

@@ -1,8 +1,10 @@
-"""Image utilities, NCHW tensors.
+"""Image utilities on CHW / NCHW tensors.
 
-Counterpart of create_pyramid in hyperseg_tpu/utils/img_utils.py:17-35
-(reference img_utils.py:110-128), on the input's device, so that the
-pyramid of an image on the card is built there.
+Counterpart of hyperseg_tpu/utils/img_utils.py (reference img_utils.py and
+the visualization helpers of seg_utils.py): `create_pyramid` on the input's
+device, so that the pyramid of an image on the card is built there, and the
+eval CLI's display helpers, `denormalize`, `blend_seg` and `make_grid`, on
+CHW float tensors in [0, 1].
 """
 
 from __future__ import annotations
@@ -11,6 +13,38 @@ from typing import List
 
 import torch
 import torch.nn.functional as TF
+
+
+def denormalize(img, mean=(0.5,) * 3, std=(0.5,) * 3) -> torch.Tensor:
+    """Invert Normalize back to [0, 1] (tensor2rgb, img_utils.py:49-90):
+    img (C, H, W) float."""
+    mean = torch.tensor(mean, dtype=torch.float32).view(-1, 1, 1)
+    std = torch.tensor(std, dtype=torch.float32).view(-1, 1, 1)
+    return (img.float().cpu() * std + mean).clamp(0.0, 1.0)
+
+
+def blend_seg(img, seg, color_map, alpha: float = 0.5, ignore_index: int = 255) -> torch.Tensor:
+    """Colorized segmentation overlay (seg_utils.py:82-103): img (C, H, W)
+    in [0, 1], seg (H, W) class indices; pixels labelled ignore_index keep
+    the image."""
+    cmap = torch.tensor(color_map, dtype=torch.float32) / 255.0
+    seg = torch.as_tensor(seg).long().cpu()
+    valid = seg != ignore_index
+    colored = cmap[torch.where(valid, seg, 0).clamp(0, len(cmap) - 1)].permute(2, 0, 1)
+    out = torch.where(valid, img * (1 - alpha) + colored * alpha, img)
+    return out.clamp(0.0, 1.0)
+
+
+def make_grid(*imgs, pad: int = 2) -> torch.Tensor:
+    """Horizontal concat of (C, H, W) images, each padded at the bottom to the
+    tallest, with `pad` white columns between them (img_utils.py:93-107)."""
+    h = max(im.shape[1] for im in imgs)
+    parts = []
+    for im in imgs:
+        if im.shape[1] != h:
+            im = TF.pad(im, (0, 0, 0, h - im.shape[1]))
+        parts += [im, torch.ones(im.shape[0], h, pad, dtype=im.dtype)]
+    return torch.cat(parts[:-1], dim=2)
 
 
 def create_pyramid(img, n: int = 1) -> List[torch.Tensor]:

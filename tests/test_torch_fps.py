@@ -22,7 +22,8 @@ from hyperseg_torch.core.predictor import Predictor, graphed, pad_to_multiple
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.train import metrics as M
 
-from torch_parity import TINY_ARCHS, TINY_CLASSES, assert_close_rel, nchw, tiny_jax_params
+from torch_parity import (TINY_ARCHS, TINY_CLASSES, assert_close_rel, camvid_spec,
+                          make_camvid, nchw, tiny_jax_params)
 
 SHAPES = [(50, 70, 3), (64, 96, 3), (33, 129, 3)]   # tests/test_predictor.py's
 
@@ -107,18 +108,21 @@ def test_confusion_matrix_matches_jax(num_classes):
 def test_fps_main_on_the_cpu(tiny, tmp_path, source):
     """test_fps.main(device="cpu") on the tiny arch, 2 iterations at 64x96,
     float32, from an arch string or a JAX checkpoint, writes scores.npz with
-    a class_iou per class; a dataset raises until the data port exists."""
+    a class_iou per class; with a dataset (a synthetic CamVid tree of three
+    images, the loader dropping the last partial batch of two) its 12
+    classes take the place of num_classes, as in the JAX CLI."""
     from hyperseg_tpu.core import checkpoint as JC
     _, params, _ = tiny
     kw = dict(batch_size=1, iterations=2, res=(64, 96), num_classes=TINY_CLASSES,
               compute_dtype="float32", device="cpu")
     if source == "dataset":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            test_fps.main(str(tmp_path), arch=TINY_ARCHS["reference"],
-                          test_dataset="camvid.CamVidDataset('x')", **kw)
+        make_camvid(tmp_path / "camvid", n=3)
+        fps = test_fps.main(str(tmp_path), arch=TINY_ARCHS["reference"],
+                            **dict(kw, batch_size=2, num_classes=19, iterations=None),
+                            test_dataset=camvid_spec(tmp_path / "camvid"), workers=0,
+                            img_transforms=["seg_transforms.Resize([64, 96])"])
         assert F.BN_IDENTITY is False
-        return
-    if source == "arch":
+    elif source == "arch":
         fps = test_fps.main(str(tmp_path), arch=TINY_ARCHS["reference"], **kw)
     else:
         arch = TINY_ARCHS["jax"][:-1] + f", num_classes={TINY_CLASSES})"

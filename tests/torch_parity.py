@@ -5,8 +5,11 @@ the CPU, the port with device="cpu". Tensors cross as numpy arrays, NHWC on
 the JAX side and NCHW on the port's.
 """
 
+import os
+
 import numpy as np
 import torch
+from PIL import Image
 
 HYPERSEG_M_KW = dict(
     levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
@@ -121,3 +124,25 @@ def tiny_jax_params(num_classes=TINY_CLASSES):
     return jm, {k: ((rs.rand(*v.shape) + 0.5).astype(np.float32) if k.endswith(".running_var")
                     else v + (rs.randn(*v.shape) * 0.05).astype(np.float32))
                 for k, v in torch_to_jax_params(tm.state_dict()).items()}
+
+
+def make_camvid(root, n=5, size=(64, 96)):
+    """A CamVid 'val' split under root: images of tiles of colour with noise,
+    labels of 8x8 tiles of CamVid colours, one row of an unknown colour per
+    image (-> 255)."""
+    from hyperseg_torch.data.camvid import CLASS_COLOR
+    rng = np.random.RandomState(0)
+    colors = np.asarray(CLASS_COLOR, np.uint8)
+    os.makedirs(root / "val"), os.makedirs(root / "val_labels")
+    for i in range(n):
+        tiles = rng.randint(0, len(colors), (size[0] // 8, size[1] // 8))
+        lab = colors[tiles].repeat(8, 0).repeat(8, 1)
+        img = np.clip(lab.astype(np.int32) + rng.randint(-40, 40, lab.shape), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(root / "val" / f"f{i}.png")
+        lab[i, :] = (7, 7, 7)
+        Image.fromarray(lab).save(root / "val_labels" / f"f{i}_L.png")
+
+
+def camvid_spec(root, package="hyperseg_torch"):
+    """The dataset spec of make_camvid's tree for either package's CLI."""
+    return f"{package}.data.camvid.CamVidDataset({str(root)!r}, 'val')"
