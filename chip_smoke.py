@@ -70,12 +70,37 @@ Phases (any failure exits non-zero before the result lines):
      loader's first batch against the plain path's (the native ops' twins, a
      numpy stack; equal), in (a) global_acc >= 0.999 and every present
      class's IoU >= 0.99; K6 at the labels' resolution against its twin,
-     timed; the step's parts timed; the loader alone, worker processes
-     against threads; the scores cache read by a run without `forced`;
+     timed; the step's parts timed; in (a) the loader alone, worker
+     processes against threads; the scores cache read by a run without `forced`;
      then V on 8 VOC + SBD images (500x375 and 375x500, ConstantPad to
      512x512) at batch 4, the same gates but the accuracy; a `test` line
      per run: img/s end to end, ms a batch waiting on the loader, in the
      upload, the replay and the host's jaccard;
+  TRAIN. hyperseg_torch.cli.train end to end, as a user runs it, from the
+     port's HyperSeg-M config (hyperseg_torch/configs/train/
+     cityscapes_efficientnet_b1_hyperseg-m.py `build_kwargs`: full width,
+     crop 512x1024, batch 16, the shipped transforms, Adam and PolyLR) with
+     pretrained=False, log_every 1, min(16, cores) loader workers and a few
+     steps an epoch, on a synthetic Cityscapes tree at the real file size
+     (2048x1024 PNGs; train labels of 64x64 tiles of random classes with a
+     band of void, val the same, two batches): (a) float32 (TF32 off), two
+     epochs with validation, then a third resumed from model_latest, without
+     validation: the checkpoint files and their meta, Adam's step and second
+     moments as the file holds them, the resumed first step's learning rate
+     schedule(saved step); (b) bfloat16, one fresh epoch of more steps than
+     the workers make while the first batch is awaited (the loader's pace),
+     with validation. Each with the launch counters set to 0 just before and read
+     just after, and per pass from the report: K3's raw conv once and K6
+     five times a training step, no eval-only kernel in training, the val
+     pass's capture (4 forwards, K6 once more each at the labels'
+     resolution) and nothing per replay; finite losses; each run's last val
+     matrix equal to an eager eval step's over the same batches on the saved
+     weights (the replay reads the epoch's weights); (b)'s step-1 loss
+     within TRAIN_CLI["bf16_loss_rtol"] of (a)'s on the same batch and
+     weights; the checkpoint loads through core/checkpoint.load_model on the
+     card; a `train_cli` line per pass: ms a step (CUDA events, after the
+     first), loader wait and upload ms a step, img/s end to end and after
+     the first batch, seconds to the first batch, peak GiB, val replay ms;
   4. the training step (hyperseg_torch.train), float32, TF32 off, at each
      shipped config's crop and batch (train/recipes.py) with its optimizer,
      schedule and criterion:
@@ -95,11 +120,17 @@ Phases (any failure exits non-zero before the result lines):
          route's model alone on the card); then one
          step under torch.profiler, split into forward, backward, optimizer
          and metrics and by layer, with the top device kernels of the step
-         and of the last decoder level;
+         and of the last decoder level; at T3 also the step with its image
+         cast to bfloat16 (TRAIN_BF16: float32 parameters, gradients and
+         Adam state, the training CLI's bf16), on the first route: the same
+         gates, times and profile;
      T1. on T3's step-1 inputs (gather route), K3's raw conv (StemConv) and K6
          (ResizeBilinear): forwards against the twins, gradients against
          the twins' autograd within 1e-5 of the largest magnitude, and the
-         forward, twin, library and backward times;
+         forward, twin, library and backward times; then the same calls in
+         bfloat16 (the TRAIN phase's bf16 step): forward against the twin
+         and gradients against the twin's float32 autograd within
+         KERNEL_TOL[bf16] of the largest magnitude, and the same times;
      T2. one step at batch 2, 256x512, on the card against the same step on
          the CPU's plain path from seed 0's weights, drop rates 0: loss,
          gradients of the stem, every signal2weights and the weight
@@ -283,6 +314,8 @@ TRAIN_KERNELS = {
     "resize_bilinear": ("resize", "resize_bilinear_plain", K + "resize.cu", P + "resize.py:152"),
 }
 TRAIN_PER_STEP = {"stem_conv": 1, "resize_bilinear": 5}
+# the cells whose step also runs in bfloat16 (the image cast; the CLI's bf16)
+TRAIN_BF16 = ("T3",)
 # T1, T2: gradients of the kernels' Functions against the twins' autograd, and the
 # card's reduced step against the CPU's, float32 with TF32 off
 GRAD_TOL = 1e-5             # of the largest gradient magnitude
@@ -294,6 +327,20 @@ STEP_LOSS_RTOL = 1e-4
 # 1e-2 stays far below what a wrong backward gives (order 1)
 STEP_GRAD_REL_L2 = 1e-2
 STEP_ADAM_MASK = 1e-2       # Adam updates compared where |g| > this * max|g|
+
+
+# The TRAIN phase: the training CLI from the port's M config on a synthetic
+# Cityscapes tree: (a) float32, two epochs and a resumed third, (b) bfloat16,
+# one epoch of more steps; steps at the config's batch 16
+TRAIN_CLI = dict(config="hyperseg_torch/configs/train/cityscapes_efficientnet_b1_hyperseg-m.py",
+                 # val: two batches, the second a replay of the captured step
+                 train_frames=16, val_frames=24, cities=("aachen", "bochum"),
+                 # (b) runs past what the workers make while the first batch is
+                 # awaited (8 workers x 2 prefetched), so its wait shows their pace
+                 steps_a=6, steps_b=48, tile=64, void_rows=64,
+                 # (b)'s step-1 loss against (a)'s, relative: bf16 activations
+                 # through the whole network at random init
+                 bf16_loss_rtol=5e-2)
 
 
 def fail(msg):
@@ -1212,15 +1259,17 @@ def label_resize_check(call, dtype):
                 library=lib, bound_ms=b_ms, bound_by=by)
 
 
-def eager_pass(exp_dir, loader, dtype, num_classes, record_label_resize):
+def eager_pass(exp_dir, loader, dtype, num_classes, record_label_resize,
+               checkpoint="model_best.npz"):
     """The eager eval step (train/step.py make_eval_step) over the loader's
-    batches: the summed confusion matrix, the first batch and its host
+    batches on the checkpoint's weights (loaded through load_model on the
+    card): the summed confusion matrix, the first batch and its host
     predictions, and K6's label-resolution call of that batch."""
     import numpy as np
     from hyperseg_torch.core import checkpoint as C
     from hyperseg_torch.nn.modules import cast_weights
     from hyperseg_torch.train.step import make_eval_step
-    net, _ = C.load_model(os.path.join(exp_dir, "model_best.npz"), device="cuda",
+    net, _ = C.load_model(os.path.join(exp_dir, checkpoint), device="cuda",
                           num_classes=num_classes)
     step = make_eval_step(cast_weights(net, dtype), num_classes=num_classes)
     confmat, first, preds, k6 = 0, None, None, None
@@ -1430,11 +1479,13 @@ def run_test(smi):
                 print(f"test   M one sample's host stages, ms on one core: " + ", ".join(
                     f"{k} {v:.3f}" for k, v in stages.items()) + f"; sum "
                     f"{sum(stages.values()):.3f}", flush=True)
-            feed = loader_feed(ds, batch)
-            print(f"test   M {tag} loader alone, b{batch}, two passes: " + "; ".join(
-                f"4 {k}: first batch after {v[0]:.3f} s, then {v[1]:.3f} ms a batch"
-                for k, v in feed.items()) + f"; replay {report['timings']['replay_ms']:.3f} "
-                f"ms [{smi}]", flush=True)
+            feed = None
+            if tag == "a":     # the loader alone, once (PR 14 read both runs)
+                feed = loader_feed(ds, batch)
+                print(f"test   M {tag} loader alone, b{batch}, two passes: " + "; ".join(
+                    f"4 {k}: first batch after {v[0]:.3f} s, then {v[1]:.3f} ms a batch"
+                    for k, v in feed.items()) + f"; replay "
+                    f"{report['timings']['replay_ms']:.3f} ms [{smi}]", flush=True)
             out[f"M {tag}"] = dict(dtype=dtype_name, batch=batch, workers=workers,
                                    timings=report["timings"], launches=lc,
                                    global_acc=float(scores["global_acc"]),
@@ -1483,6 +1534,241 @@ def run_test(smi):
           f"{torch.cuda.memory_allocated() / 2 ** 20:.1f} MiB with cuBLAS's workspaces "
           f"cleared; the largest CUDA tensors alive: {alive[:4]}", flush=True)
     return out, launches, label_resize
+
+
+def make_cityscapes_trainval(root):
+    """The TRAIN phase's synthetic Cityscapes tree: TRAIN_CLI["train_frames"]
+    frames in two cities and TRAIN_CLI["val_frames"] in one, leftImg8bit
+    PNGs at 2048x1024 (structured_image), labels of square tiles of random
+    classes (a Cityscapes label id of each of the 19 train classes) with a
+    band of void (id 0, train id 255) across each frame."""
+    import numpy as np
+    from hyperseg_torch.data.cityscapes import CLASSES
+    t0 = time.perf_counter()
+    h, w = TEST["size"]
+    t, band = TRAIN_CLI["tile"], TRAIN_CLI["void_rows"]
+    ids = np.array([next(c.id for c in CLASSES if c.train_id == k) for k in range(19)],
+                   np.uint8)
+
+    def label(seed):
+        rng = np.random.RandomState(seed)
+        lab = ids[rng.randint(0, 19, (h // t, w // t))].repeat(t, 0).repeat(t, 1)
+        top = rng.randint(0, h - band)
+        lab[top:top + band] = 0
+        return lab
+    items = []
+    for split, n, cities in (("train", TRAIN_CLI["train_frames"], TRAIN_CLI["cities"]),
+                             ("val", TRAIN_CLI["val_frames"], ("frankfurt",))):
+        for i in range(n):
+            city = cities[i * len(cities) // n]
+            stem = f"{city}_000000_{i:06d}"
+            seed = 100 * (split == "val") + i
+            items.append((os.path.join(root, "leftImg8bit", split, city,
+                                       f"{stem}_leftImg8bit.png"),
+                          functools.partial(structured_image, np.random.RandomState(seed),
+                                            h, w)))
+            items.append((os.path.join(root, "gtFine", split, city,
+                                       f"{stem}_gtFine_labelIds.png"),
+                          functools.partial(label, 10_000 + seed)))
+    save_pngs(items)
+    print(f"train_cli M synthetic Cityscapes: {TRAIN_CLI['train_frames']} train and "
+          f"{TRAIN_CLI['val_frames']} val frames {w}x{h}, labels of {t}x{t} tiles of the 19 "
+          f"classes with {band} rows of void ({time.perf_counter() - t0:.1f} s)", flush=True)
+
+
+def load_config(path):
+    """A config file of this checkout, loaded by path (its name has dashes)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("train_config", os.path.join(HERE, path))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+PASS_KEYS = ("batches", "images", "seconds", "img_per_s", "first_batch_s",
+             "after_first_img_per_s", "first_wait_s", "loader_wait_ms", "device_ms",
+             "device_ms_first", "upload_ms", "peak_bytes", "losses", "miou", "lr_first",
+             "launches")
+
+
+def train_cli_gates(tag, report, steps, val_launches):
+    """Per pass of one training CLI run: K3's raw conv once and K6 five
+    times a step and nothing else in training, the capture's forwards in
+    its first val pass and nothing in a later one (replays launch no
+    wrapper), finite losses, one a step (log_every 1). Returns the launches
+    summed over the passes."""
+    want_train = {n: per * steps for n, per in TRAIN_PER_STEP.items()}
+    total = {}
+    for i, e in enumerate(report["epochs"]):
+        tr, va = e["train"], e.get("val", dict(launches={}))
+        if tr["launches"] != want_train:
+            fail(f"train_cli {tag} epoch {e['epoch']}: training launches {tr['launches']}, "
+                 f"expected {want_train} (no eval-only kernel)")
+        want_val = val_launches if i == 0 and "val" in e else {}
+        if va["launches"] != want_val:
+            fail(f"train_cli {tag} epoch {e['epoch']}: val launches {va['launches']}, "
+                 f"expected {want_val}")
+        if len(tr["losses"]) != steps or not all(math.isfinite(v) for v in tr["losses"]):
+            fail(f"train_cli {tag} epoch {e['epoch']}: losses {tr['losses']}")
+        for d in (tr["launches"], va["launches"]):
+            for n, c in d.items():
+                total[n] = total.get(n, 0) + c
+    return total
+
+
+def train_cli_line(tag, dtype, e, smi):
+    """One `train_cli` line per pass of an epoch."""
+    tr = e["train"]
+    busy = tr["device_ms"] * (tr["batches"] - 1) / 1e3 / (
+        tr["seconds"] - tr["first_batch_s"]) if tr["batches"] > 1 else float("nan")
+    print(f"train_cli M {tag} {dtype} epoch {e['epoch']}: {tr['batches']} steps of b16 "
+          f"512x1024 in {tr['seconds']:.3f} s: {tr['img_per_s']:.2f} img/s end to end "
+          f"(after the first batch {tr['after_first_img_per_s']:.2f}), first batch after "
+          f"{tr['first_batch_s']:.3f} s (loader start {tr['first_wait_s']:.3f} s); per step: "
+          f"device {tr['device_ms']:.3f} ms (CUDA events, steps 2-{tr['batches']}; step 1 "
+          f"{tr['device_ms_first']:.3f}), loader wait {tr['loader_wait_ms']:.3f} ms, upload "
+          f"{tr['upload_ms']:.3f} ms; device busy {busy:.1%} after the first batch; peak "
+          f"{tr['peak_bytes'] / 2 ** 30:.3f} GiB; lr of step 1 {tr['lr_first']:.9g}; losses "
+          f"{[round(v, 5) for v in tr['losses']]}; mIoU {tr['miou']:.4f} [{smi}]", flush=True)
+    if "val" not in e:
+        return
+    va = e["val"]
+    print(f"train_cli M {tag} {dtype} epoch {e['epoch']} val: {va['images']} images in "
+          f"{va['batches']} batches, {va['seconds']:.3f} s (first batch after "
+          f"{va['first_batch_s']:.3f} s); replay {va['device_ms'] or float('nan'):.3f} ms a "
+          f"batch (CUDA events; the first batch, with the capture, "
+          f"{va['device_ms_first']:.3f}); upload {va['upload_ms']:.3f} ms; peak "
+          f"{va['peak_bytes'] / 2 ** 30:.3f} GiB; mIoU {va['miou']:.4f}", flush=True)
+
+
+def eager_val_check(tag, exp_dir, kw, dtype, report):
+    """The run's last val pass's matrix against the eager eval step's over
+    the same batches (in-process loader) on the saved weights."""
+    import numpy as np
+    from hyperseg_torch.cli.test import build_transforms
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.data.loader import DataLoader
+    ds = registry.build(kw["val_dataset"], transforms=build_transforms(
+        kw["val_img_transforms"], kw["tensor_transforms"]))
+    loader = DataLoader(ds, batch_size=kw["batch_size"], workers=0, pad_last=True,
+                        device="cuda")
+    eager, *_ = eager_pass(exp_dir, loader, dtype, 19, False, checkpoint="model_latest.npz")
+    got = report["epochs"][-1]["val"]["confmat"]
+    if not np.array_equal(got, eager):
+        fail(f"train_cli {tag}: the last val replay's matrix differs from the eager step's on "
+             f"the saved weights by {np.abs(got - eager).sum()} counts")
+    print(f"train_cli M {tag}: the last val pass's matrix equals the eager eval step's on "
+          f"model_latest.npz (loaded by load_model on the card; {int(eager.sum())} pixels)",
+          flush=True)
+    torch.cuda.empty_cache()
+
+
+def run_train_cli(smi):
+    """The TRAIN phase. Returns (numbers, {"M train_cli <run>": launches})."""
+    import tempfile
+    import numpy as np
+    from hyperseg_torch.cli import train as train_cli
+    from hyperseg_torch.core.predictor import GRAPH_WARMUP
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.train.schedule import poly_lr
+
+    t_phase = time.perf_counter()
+    cfg = load_config(TRAIN_CLI["config"])
+    workers = min(16, os.cpu_count())
+    val_launches = {n: per * (GRAPH_WARMUP + 1) for n, per in MODELS["M"].per_forward.items()
+                    if per}
+    val_launches["resize_bilinear"] += GRAPH_WARMUP + 1    # the logits to the labels' size
+    out, launches, step1 = {"workers": workers, "cores": os.cpu_count()}, {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "cityscapes")
+        make_cityscapes_trainval(root)
+        kw = cfg.build_kwargs(root)
+        kw["model"] = kw["model"].with_overrides(pretrained=False)
+        kw.update(workers=workers, log_every=1)
+        print(f"train_cli M {os.path.basename(TRAIN_CLI['config'])}: workers {workers} "
+              f"(the config's {cfg.build_kwargs(root)['workers']}, {os.cpu_count()} cores), "
+              f"batch {kw['batch_size']}, pretrained False, log_every 1", flush=True)
+        sched = kw["scheduler"]
+        schedule = poly_lr(kw["optimizer"]["lr"], sched["max_epoch"], sched["power"])
+        for tag, dtype, epochs, steps in (("a", "float32", 2, TRAIN_CLI["steps_a"]),
+                                          ("a resumed", "float32", 3, TRAIN_CLI["steps_a"]),
+                                          ("b", "bfloat16", 1, TRAIN_CLI["steps_b"])):
+            # the resumed epoch trains only: its checks read the restored state
+            run_kw = dict(kw, val_dataset=None) if tag == "a resumed" else kw
+            exp = os.path.join(tmp, "exp_" + tag[0])
+            if tag == "a resumed":
+                with np.load(os.path.join(exp, "model_latest.opt.npz")) as z:
+                    saved_sq = sum(z[k].astype(np.float64).sum() for k in z.files
+                                   if k.endswith(".exp_avg_sq"))
+                    saved_steps = {float(z[k]) for k in z.files if k.endswith(".step")}
+            report = {}
+            LAUNCHES.clear()
+            t0 = time.perf_counter()
+            best = train_cli.main(exp, **dict(run_kw, epochs=epochs, compute_dtype=dtype,
+                                              train_iterations=steps * kw["batch_size"],
+                                              report=report))
+            wall = time.perf_counter() - t0
+            got = {n: c for n, c in LAUNCHES.items() if c}
+            total = train_cli_gates(tag, report, steps, val_launches)
+            if got != total:
+                fail(f"train_cli {tag}: launches {got} != the passes' sum {total}")
+            launches[f"M train_cli {tag}"] = got
+            for e in report["epochs"]:
+                train_cli_line(tag, dtype, e, smi)
+            for name in ("model_latest", "model_best"):
+                for ext in (".npz", ".json", ".opt.npz"):
+                    if not os.path.isfile(os.path.join(exp, name + ext)):
+                        fail(f"train_cli {tag}: {name + ext} was not written")
+            with open(os.path.join(exp, "model_latest.json")) as f:
+                meta = json.load(f)
+            if (set(meta) != {"epoch", "best_iou", "arch", "step"} or meta["epoch"] != epochs
+                    or meta["step"] != epochs * steps
+                    or "hyperseg_v1_0.hyperseg_efficientnet" not in meta["arch"]):
+                fail(f"train_cli {tag}: model_latest.json {meta}")
+            start = report["start"]
+            if tag == "a resumed":
+                lr = report["epochs"][0]["train"]["lr_first"]
+                ok = (start["epoch"] == 2 and start["step"] == 2 * steps
+                      and saved_steps == {float(2 * steps)}
+                      and start["adam_step"] == 2 * steps
+                      and abs(start["exp_avg_sq_sum"] / saved_sq - 1) < 1e-9
+                      and abs(lr / schedule(2 * steps) - 1) < 1e-12
+                      and len(report["epochs"]) == 1)
+                print(f"train_cli M {tag}: from epoch {start['epoch']}, step {start['step']}; "
+                      f"Adam's step {start['adam_step']} (file {sorted(saved_steps)}), second "
+                      f"moments sum {start['exp_avg_sq_sum']:.9e} (file {saved_sq:.9e}); lr of "
+                      f"the first resumed step {lr:.12g}, schedule({2 * steps}) "
+                      f"{schedule(2 * steps):.12g} (base {kw['optimizer']['lr']})", flush=True)
+                if not ok:
+                    fail(f"train_cli {tag}: the resume did not restore the epoch, step, Adam's "
+                         f"state and the schedule: {start}, lr {lr}")
+            elif start["resumed"] is not None or start["step"] != 0:
+                fail(f"train_cli {tag}: a fresh run resumed: {start}")
+            if tag != "a resumed":
+                eager_val_check(tag, exp, kw, getattr(torch, dtype), report)
+                step1[dtype] = report["epochs"][0]["train"]["losses"][0]
+            out[tag] = dict(dtype=dtype, epochs=epochs, steps=steps, best_iou=best, wall_s=wall,
+                            launches=got, start={k: v for k, v in start.items()
+                                                 if k != "resumed"},
+                            per_epoch=[{p: {k: e[p][k] for k in PASS_KEYS}
+                                        for p in ("train", "val") if p in e}
+                                       for e in report["epochs"]])
+            print(f"train_cli M {tag} {dtype}: {epochs - start['epoch']} epochs in {wall:.1f} s "
+                  f"wall, best mIoU {best:.4f}, launches {got}", flush=True)
+            del report
+            gc.collect()
+            torch.cuda.empty_cache()
+    rel = abs(step1["bfloat16"] - step1["float32"]) / abs(step1["float32"])
+    out["bf16_step1_loss_rel"] = rel
+    print(f"train_cli M bf16 against float32, step 1 on the same batch and weights: loss "
+          f"{step1['bfloat16']:.7f} against {step1['float32']:.7f}, rel {rel:.3e} (max "
+          f"{TRAIN_CLI['bf16_loss_rtol']})", flush=True)
+    if not rel <= TRAIN_CLI["bf16_loss_rtol"]:
+        fail(f"train_cli: the bf16 step-1 loss is {rel:.3e} from the float32 one")
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()     # one per stream that ran a cuBLAS call
+    print(f"train_cli done in {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out, launches
 
 
 def synthetic_batch(b, hw, seed, device, num_classes=19):
@@ -1630,10 +1916,57 @@ def train_ab(cell):
         print(f"train  {cell} A/B: {other} against {route}: "
               f"{numbers[other]['ms_per_step'] / first['ms_per_step']:.4f}x the ms per step, "
               f"{numbers[other]['peak_bytes'] / first['peak_bytes']:.4f}x the peak", flush=True)
+    del model, step
+    torch.cuda.empty_cache()
+    if cell in TRAIN_BF16:
+        numbers["bf16"], got = bf16_step(cell, key, routes[route], img, lbl, last)
+        for n, c in got.items():
+            launches[n] = launches.get(n, 0) + c
     numbers["tf32"] = tf32
-    del model, step, img, lbl
+    del img, lbl
     torch.cuda.empty_cache()
     return launches, calls, numbers
+
+
+def bf16_step(cell, key, levers, img, lbl, level):
+    """The cell's step with its image cast to bfloat16 (float32 parameters,
+    gradients and Adam state), on `levers`' route, from the same seed-0
+    weights on the same batch: the launch counts of five steps, finite and
+    falling losses, ms per step by CUDA events over steps 2-5, peak memory,
+    then one profiled step. Returns (numbers, launches)."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    defaults = set_levers(levers)
+    model = train_model(key, "cuda", drop=True)
+    step = trainer(model, key)
+    gen = torch.Generator("cuda").manual_seed(3)
+    x = img.to(torch.bfloat16)
+    steps, b = TRAIN["steps"], img.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    first = step(x, lbl, gen)["loss"]
+    ms, losses = timed_steps(step, x, lbl, gen, steps - 1)
+    got = dict(LAUNCHES)
+    losses = [first.item()] + losses
+    peak = torch.cuda.max_memory_allocated()
+    print(f"train  {cell} bf16: losses {losses}", flush=True)
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        fail(f"training {cell} bf16: losses {losses} are not finite or step {steps}'s is not "
+             f"below step 1's")
+    want = {n: per * steps for n, per in TRAIN_PER_STEP.items()}
+    if {n: c for n, c in got.items() if c} != want:
+        fail(f"training {cell} bf16: launches {got}, expected {want} (no eval-only kernel)")
+    print(f"train  {cell} bf16: {ms:.3f} ms per step (CUDA events, steps 2-{steps}), "
+          f"{b * 1e3 / ms:.2f} img/s, peak memory {peak / 2**30:.3f} GiB, launches {got} in "
+          f"{steps} steps", flush=True)
+    split = step_profile(model, step, x, lbl, gen, f"{cell} bf16", level)
+    if "device_ms" in split:
+        split["busy"] = split["device_ms"] / ms
+    set_levers(defaults)
+    del model, step, x
+    torch.cuda.empty_cache()
+    return dict(ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_bytes=peak, losses=losses,
+                launches=got, **split), got
 
 
 def layer_ranges(model):
@@ -1777,10 +2110,10 @@ def step_profile(model, step, img, lbl, gen, tag, level):
                 level_top_kernels=top)
 
 
-def grad_check(name, fn, twin, inputs, need):
+def grad_check(name, fn, twin, inputs, need, tol=GRAD_TOL):
     """Gradients of sum(fn(*inputs) * g) against the twin's autograd on the
     same inputs and seeded cotangent g, for the inputs flagged in `need`;
-    within GRAD_TOL of the largest magnitude. Returns the largest error."""
+    within `tol` of the largest magnitude. Returns the largest error."""
     def grads(f):
         leaves = [x.detach().clone().requires_grad_(n) for x, n in zip(inputs, need)]
         y = f(*leaves)
@@ -1791,76 +2124,78 @@ def grad_check(name, fn, twin, inputs, need):
     worst = 0.0
     for got, want in zip(grads(fn), grads(twin)):
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        tol = GRAD_TOL * want.abs().max().item()
-        ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
-        print(f"grad   {name} {tuple(got.shape)} max_abs_err {err:.3e} tol {tol:.3e} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+        err = (got.float() - want.float()).abs().max().item()
+        bound = tol * want.float().abs().max().item()
+        ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= bound
+        print(f"grad   {name} {tuple(got.shape)} {got.dtype} max_abs_err {err:.3e} tol "
+              f"{bound:.3e} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             fail(f"{name}: the gradient disagrees with the twin's autograd")
         worst = max(worst, err)
     return worst
 
 
-def train_kernels(calls, launches):
-    """T1: K3's raw conv (StemConv) and K6 (ResizeBilinear) on step 1's own
-    inputs: forward against the twin, gradients against the twins' autograd,
-    and the times of the forward, its twin, one library call and the
-    backward; returns one kernels-line entry for K3's raw mode and the
-    per-step numbers of K6's training calls."""
+def stem_train(x, w, dtype):
+    """K3's raw conv at the training shape in `dtype`: forward against the
+    twin, gradients against the twin's autograd (GRAD_TOL in float32,
+    KERNEL_TOL in bfloat16), and the forward, twin, conv2d and backward
+    (weight) times beside the bound."""
     import torch.nn.functional as TF
-    from hyperseg_torch.ops.kernels import resize as K6
     from hyperseg_torch.ops.kernels import stem as K3
-
-    stem_call = next(c for c in calls if c.name == "stem_conv")
-    x, w = stem_call.args
+    x, w = x.to(dtype), w.to(dtype)
     with torch.no_grad():
         got, want = K3.stem_conv(x, w), K3.stem_conv_plain(x, w)
     torch.cuda.synchronize()
-    fwd_err = (got - want).abs().max().item()
-    if not fwd_err <= KERNEL_TOL[torch.float32] * max(1.0, want.abs().max().item()):
-        fail(f"stem_conv at the training shape {tuple(x.shape)}: max_abs_err {fwd_err:.3e}")
-    grad_err = grad_check("stem_conv (StemConv) x, w", K3.StemConv.apply, K3.stem_conv_plain,
-                          (x, w), (True, True))
-    g = torch.randn(got.shape, generator=torch.Generator("cuda").manual_seed(6), device="cuda")
+    err = (got.float() - want.float()).abs().max().item()
+    if not err <= KERNEL_TOL[dtype] * max(1.0, want.float().abs().max().item()):
+        fail(f"stem_conv at the training shape {tuple(x.shape)} {dtype}: max_abs_err {err:.3e}")
+    grad_err = grad_check(f"stem_conv (StemConv) x, w {dtype}", K3.StemConv.apply,
+                          K3.stem_conv_plain, (x, w), (True, True),
+                          GRAD_TOL if dtype == torch.float32 else KERNEL_TOL[dtype])
+    g = torch.randn(got.shape, generator=torch.Generator("cuda").manual_seed(6), device="cuda",
+                    dtype=dtype)
     xpad = TF.pad(x, (0, 1, 0, 1))
     b_ms, by = bound_ms(sum(t.numel() * t.element_size() for t in (x, w, got)),
-                        2 * 27 * got.numel(), torch.float32)
+                        2 * 27 * got.numel(), dtype)
     with torch.no_grad():
-        stem = dict(
-            name="stem_conv", route="cuda", source=TRAIN_KERNELS["stem_conv"][2],
-            replaces=TRAIN_KERNELS["stem_conv"][3],
-            launches=sum(c.get("stem_conv", 0) for c in launches.values()),
-            launches_by_model={f"{m} train": c.get("stem_conv", 0) for m, c in launches.items()},
-            max_abs_err=fwd_err, grad_max_abs_err=grad_err, model="M train",
-            shape=list(x.shape), dtype="float32",
-            ms=cuda_ms(lambda: K3.stem_conv(x, w)),
-            plain_ms=cuda_ms(lambda: K3.stem_conv_plain(x, w)), bound_ms=b_ms, bound_by=by,
-            library_ms=cuda_ms(lambda: TF.conv2d(xpad, w, stride=2)),
-            bwd_ms=cuda_ms(lambda: K3.stem_conv_backward(x, w, g, need_input=False)),
-            bwd_route="cuDNN (torch.nn.grad.conv2d_weight)", passed=True)
-    print(f"time   train stem_conv x {tuple(x.shape)} float32 kernel {stem['ms']:.4f} ms  "
-          f"plain {stem['plain_ms']:.4f} ms  conv2d {stem['library_ms']:.4f} ms  "
-          f"bound {b_ms:.4f} ms ({by}); backward (weight) {stem['bwd_ms']:.4f} ms", flush=True)
+        t = dict(max_abs_err=err, grad_max_abs_err=grad_err, shape=list(x.shape),
+                 dtype=str(dtype).replace("torch.", ""),
+                 ms=cuda_ms(lambda: K3.stem_conv(x, w)),
+                 plain_ms=cuda_ms(lambda: K3.stem_conv_plain(x, w)), bound_ms=b_ms,
+                 bound_by=by, library_ms=cuda_ms(lambda: TF.conv2d(xpad, w, stride=2)),
+                 bwd_ms=cuda_ms(lambda: K3.stem_conv_backward(x, w, g, need_input=False)))
+    print(f"time   train stem_conv x {tuple(x.shape)} {t['dtype']} kernel {t['ms']:.4f} ms  "
+          f"plain {t['plain_ms']:.4f} ms  conv2d {t['library_ms']:.4f} ms  "
+          f"bound {b_ms:.4f} ms ({by}); backward (weight) {t['bwd_ms']:.4f} ms", flush=True)
+    return t
 
-    resize = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}, bwd_ms=0.0,
-                  max_abs_err=0.0, grad_max_abs_err=0.0, calls=0,
-                  launches=sum(c.get("resize_bilinear", 0) for c in launches.values()), shapes=[],
-                  bwd_route="eager torch (two float32 matmuls)")
+
+def resize_train(calls, dtype):
+    """K6 at step 1's upsamples in `dtype`: each call's forward against the
+    twin, gradient against the twin's autograd, and the summed forward,
+    twin, interpolate and backward times beside the summed bound."""
+    import torch.nn.functional as TF
+    from hyperseg_torch.ops.kernels import resize as K6
+    tol = GRAD_TOL if dtype == torch.float32 else KERNEL_TOL[dtype]
+    out = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0, by={}, bwd_ms=0.0,
+               max_abs_err=0.0, grad_max_abs_err=0.0, calls=0, shapes=[],
+               dtype=str(dtype).replace("torch.", ""))
     for c in (c for c in calls if c.name == "resize_bilinear"):
         x, out_hw = c.args
+        x = x.to(dtype)
         with torch.no_grad():
             got, want = K6.resize_bilinear(x, out_hw), K6.resize_bilinear_plain(x, out_hw)
         torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        if not err <= KERNEL_TOL[torch.float32] * max(1.0, want.abs().max().item()):
-            fail(f"resize_bilinear at the training shape {tuple(x.shape)}: max_abs_err {err:.3e}")
-        gerr = grad_check(f"resize_bilinear (ResizeBilinear) {tuple(x.shape)}",
+        err = (got.float() - want.float()).abs().max().item()
+        if not err <= KERNEL_TOL[dtype] * max(1.0, want.float().abs().max().item()):
+            fail(f"resize_bilinear at the training shape {tuple(x.shape)} {dtype}: "
+                 f"max_abs_err {err:.3e}")
+        gerr = grad_check(f"resize_bilinear (ResizeBilinear) {tuple(x.shape)} {dtype}",
                           lambda a, o=out_hw: K6.ResizeBilinear.apply(a, o),
-                          lambda a, o=out_hw: K6.resize_bilinear_plain(a, o), (x,), (True,))
+                          lambda a, o=out_hw: K6.resize_bilinear_plain(a, o), (x,), (True,), tol)
         g = torch.randn(got.shape, generator=torch.Generator("cuda").manual_seed(7),
-                        device="cuda")
-        b_ms, by = bound_ms(x.numel() * 4 + got.numel() * 4, 8 * got.numel(), torch.float32)
+                        device="cuda", dtype=dtype)
+        b_ms, by = bound_ms((x.numel() + got.numel()) * x.element_size(), 8 * got.numel(), dtype)
         with torch.no_grad():
             t = dict(ms=cuda_ms(lambda: K6.resize_bilinear(x, out_hw)),
                      plain_ms=cuda_ms(lambda: K6.resize_bilinear_plain(x, out_hw)),
@@ -1868,21 +2203,47 @@ def train_kernels(calls, launches):
                                                                mode="bilinear",
                                                                align_corners=False)),
                      bwd_ms=cuda_ms(lambda: K6.resize_bilinear_backward(g, tuple(x.shape[2:]))))
-        print(f"time   train resize_bilinear x {tuple(x.shape)} float32 kernel {t['ms']:.4f} ms  "
-              f"plain {t['plain_ms']:.4f} ms  interpolate {t['library_ms']:.4f} ms  "
-              f"bound {b_ms:.4f} ms ({by}); backward {t['bwd_ms']:.4f} ms", flush=True)
+        print(f"time   train resize_bilinear x {tuple(x.shape)} {out['dtype']} kernel "
+              f"{t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  interpolate "
+              f"{t['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({by}); backward "
+              f"{t['bwd_ms']:.4f} ms", flush=True)
         for k, v in t.items():
-            resize[k] += v
-        resize["bound_ms"] += b_ms
-        resize["by"][by] = resize["by"].get(by, 0.0) + b_ms
-        resize["max_abs_err"] = max(resize["max_abs_err"], err)
-        resize["grad_max_abs_err"] = max(resize["grad_max_abs_err"], gerr)
-        resize["calls"] += 1
-        resize["shapes"].append(list(x.shape))
-    if resize["calls"] != TRAIN_PER_STEP["resize_bilinear"]:
-        fail(f"training: {resize['calls']} upsamples in step 1, expected "
+            out[k] += v
+        out["bound_ms"] += b_ms
+        out["by"][by] = out["by"].get(by, 0.0) + b_ms
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out["grad_max_abs_err"] = max(out["grad_max_abs_err"], gerr)
+        out["calls"] += 1
+        out["shapes"].append(list(x.shape))
+    if out["calls"] != TRAIN_PER_STEP["resize_bilinear"]:
+        fail(f"training: {out['calls']} upsamples in step 1, expected "
              f"{TRAIN_PER_STEP['resize_bilinear']}")
-    resize["bound_by"] = max(resize.pop("by").items(), key=lambda kv: kv[1])[0]
+    out["bound_by"] = max(out.pop("by").items(), key=lambda kv: kv[1])[0]
+    return out
+
+
+def train_kernels(calls, launches):
+    """T1: K3's raw conv (StemConv) and K6 (ResizeBilinear) on step 1's own
+    inputs (T3's float32 step), in float32 and then cast to bfloat16 (the
+    TRAIN phase's bf16 step runs them on its own inputs of these shapes):
+    forward against the twin, gradients against the twins' autograd, and
+    the times of the forward, its twin, one library call and the backward;
+    returns one kernels-line entry for K3's raw mode (the float32 numbers,
+    bfloat16's under "bf16") and K6's training numbers (likewise)."""
+    stem_call = next(c for c in calls if c.name == "stem_conv")
+    x, w = stem_call.args
+    stem = dict(name="stem_conv", route="cuda", source=TRAIN_KERNELS["stem_conv"][2],
+                replaces=TRAIN_KERNELS["stem_conv"][3],
+                launches=sum(c.get("stem_conv", 0) for c in launches.values()),
+                launches_by_model={f"{m} train": c.get("stem_conv", 0)
+                                   for m, c in launches.items()},
+                model="M train", **stem_train(x, w, torch.float32),
+                bwd_route="cuDNN (torch.nn.grad.conv2d_weight)", passed=True)
+    stem["bf16"] = stem_train(x, w, torch.bfloat16)
+    resize = resize_train(calls, torch.float32)
+    resize.update(launches=sum(c.get("resize_bilinear", 0) for c in launches.values()),
+                  bwd_route="eager torch (two float32 matmuls)",
+                  bf16=resize_train(calls, torch.bfloat16))
     return stem, resize
 
 
@@ -2082,6 +2443,8 @@ def main():
 
     test_runs, test_launches, label_resize = run_test(smi.stdout.strip())
 
+    train_cli_runs, train_cli_launches = run_train_cli(smi.stdout.strip())
+
     train_launches, stem_conv, resize_train, train = run_training()
 
     kernels = kernels_line(rows, launches)
@@ -2100,11 +2463,16 @@ def main():
         k6["launches_by_model"][f"{m} train"] = c["resize_bilinear"]
     k6["train"] = resize_train
     kernels.append(stem_conv)
+    for k in kernels:
+        for m, c in train_cli_launches.items():
+            k["launches"] += c.get(k["name"], 0)
+            k["launches_by_model"][m] = c.get(k["name"], 0)
     print(json.dumps({"kernels": kernels,
                       "img_per_s": {m: {str(b): v for b, v in f.items()}
                                     for m, f in fps.items()},
                       "graph": {m: e["graph"] for m, e in extra.items()},
-                      "test_fps": fps_runs, "test": test_runs, "train": train,
+                      "test_fps": fps_runs, "test": test_runs, "train_cli": train_cli_runs,
+                      "train": train,
                       "unify_copy": extra["SC"]["unify_copy"], "tta": extra["SV"]["tta"]}),
           flush=True)
     print(smi.stdout.strip(), flush=True)

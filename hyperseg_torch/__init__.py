@@ -29,8 +29,13 @@ forward from a CUDA graph); ImageNet backbone weights from a local file
 (`models/backbones/pretrained.py`); the data layer (`data/`: the
 Cityscapes, CamVid and VOC + SBD datasets, the paired transforms, a loader
 of worker processes that uploads pinned batches on a side stream;
-`native/`: the host ops, built with g++ at first use); and the `cli.test`,
-`cli.test_fps` and `cli.convert` entry points.
+`native/`: the host ops, built with g++ at first use); the `cli.train`
+(float32 or bfloat16 compute, resume, validation replayed from a CUDA
+graph), `cli.test`, `cli.test_fps` and `cli.convert` entry points, and the
+nine shipped configs with their targets in this package (`configs/`); and
+the utilities `utils.misc`, `utils.batch`, `utils.profile` and the dynamic
+convolutions of `ops.meta`. Data parallelism over several cards is not
+ported yet.
 
 This package imports neither JAX nor `hyperseg_tpu`.
 """

@@ -1,0 +1,41 @@
+"""HyperSeg-L VOC val eval — evaluation config for hyperseg_torch (the twin of
+configs/test/vocsbd_efficientnet_b3_hyperseg-l.py, which mirrors the reference test config; image-only
+resize keeps labels at native resolution as in the reference).
+
+    python hyperseg_torch/configs/test/vocsbd_efficientnet_b3_hyperseg-l.py [<data_dir>]
+"""
+
+import os
+import sys
+
+if __name__ == "__main__":   # run as a script: this checkout's package on the path
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "..", ".."))
+
+from hyperseg_torch.cli.test import main
+from hyperseg_torch.core.registry import Spec
+
+T = "hyperseg_torch.data.seg_transforms."
+
+EXP_NAME = 'vocsbd_efficientnet_b3_hyperseg-l'
+
+
+def build_kwargs(data_dir=None, model=None):
+    """Kwargs for hyperseg_torch.cli.test.main, the JAX config's with every
+    target in this package (tests/test_torch_configs.py)."""
+    data_dir = data_dir or 'data/vocsbd'
+    if model is None:
+        # native .npz checkpoint or a reference .pth (converted on load)
+        model = os.path.join("weights", EXP_NAME + ".npz")
+        if not os.path.isfile(model):
+            model = os.path.join("weights", EXP_NAME + ".pth")
+    test_dataset = Spec("hyperseg_torch.data.voc_sbd.VOCSBDDataset", (data_dir, "val"))
+    img_transforms = [Spec(T + "ConstantPad", (512,), {"lbl_fill": 255})]
+    tensor_transforms = [Spec(T + "ToArray"), Spec(T + "Normalize")]
+    return dict(model=model, test_dataset=test_dataset,
+                img_transforms=img_transforms, tensor_transforms=tensor_transforms, forced=True)
+
+
+if __name__ == "__main__":
+    exp_dir = os.path.join("tests_out", EXP_NAME)
+    os.makedirs(exp_dir, exist_ok=True)
+    main(exp_dir, **build_kwargs(sys.argv[1] if len(sys.argv) > 1 else None))

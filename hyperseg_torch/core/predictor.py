@@ -31,8 +31,13 @@ def graphed(fn: Callable, *example_inputs: torch.Tensor):
 
     GRAPH_WARMUP eager runs on a side stream first build everything fn
     caches on the host side (kernel plans, coordinate grids, cuBLAS
-    handles), so the capture records device work only. A capture that fails raises; there is
-    no eager fallback."""
+    handles), so the capture records device work only. The capture runs on
+    that same stream: cuBLAS keeps a workspace per stream, so the capture
+    uses the one the warm-up allocated, outside any graph's memory pool, and
+    the kernels cuBLAS picked with it. (On torch's shared capture stream a
+    float32 capture after earlier bfloat16 captures failed on an H100 with
+    CUBLAS_STATUS_EXECUTION_FAILED, though it passed alone.) A capture that
+    fails raises; there is no eager fallback."""
     static = [x.clone() for x in example_inputs]
     if any(x.device.type != "cuda" for x in static):
         raise ValueError("graphed: the inputs must be CUDA tensors")
@@ -43,7 +48,7 @@ def graphed(fn: Callable, *example_inputs: torch.Tensor):
             fn(*static)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = fn(*static)
 
     def replay(*inputs):

@@ -281,7 +281,10 @@ class EfficientNet(EvalModule):
         k3 = self.in_channels == 3 and self.stem_pad == ((0, 1), (0, 1))
         if k3 and not self.training:
             return K3.stem(x, w, self._bn0.params, eps=BN_EPS)
-        conv = K3.stem_conv(x, w) if k3 else F.conv2d(x, w, stride=2, padding=self.stem_pad)
+        # K3 takes its filter in x's dtype: a bfloat16 step casts the float32
+        # weight here, and the cast's backward returns a float32 gradient
+        conv = (K3.stem_conv(x, w.to(x.dtype)) if k3
+                else F.conv2d(x, w, stride=2, padding=self.stem_pad))
         return F.swish(self._bn0(conv))
 
     def forward(self, x, generator=None):

@@ -46,11 +46,11 @@ def same_padding_2d(in_hw, kernel_hw, stride_hw, dilation_hw=(1, 1)):
 
 def pad2d(x, pad_hw, mode="constant"):
     """Pad the spatial dims of an NCHW tensor; pad_hw = ((top, bottom),
-    (left, right)); mode 'constant' (zeros) or 'reflect'."""
+    (left, right)); mode 'constant' (zeros), 'reflect' or 'replicate'."""
     (pt, pb), (pl, pr) = pad_hw
     if pt == pb == pl == pr == 0:
         return x
-    if mode not in ("constant", "reflect"):
+    if mode not in ("constant", "reflect", "replicate"):
         raise ValueError(f"unknown pad mode {mode!r}")
     return TF.pad(x, (pl, pr, pt, pb), mode=mode)
 

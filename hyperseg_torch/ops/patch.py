@@ -82,16 +82,17 @@ def unblock_patches(xp):
     return xp.permute(0, 3, 1, 4, 2, 5).reshape(b, c, fh * ph, fw * pw)
 
 
-def extract_patches_with_halo(x, fh, fw, pad_hw):
+def extract_patches_with_halo(x, fh, fw, pad_hw, mode="reflect"):
     """(B, C, H, W) -> overlapping patches (B, fh, fw, C, ph+2pt, pw+2pl).
 
-    The map is reflect-padded once, so the halo of an inner patch is its
-    neighbours' pixels and only the image border reflects — the reference's
-    pad + overlapping unfold (hyperseg_v1_0.py:336-342)."""
+    The map is padded once (`mode`, nn.functional.pad2d's), so the halo of
+    an inner patch is its neighbours' pixels and only the image border
+    reflects — the reference's pad + overlapping unfold
+    (hyperseg_v1_0.py:336-342)."""
     b, c, h, w = x.shape
     ph, pw = h // fh, w // fw
     pt, pl = pad_hw
-    xpad = F.pad2d(x, ((pt, pt), (pl, pl)), mode="reflect")
+    xpad = F.pad2d(x, ((pt, pt), (pl, pl)), mode=mode)
     xp = xpad.unfold(2, ph + 2 * pt, ph).unfold(3, pw + 2 * pl, pw)
     return xp.permute(0, 2, 3, 1, 4, 5)
 
@@ -126,18 +127,19 @@ def patch_depthwise_valid(xp, w, kernel_size):
     return out
 
 
-def patch_conv_valid(xp, w, out_channels, kernel_size, groups=1):
-    """Per-patch dense/grouped kxk VALID conv (stride 1).
+def patch_conv_valid(xp, w, out_channels, kernel_size, groups=1, stride=(1, 1)):
+    """Per-patch dense/grouped kxk VALID conv.
     xp: (B, fh, fw, Cin, h, w); w: (B, P, fh, fw), P = out*(Cin//g)*kh*kw.
     -> (B, fh, fw, out_channels, oh, ow)."""
     b, fh, fw, cin, h, wd = xp.shape
     kh, kw = kernel_size
-    if groups == cin and out_channels == cin:
+    sh, sw = stride
+    if groups == cin and out_channels == cin and (sh, sw) == (1, 1):
         return patch_depthwise_valid(xp, w, kernel_size)
-    if (kh, kw) == (1, 1):
+    if (kh, kw) == (1, 1) and (sh, sw) == (1, 1):
         return patch_pointwise(xp, w, out_channels, groups)
-    oh, ow = h - kh + 1, wd - kw + 1
-    cols = torch.stack([torch.stack([xp[..., di:di + oh, dj:dj + ow]
+    oh, ow = (h - kh) // sh + 1, (wd - kw) // sw + 1
+    cols = torch.stack([torch.stack([xp[..., di:di + oh * sh:sh, dj:dj + ow * sw:sw]
                                      for dj in range(kw)], dim=-3)
                         for di in range(kh)], dim=-4)  # (b,f,g,C,kh,kw,oh,ow)
     cpg, opg = cin // groups, out_channels // groups

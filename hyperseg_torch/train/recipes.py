@@ -4,16 +4,18 @@ A recipe holds the numbers of one config that the training step reads: the
 crop and batch, Adam's learning rate and the PolyLR schedule (every config
 sets Adam's betas to (0.5, 0.999), train/step.py's defaults).
 The models' own arguments are the factories' (HyperSeg-M, -L and -L VOC as
-`chip_smoke.MODELS` builds them); data, augmentation and the data loader
-are not ported. Every shipped config uses bootstrapped CE ignoring 255
-(train/losses.py) and normalises images with the ImageNet mean and std.
+`chip_smoke.MODELS` builds them); the whole configs, data and augmentation
+included, are `hyperseg_torch/configs/train/*.py`, whose numbers
+tests/test_torch_configs.py holds against these. Every shipped config uses
+bootstrapped CE ignoring 255 (train/losses.py) and normalises images with
+the ImageNet mean and std.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from hyperseg_torch.train.schedule import poly_lr
+from hyperseg_torch.train.schedule import config_schedule
 
 MEAN = (0.485, 0.456, 0.406)
 STD = (0.229, 0.224, 0.225)
@@ -33,10 +35,8 @@ class Recipe:
     def schedule(self):
         """step -> learning rate: PolyLR over max_epoch batches, or, stepped
         per epoch, held through each epoch of steps_per_epoch steps."""
-        poly = poly_lr(self.lr, self.max_epoch, self.power)
-        if self.per_batch:
-            return poly
-        return lambda step: poly(step // self.steps_per_epoch)
+        return config_schedule(self.lr, self.max_epoch, self.power, per_batch=self.per_batch,
+                               steps_per_epoch=self.steps_per_epoch)
 
 
 RECIPES = {

@@ -20,6 +20,19 @@ def poly_lr(base_lr: float, max_steps: int, power: float = 0.9):
     return schedule
 
 
+def config_schedule(base_lr: float, max_epoch: int, power: float, *, per_batch: bool,
+                    steps_per_epoch: int):
+    """A training config's PolyLR as step -> learning rate: with per_batch
+    (the config's batch_scheduler) over max_epoch batches; without, over
+    max_epoch epochs, held through each epoch of steps_per_epoch steps - the
+    reference steps its scheduler once a batch only under batch_scheduler
+    (train.py:135-136), else once an epoch."""
+    poly = poly_lr(base_lr, max_epoch, power)
+    if per_batch:
+        return poly
+    return lambda step: poly(step // steps_per_epoch)
+
+
 def constant_lr(base_lr: float):
     return lambda step: base_lr
 
