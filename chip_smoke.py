@@ -137,6 +137,17 @@ Phases (any failure exits non-zero before the result lines):
          mapper's convs, every BN running statistic, the Adam updates; and
          both float32 steps read against the same step on the CPU in
          float64 (printed, not gated);
+     remat. T3, T4 and T5 once more, on the default route, each under the
+         remat specs False, True and 'dots' (both backbone_remat and
+         decoder_remat; at T3 also bfloat16 with False and 'full'), built
+         through the factory, drop connect and dropout on: the step's
+         gradients against the plain step's within REMAT_GRAD_REL_L2 (rel L2,
+         with the plain step's spread against itself printed beside it), the
+         BN running statistics within REMAT_STATS_RTOL, the generator's state
+         equal; then five trainer steps with the launch counters set to 0
+         just before and read just after (K3's raw conv once and K6 five
+         times a step under every spec: neither is recomputed), finite and
+         falling losses, ms per step, img/s and peak memory (`remat` lines);
   5. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
 
@@ -162,90 +173,9 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
+from hyperseg_torch.train.harness import (MODELS, synthetic_batch,  # noqa: E402
+                                          timed_steps, train_model, trainer)
 
-@dataclass
-class Model:
-    name: str
-    factory: str           # module of hyperseg_torch.models
-    backbone: str
-    kw: dict
-    res: tuple             # (H, W)
-    param_count: int       # state-dict elements
-    per_forward: dict      # kernel launches per forward
-    f32_batches: tuple     # batches whose float32 card logits are gated
-
-    @property
-    def unify(self):
-        """The unify decoder, whose weight blocks call K1's generation alone."""
-        return self.factory == "hyperseg_v1_0_unify"
-
-    @property
-    def hflip(self):
-        """The config runs the image's mirror at test time: the TTA phase."""
-        return bool(self.kw.get("inference_hflip"))
-
-
-MODELS = {
-    "M": Model(
-        "HyperSeg-M Cityscapes 1024x512", "hyperseg_v1_0", "efficientnet-b1",
-        dict(levels=2, out_feat_scale=[1.0, 0.25, 0.25, 0.25, 0.25],
-             kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
-             expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
-        (512, 1024), 10378108,    # bench.py:92, total
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
-         "patch_invres_v01": 0},
-        (1, 8)),
-    "L": Model(
-        "HyperSeg-L CamVid 768x1024",   # tests/golden/make_goldens.py:56-61
-        "hyperseg_v1_0", "efficientnet-b1",
-        dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3, 3),
-             level_channels=[64, 32, 16, 16, 16, 16], expand_ratio=2,
-             with_out_fc=False, decoder_dropout=None,
-             weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
-        (768, 1024), 10036096,    # the JAX count_params (tests/test_torch_hyperseg_l.py)
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 3, "patch_invres": 3, "resize_bilinear": 5,
-         "patch_invres_v01": 0},
-        (1,)),
-    "V": Model(
-        "HyperSeg-L VOC 512x512",       # tests/golden/make_goldens.py:62-69
-        "hyperseg_v0_1", "efficientnet-b3",
-        dict(levels=3, kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2,
-             with_out_fc=False, decoder_dropout=None, weight_groups=16,
-             num_classes=21),
-        (512, 512), 39781484,     # the JAX count_params (tests/test_torch_hyperseg_voc.py)
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 10,
-         "patch_invres_s2w": 0, "patch_invres": 0, "resize_bilinear": 5,
-         "patch_invres_v01": 4},
-        (1,)),
-    "SC": Model(
-        "HyperSeg-S Cityscapes 768x1536",   # tests/golden/make_goldens.py:43-49
-        "hyperseg_v1_0_unify", "efficientnet-b1",
-        dict(levels=2, out_feat_scale=[1.0, 0.166, 0.2, 0.25, 0.4],
-             kernel_sizes=[1, 1, 1, 3, 3], level_channels=[32, 16, 8, 8, 8],
-             expand_ratio=2, with_out_fc=False, decoder_dropout=None,
-             weight_groups=[32, 16, 8, 16, 4], decoder_groups=1, unify_level=4,
-             num_classes=19),
-        (768, 1536), 10108108,    # the JAX count_params (tests/test_torch_hyperseg_s.py)
-        # K1's count is its generation kernel's: one map per weight block
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 4, "patch_invres": 2, "resize_bilinear": 5,
-         "patch_invres_v01": 0},
-        (1,)),
-    "SV": Model(
-        "HyperSeg-S CamVid 576x768",        # tests/golden/make_goldens.py:50-55
-        "hyperseg_v1_0", "efficientnet-b1",
-        dict(levels=2, kernel_sizes=(1, 1, 1, 3, 3), level_channels=[64, 32, 16, 16, 16],
-             expand_ratio=2, with_out_fc=False, decoder_dropout=None,
-             weight_groups=[64, 32, 32, 16, 8], num_classes=12,
-             inference_hflip=True),       # as shipped (configs/train/camvid_*_hyperseg-s.py:22)
-        (576, 768), 10015856,     # the JAX count_params (tests/test_torch_hyperseg_s.py)
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
-         "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
-         "patch_invres_v01": 0},
-        (1,)),
-}
 # H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
 # flop/s by input type (bf16 on the tensor cores, float32 on the CUDA cores)
 PEAK_BYTES = 3.35e12
@@ -327,6 +257,20 @@ STEP_LOSS_RTOL = 1e-4
 # 1e-2 stays far below what a wrong backward gives (order 1)
 STEP_GRAD_REL_L2 = 1e-2
 STEP_ADAM_MASK = 1e-2       # Adam updates compared where |g| > this * max|g|
+# The remat A/B of T3-T5: each spec (nn.functional.checkpoint_policy) as both the
+# backbone's and the decoder's remat, on the default route, float32 (T3 also
+# bfloat16 with REMAT_BF16), the same seed-0 weights, batch and generator seed
+REMAT_SPECS = (False, True, "dots")
+REMAT_BF16 = {"T3": (False, "full")}
+# The remat step's gradients against the plain step's, rel L2 over every gradient,
+# both taken under deterministic algorithms (`deterministic`): recomputation replays
+# the same kernels on the same inputs, so they differ from the plain step by no more
+# than the plain step differs from itself (its spread, printed beside them, must stay
+# below this limit for the check to mean anything). On an H100 that spread was 0 at
+# T3-T5 in both dtypes; with torch's default algorithms it was 1.7e-6 to 2.3e-6 in
+# float32 and 2.1e-2 in bfloat16 (atomics in some backward kernels), also printed
+REMAT_GRAD_REL_L2 = 1e-3
+REMAT_STATS_RTOL = 1e-6     # the BN running statistics, of each one's largest magnitude
 
 
 # The TRAIN phase: the training CLI from the port's M config on a synthetic
@@ -1771,48 +1715,6 @@ def run_train_cli(smi):
     return out, launches
 
 
-def synthetic_batch(b, hw, seed, device, num_classes=19):
-    """A fixed training batch made from a seed on `device`: labels as 32x32
-    tiles of random classes with a band of 255 across the middle rows; the
-    image each tile's class colour plus noise in [0, 1], normalised with the
-    configs' mean and std."""
-    from hyperseg_torch.train.recipes import MEAN, STD
-    g = torch.Generator(device).manual_seed(seed)
-    h, w = hw
-    tiles = torch.randint(0, num_classes, (b, h // 32, w // 32), generator=g, device=device)
-    label = tiles.repeat_interleave(32, 1).repeat_interleave(32, 2)
-    palette = torch.rand(num_classes, 3, generator=g, device=device)
-    img = (palette[label].permute(0, 3, 1, 2)
-           + 0.1 * torch.randn(b, 3, h, w, generator=g, device=device)).clamp(0, 1)
-    mean = torch.tensor(MEAN, device=device).view(1, 3, 1, 1)
-    std = torch.tensor(STD, device=device).view(1, 3, 1, 1)
-    label[:, h // 2 - 8:h // 2 + 8] = 255
-    return ((img - mean) / std).contiguous(), label
-
-
-def train_model(key, device, drop):
-    """Model `key` from seed 0 in training mode on `device`, through its
-    factory; `drop` False sets drop connect and dropout to 0."""
-    cfg = MODELS[key]
-    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
-    model = factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, train=True,
-                                          **cfg.kw)
-    if not drop:
-        model.backbone.drop_connect_rate = model.backbone.dropout_rate = 0.0
-    return model
-
-
-def trainer(model, key):
-    """The port's train step for `model` with its config's optimizer,
-    schedule and criterion."""
-    from hyperseg_torch.train import losses as L
-    from hyperseg_torch.train import step as T
-    from hyperseg_torch.train.recipes import RECIPES
-    opt, sched = T.make_optimizer(model.parameters(), RECIPES[key].schedule())
-    return T.make_train_step(model, L.BootstrappedCrossEntropyLoss(ignore_index=255), opt,
-                             sched, num_classes=MODELS[key].kw["num_classes"])
-
-
 def set_levers(levers):
     """Set the training-route levers of ops/patch.py by name; returns the
     values they had."""
@@ -1821,16 +1723,6 @@ def set_levers(levers):
     for k, v in levers.items():
         setattr(P, k, v)
     return old
-
-
-def timed_steps(step, img, lbl, gen, n):
-    """ms per step of n steps by CUDA events, and their losses."""
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    losses = [step(img, lbl, gen)["loss"] for _ in range(n)]
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n, [v.item() for v in losses]
 
 
 def train_ab(cell):
@@ -2358,10 +2250,167 @@ def train_vs_cpu():
                 adam_err=upd_worst, adam_rule_err=rule_worst, small_grad_flips=small_flips)
 
 
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic mode for the
+    ops that have one (the others, such as reflection_pad2d's backward, keep
+    their atomics; their warnings are silenced)."""
+    import warnings
+    old = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = old[0]
+        torch.use_deterministic_algorithms(old[1], warn_only=old[2])
+
+
+def step_grads(model, x, lbl, state, exact=False):
+    """One forward, loss and backward of `model`, without an update, from the
+    weights and statistics `state` on (x, lbl), its generator seeded 3, under
+    `deterministic()` when `exact`: (loss, {name: gradient}, {name: BN
+    statistic} after the step, the generator's state after it), on the CPU
+    in float64."""
+    from hyperseg_torch.nn import functional as F
+    from hyperseg_torch.train import losses as L
+    model.load_state_dict(state)
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator("cuda").manual_seed(3)
+    with deterministic() if exact else contextlib.nullcontext():
+        logits = model(x, gen)
+        if logits.shape[2:] != lbl.shape[1:]:
+            logits = F.resize_bilinear(logits, lbl.shape[1:])
+        loss = L.BootstrappedCrossEntropyLoss(ignore_index=255)(logits, lbl)
+        loss.backward()
+    grads = {k: p.grad.double().cpu() for k, p in model.named_parameters()
+             if p.grad is not None}
+    stats = {k: b.double().cpu() for k, b in model.named_buffers()}
+    model.zero_grad(set_to_none=True)
+    model.load_state_dict(state)
+    return loss.item(), grads, stats, gen.get_state()
+
+
+def rel_l2(got, want):
+    """rel L2 of one dict of tensors against another, over all of them."""
+    num = sum(float((got[k] - want[k]).square().sum()) for k in want)
+    return math.sqrt(num / sum(float(v.square().sum()) for v in want.values()))
+
+
+def remat_ab(cell, dtype, specs):
+    """One cell's step under each remat spec in turn, on the default route,
+    from the same seed-0 weights on the same synthetic batch as train_ab,
+    drop connect and dropout on, each spec's model alone on the card: the
+    step's gradients, BN statistics and generator state against the plain
+    step's (the first spec, False; its own spread from a second plain
+    step), then five steps through the trainer with the launch counters set
+    to 0 just before and read just after (K3's raw conv once and K6 five
+    times a step: neither is in a checkpointed region), finite and falling
+    losses, ms per step by CUDA events over steps 2-5, img/s and peak
+    memory. Returns {spec: numbers}."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.train.recipes import RECIPES
+
+    key = TRAIN_CELLS[cell][0]
+    cfg, recipe = MODELS[key], RECIPES[key]
+    b, res, steps = recipe.batch, recipe.crop, TRAIN["steps"]
+    img, lbl = synthetic_batch(b, res, 2, "cuda", cfg.kw["num_classes"])
+    x = img.to(dtype)
+    tag = f"{cell} {str(dtype)[6:]}"
+    numbers, plain, state = {}, None, None
+    for spec in specs:
+        model = train_model(key, "cuda", drop=True, remat=spec)
+        if state is None:
+            state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        loss, grads, stats, gen_state = step_grads(model, x, lbl, state, exact=True)
+        check = dict(loss=loss)
+        if plain is None:
+            plain = (loss, grads, stats, gen_state)
+            spread = rel_l2(step_grads(model, x, lbl, state, exact=True)[1], grads)
+            free = rel_l2(step_grads(model, x, lbl, state)[1], step_grads(model, x, lbl, state)[1])
+            check.update(grad_spread=spread, grad_spread_default=free)
+            print(f"remat  {tag} plain step against itself: gradients rel L2 {spread:.3e} "
+                  f"with deterministic algorithms (the limit {REMAT_GRAD_REL_L2:.0e}), "
+                  f"{free:.3e} without", flush=True)
+            if not spread < REMAT_GRAD_REL_L2:
+                fail(f"remat {tag}: the plain step's spread {spread:.3e} is not below the "
+                     f"limit {REMAT_GRAD_REL_L2:.0e}")
+        else:
+            err = rel_l2(grads, plain[1])
+            worst = max(plain[1], key=lambda k: float((grads[k] - plain[1][k]).norm())
+                        / max(float(plain[1][k].norm()), 1e-30))
+            stat_err = max(float((stats[k] - plain[2][k]).abs().max())
+                           / max(float(plain[2][k].abs().max()), 1e-30) for k in stats)
+            same_gen = torch.equal(gen_state, plain[3])
+            check.update(grad_rel_l2=err, stats_rel=stat_err, generator_equal=same_gen,
+                         loss_rel=abs(loss - plain[0]) / abs(plain[0]))
+            print(f"remat  {tag} {spec!r} against the plain step: loss {loss!r} "
+                  f"({plain[0]!r}), gradients rel L2 {err:.3e} (the plain step's spread "
+                  f"{numbers[False]['grad_spread']:.3e}, limit {REMAT_GRAD_REL_L2:.0e}; "
+                  f"worst tensor {worst}), BN statistics {stat_err:.3e} of their largest "
+                  f"(limit {REMAT_STATS_RTOL:.0e}), generator state equal {same_gen}",
+                  flush=True)
+            if not (err <= REMAT_GRAD_REL_L2 and stat_err <= REMAT_STATS_RTOL and same_gen):
+                fail(f"remat {tag} {spec!r}: gradients rel L2 {err:.3e}, statistics "
+                     f"{stat_err:.3e}, generator state equal {same_gen}")
+        del grads, stats
+        step = trainer(model, key)
+        gen = torch.Generator("cuda").manual_seed(3)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        LAUNCHES.clear()
+        first = step(x, lbl, gen)["loss"]
+        ms, losses = timed_steps(step, x, lbl, gen, steps - 1)
+        got = {n: c for n, c in LAUNCHES.items() if c}
+        losses = [first.item()] + losses
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            fail(f"remat {tag} {spec!r}: losses {losses} are not finite or step {steps}'s "
+                 f"is not below step 1's")
+        want = {n: per * steps for n, per in TRAIN_PER_STEP.items()}
+        if got != want:
+            fail(f"remat {tag} {spec!r}: launches {got} in {steps} steps, expected {want} "
+                 f"(K3's raw conv and K6 outside every checkpointed region)")
+        print(f"remat  {tag} {spec!r}: {ms:.3f} ms per step (CUDA events, steps 2-{steps}), "
+              f"{b * 1e3 / ms:.2f} img/s, peak memory {peak / 2**30:.3f} GiB "
+              f"(max_memory_allocated), losses {losses}, launches {got}", flush=True)
+        numbers[spec] = dict(ms_per_step=ms, img_per_s=b * 1e3 / ms, peak_bytes=peak,
+                             losses=losses, launches=got, **check)
+        del model, step
+        torch.cuda.empty_cache()
+    base = numbers[False]
+    for spec in specs[1:]:
+        print(f"remat  {tag} A/B: {spec!r} against False: "
+              f"{numbers[spec]['ms_per_step'] / base['ms_per_step']:.4f}x the ms per step, "
+              f"{numbers[spec]['peak_bytes'] / base['peak_bytes']:.4f}x the peak", flush=True)
+    del img, lbl, x
+    torch.cuda.empty_cache()
+    return {repr(k): v for k, v in numbers.items()}
+
+
+def run_remat():
+    """The remat A/B of T3-T5 (REMAT_SPECS in float32, REMAT_BF16 in
+    bfloat16). Returns {"<cell> <dtype>": numbers}, each spec's launches
+    among them."""
+    t0 = time.perf_counter()
+    numbers = {}
+    for cell in TRAIN_CELLS:
+        runs = [(torch.float32, REMAT_SPECS)]
+        if cell in REMAT_BF16:
+            runs.append((torch.bfloat16, REMAT_BF16[cell]))
+        for dtype, specs in runs:
+            numbers[f"{cell} {str(dtype)[6:]}"] = remat_ab(cell, dtype, specs)
+    print(f"remat  done in {time.perf_counter() - t0:.1f} s wall", flush=True)
+    return numbers
+
+
 def run_training():
     """The training phase: T3-T5 (each on both routes), then T1 on T3's
-    recorded calls, then T2. Returns ({model: main-path launches},
-    kernels-line entries, numbers)."""
+    recorded calls, then T2, then the remat A/B. Returns ({model: main-path
+    launches}, kernels-line entries, numbers)."""
     t0 = time.perf_counter()
     launches, calls, numbers = {}, [], {}
     for cell, (key, _) in TRAIN_CELLS.items():
@@ -2372,6 +2421,7 @@ def run_training():
     torch.cuda.empty_cache()
     numbers["t2"] = train_vs_cpu()
     print(f"train  done in {time.perf_counter() - t0:.1f} s wall", flush=True)
+    numbers["remat"] = run_remat()
     return launches, stem, resize, numbers
 
 

@@ -21,7 +21,11 @@ path with batch-statistics BN, as the JAX package gates its kernels to eval
 (efficientnet.py:323); the stem runs K3's raw conv (`stem_conv`,
 differentiable) -> `_bn0` -> swish (:343-347). Drop connect (rate
 drop_connect_rate * i / n on block i of n, a per-sample mask) and the head
-feature's dropout draw from the generator passed to `forward`.
+feature's dropout draw from the generator passed to `forward`. With `remat`
+(a spec of nn.functional.checkpoint_policy) each block is a checkpointed
+region in training (efficientnet.py:465-477); the stem, the feature taps,
+the head and its dropout stay outside, so K3's raw conv is never
+recomputed.
 """
 
 from __future__ import annotations
@@ -193,7 +197,7 @@ class MBConvBlock(EvalModule):
                      padding=p.dw_pad, groups=p.mid)
         x = F.swish(self._bn1(x))
         if p.se_ch is not None:
-            se = F.conv2d(x.mean((2, 3), keepdim=True), self._se_reduce.weight,
+            se = F.conv2d(F.adaptive_avg_pool_1(x), self._se_reduce.weight,
                           self._se_reduce.bias)
             se = F.conv2d(F.swish(se), self._se_expand.weight, self._se_expand.bias)
             x = torch.sigmoid(se) * x
@@ -209,8 +213,9 @@ class EfficientNet(EvalModule):
     out_feat_scale != 1, then the stride-32 head feature."""
 
     def __init__(self, model_name: str, *, out_feat_scale=0.25, in_channels=3,
-                 device=None):
+                 remat=False, device=None):
         super().__init__()
+        F.checkpoint_policy(remat)      # an unknown spec raises here
         m = re.fullmatch(r"efficientnet-([bcs])(\d)|efficientnet-l2", model_name)
         family, scale = (m.group(1), f"b{m.group(2)}") if m and m.group(1) else ("l", "l2")
         if not m or scale not in SCALING:
@@ -221,6 +226,8 @@ class EfficientNet(EvalModule):
         # training only; set to 0 for a deterministic step, as the tests do
         self.drop_connect_rate = DROP_CONNECT_RATE
         self.dropout_rate = dropout
+        # each block a checkpointed region in training (F.checkpoint_policy)
+        self.remat = remat
 
         size = [nominal, nominal]
         stem_ch = round_filters(32, width)
@@ -294,7 +301,11 @@ class EfficientNet(EvalModule):
         feats = []
         n = len(self._blocks)
         for i, blk in enumerate(self._blocks):
-            x = blk(x, self.drop_connect_rate * i / n, generator)
+            if self.training and self.remat:
+                x = F.checkpoint(blk, x, self.drop_connect_rate * i / n, generator,
+                                 spec=self.remat, generator=generator)
+            else:
+                x = blk(x, self.drop_connect_rate * i / n, generator)
             if blk.plan.is_feat:
                 i = len(feats)
                 if self.feat_fc[i]:
@@ -323,3 +334,25 @@ def efficientnet(model_name, pretrained=False, weights_path=None, *, device="cud
     if pretrained or weights_path:
         load_pretrained_backbone(model, model_name, weights_path or pretrained)
     return model.eval().requires_grad_(False)
+
+
+def main(argv=None):
+    """Smoke harness (JAX efficientnet.py:543-557): build B0 and B1 on
+    `--device` (the card by default), run a (1, 3, 128, 192) input and check
+    that the features' channels are `feat_channels`."""
+    import argparse
+
+    p = argparse.ArgumentParser("hyperseg_torch EfficientNet smoke test")
+    p.add_argument("--device", default="cuda")
+    dev = p.parse_args(argv).device
+    x = torch.rand(1, 3, 128, 192, generator=torch.Generator().manual_seed(0)).to(dev)
+    for name in ("efficientnet-b0", "efficientnet-b1"):
+        m = efficientnet(name, device=dev)
+        with torch.no_grad():
+            shapes = [tuple(f.shape) for f in m(x)]
+        assert [s[1] for s in shapes] == m.feat_channels, (shapes, m.feat_channels)
+        print(f"{name}: {len(shapes)} features {[s[1:] for s in shapes]}")
+
+
+if __name__ == "__main__":
+    main()

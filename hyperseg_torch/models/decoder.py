@@ -41,6 +41,11 @@ as in the JAX package (decoder.py:150, :302, :402). In training
 batch-statistics BN (ops/patch.py), chosen by the module's mode alone; the
 out_fc unit's input takes channel dropout from the generator passed to
 `forward` (decoder.py:624-625); the upsamples stay K6, differentiable.
+With `remat` (a spec of nn.functional.checkpoint_policy) every hyper unit of
+every level is a checkpointed region in training (`apply_unit`,
+`apply_unit_from_signal`; JAX decoder.py:338-448): the unit's weight map is
+the region's input, made outside it, and the level inputs, the upsamples
+and out_fc stay outside, so K6 is never recomputed.
 Training has two routes through the patch convs, the 6-D gather and the
 full-map forms, chosen by the levers in ops/patch.py (FULLMAP_INVRES for
 InvResUnit, FULLMAP_MIN_BATCH / FULLMAP_POINTWISE for PatchConvUnit); the
@@ -50,7 +55,7 @@ two compute the same function.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import List, Optional, Union
 
 import torch
 from torch import nn
@@ -192,9 +197,12 @@ class PatchConvUnit(nn.Sequential):
             out = self[-1](out)
         return F.ACTIVATIONS[self.act](out)
 
+    def weights(self, s):
+        """The unit's weight map (B, hyper_params, fh, fw) from its signal slice."""
+        return apply_signal2weights(s, self.route, self.holder.signal2weights.weight)
+
     def forward(self, x, s):
-        w = apply_signal2weights(s, self.route, self.holder.signal2weights.weight)
-        return self.apply_weights(x, w)
+        return self.apply_weights(x, self.weights(s))
 
 
 class InvResUnit(EvalModule):
@@ -215,10 +223,21 @@ class InvResUnit(EvalModule):
     def hyper_params(self) -> int:
         return PI.hyper_params(self.in_ch, self.hidden, self.out_ch, self.kernel)
 
+    @property
+    def ranges(self):
+        """Where w1, w2 and w3 start and end in a patch's weights: (0, r1, r2, r3)."""
+        r1 = self.in_ch * self.hidden
+        r2 = r1 + self.hidden * self.kernel * self.kernel
+        return 0, r1, r2, r2 + self.hidden * self.out_ch
+
     def attach(self, route: S2W, device=None):
         self.route = route
         self.signal2weights = conv(route.signal_ch, route.out_ch,
                                    groups=route.groups, device=device)
+
+    def weights(self, s):
+        """The unit's weight map (B, hyper_params, fh, fw) from its signal slice."""
+        return apply_signal2weights(s, self.route, self.signal2weights.weight)
 
     def _apply_eager(self, x, w):
         """The unit in torch ops from w: (B, hyper_params, fh, fw), BN in the
@@ -246,9 +265,7 @@ class InvResUnit(EvalModule):
         fh, fw = w.shape[2], w.shape[3]
         ph, pw = h // fh, wd // fw
         hid, k, pad = self.hidden, self.kernel, self.kernel // 2
-        r1 = self.in_ch * hid
-        r2 = r1 + hid * k * k
-        r3 = r2 + hid * self.out_ch
+        _, r1, r2, r3 = self.ranges
         w1 = w[:, :r1]
         parts = ((P.fullmap_pointwise(x, w1, fh, fw, hid),)
                  + P.halo_bands_pointwise(x, w1, fh, fw, pad, hid))
@@ -285,7 +302,7 @@ class InvResUnit(EvalModule):
         in training the weight map, then the eager unit."""
         r = self.route
         if self.training:
-            return self._apply_eager(x, apply_signal2weights(s, r, self.signal2weights.weight))
+            return self._apply_eager(x, self.weights(s))
         sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
         return PI.patch_invres_s2w(
             x, sl, self.signal2weights.weight, groups=r.groups,
@@ -341,14 +358,41 @@ class V01InvResUnit(EvalModule):
         return out + x if self.in_ch == self.out_ch else out
 
 
+Unit = Union[PatchConvUnit, InvResUnit, V01InvResUnit]
+
+
+def apply_unit(u: Unit, x, w, *, remat=False):
+    """A hyper unit on its (B, fh, fw, P) weight map w: the map forms of the
+    unify and v0_1 decoders (JAX apply_unit, decoder.py:338-356). In
+    training with `remat` the application is a checkpointed region whose
+    inputs are x and w; in eval, or without `remat`, the unit runs as
+    before."""
+    fn = u if isinstance(u, V01InvResUnit) else u.apply_map
+    if u.training and remat:
+        return F.checkpoint(fn, x, w, spec=remat)
+    return fn(x, w)
+
+
+def apply_unit_from_signal(u: Unit, x, s, *, remat=False):
+    """A v1_0 unit from its level's signal slice s (JAX
+    apply_unit_from_signal, decoder.py:425-448): in training with `remat`
+    the weight map is made outside the region and the unit's application
+    on it checkpointed; otherwise the unit's forward (K1 in eval)."""
+    if not (u.training and remat):
+        return u(x, s)
+    return F.checkpoint(u.apply_weights, x, u.weights(s), spec=remat)
+
+
 class _Decoder(EvalModule):
     """What the decoders share: the coordinate grids, made once per (h, w,
     dtype, device) - building one from numpy is a host-to-device copy that
     stalls the host on the card (the reference caches them as buffers too,
     hyperseg_v1_0.py:189-213) - and a level's input."""
 
-    def __init__(self):
+    def __init__(self, remat=False):
         super().__init__()
+        F.checkpoint_policy(remat)      # an unknown spec raises here
+        self.remat = remat              # each hyper unit a checkpointed region in training
         self._coords = {}
 
     def _level_input(self, p, feat):
@@ -410,8 +454,8 @@ class MultiScaleDecoderV1(_Decoder):
     def __init__(self, feat_channels, signal_channels, num_classes=3,
                  kernel_sizes=3, level_layers=1, level_channels=None,
                  expand_ratio=1, groups=1, weight_groups=1, with_out_fc=False,
-                 dropout=None, legacy_divide=False, device=None):
-        super().__init__()
+                 dropout=None, legacy_divide=False, remat=False, device=None):
+        super().__init__(remat)
         level_units, prev = _hyper_levels(
             feat_channels, num_classes, kernel_sizes, level_layers, level_channels,
             expand_ratio, groups, with_out_fc, device)
@@ -458,7 +502,7 @@ class MultiScaleDecoderV1(_Decoder):
             base = 0
             for u in getattr(self, f"level_{lv}"):
                 hi = min(base + u.hyper_params, s.shape[1])
-                p = u(p, s[:, min(base, hi):hi])
+                p = apply_unit_from_signal(u, p, s[:, min(base, hi):hi], remat=self.remat)
                 base += u.hyper_params
         if hasattr(self, "out_fc"):
             if self.training:
@@ -479,8 +523,8 @@ class MultiScaleDecoderUnify(_Decoder):
     def __init__(self, feat_channels, signal_channels, num_classes=3,
                  kernel_sizes=3, level_layers=1, level_channels=None,
                  expand_ratio=1, groups=1, weight_groups=1, with_out_fc=False,
-                 dropout=None, unify_level=None, device=None):
-        super().__init__()
+                 dropout=None, unify_level=None, remat=False, device=None):
+        super().__init__(remat)
         levels = len(level_channels)
         assert unify_level is not None and 1 <= unify_level <= levels
         # no shipped config has an out_fc here; without one dropout acts
@@ -547,7 +591,7 @@ class MultiScaleDecoderUnify(_Decoder):
                 w = shared[..., self._ranges[i]:self._ranges[i + 1]]
             base = 0
             for u in units:
-                p = u.apply_map(p, w[..., base:base + u.hyper_params])
+                p = apply_unit(u, p, w[..., base:base + u.hyper_params], remat=self.remat)
                 base += u.hyper_params
         return F.resize_bilinear(p, xs[0].shape[2:])
 
@@ -560,8 +604,8 @@ class MultiScaleDecoderV0(_Decoder):
 
     def __init__(self, feat_channels, num_classes=3, kernel_sizes=3, level_layers=1,
                  expand_ratio=1, with_out_fc=False, out_kernel_size=1, dropout=None,
-                 device=None):
-        super().__init__()
+                 remat=False, device=None):
+        super().__init__(remat)
         levels = len(feat_channels)
         ks = [kernel_sizes] * levels if isinstance(kernel_sizes, int) else list(kernel_sizes)
         ll = [level_layers] * levels if isinstance(level_layers, int) else list(level_layers)
@@ -607,8 +651,8 @@ class MultiScaleDecoderV0(_Decoder):
             p = self._level_input(p, xs[-lv - 1])
             base = 0
             for u in getattr(self, f"level_{lv}"):
-                w = weights[lv][..., base:base + u.hyper_params]
-                p = u(p, w) if isinstance(u, V01InvResUnit) else u.apply_map(p, w)
+                p = apply_unit(u, p, weights[lv][..., base:base + u.hyper_params],
+                               remat=self.remat)
                 base += u.hyper_params
         if hasattr(self, "out_fc"):
             if self.training:

@@ -3,9 +3,10 @@
 Counterpart of hyperseg_tpu/models/hypergen.py: the plain forward (:73-110;
 reference process_single_tensor, hyperseg_v1_0.py:52-60), in training mode
 (`model.train()`) its `apply_train` (:133-138), and the test-time
-augmentation `forward_pyramid` (:140-159; hyperseg_v1_0.py:62-91). No
-per-image decoder loop; BN running statistics are written in place in
-training, and dropout draws from the generator given to `forward`.
+augmentation `forward_pyramid` (:140-159; hyperseg_v1_0.py:62-91), and the
+factories' smoke harness `smoke_main` (:163-190). No per-image decoder
+loop; BN running statistics are written in place in training, and dropout
+draws from the generator given to `forward`.
 """
 
 from __future__ import annotations
@@ -59,3 +60,34 @@ class HyperGen(EvalModule):
             else:
                 out = torch.maximum(out, p)
         return out
+
+
+def smoke_main(default_model: str, argv=None):
+    """Module smoke harness (the reference's per-module __main__ convention,
+    hyperseg_v1_0.py:830-865; JAX hypergen.py:163-190): build a model from a
+    spec through the registry on `--device` (the card by default; "cpu"
+    only when asked), run one forward on a random (B, 3, H, W) input, or
+    `forward_pyramid` over a `-p`-level pyramid of it, and print the
+    output's shape, (B, num_classes, H, W)."""
+    import argparse
+
+    import numpy as np
+
+    from hyperseg_torch.core import registry
+    from hyperseg_torch.utils.img_utils import create_pyramid
+
+    p = argparse.ArgumentParser("hyperseg_torch model smoke test")
+    p.add_argument("-m", "--model", default=default_model, help="model spec")
+    p.add_argument("-r", "--res", default=(512,), type=int, nargs="+")
+    p.add_argument("-p", "--pyramids", type=int)
+    p.add_argument("-b", "--batch", default=1, type=int)
+    p.add_argument("--device", default="cuda")
+    a = p.parse_args(argv)
+    res = tuple(a.res) * 2 if len(a.res) == 1 else tuple(a.res)
+
+    model = registry.build(a.model, device=a.device)
+    x = torch.from_numpy(np.random.rand(a.batch, 3, *res).astype(np.float32)).to(a.device)
+    with torch.no_grad():
+        out = (model.forward_pyramid(create_pyramid(x, a.pyramids)) if a.pyramids
+               else model(x))
+    print(tuple(out.shape))

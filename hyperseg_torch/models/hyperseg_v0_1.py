@@ -20,15 +20,16 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
                    decoder_dropout=None, inference_hflip=False,
                    inference_gather="mean", wm_levels=2, down_groups=1,
                    flat_groups=1, weight_groups=1, avg_pool=True, in_nc=3,
-                   device=None) -> HyperGen:
+                   decoder_remat=False, device=None) -> HyperGen:
     """Assemble a v0_1 HyperGen (hyperseg_v0_1.py:16-34). `inference_hflip`
     and `inference_gather` are stored for the test-time-augmentation
-    pyramid; the plain forward ignores them (quirk #5)."""
+    pyramid; the plain forward ignores them (quirk #5). `decoder_remat`
+    checkpoints each hyper unit in training."""
     decoder = MultiScaleDecoderV0(
         [in_nc] + backbone.feat_channels[:-1], num_classes=num_classes,
         kernel_sizes=kernel_sizes, level_layers=level_layers,
         expand_ratio=expand_ratio, with_out_fc=with_out_fc, dropout=decoder_dropout,
-        device=device)
+        remat=decoder_remat, device=device)
     weight_mapper = WeightMapperV0(
         backbone.feat_channels[-1], decoder.param_groups, levels=wm_levels,
         down_groups=down_groups, flat_groups=flat_groups,
@@ -38,8 +39,9 @@ def build_hypergen(backbone: EfficientNet, *, num_classes=3, kernel_sizes=3,
 
 
 def hyperseg_efficientnet(model_name, pretrained=False, levels=3, down_groups=1,
-                          flat_groups=1, weight_groups=1, avg_pool=True, weights_path=None, *,
-                          device="cuda", seed=0, train=False, **kwargs) -> HyperGen:
+                          flat_groups=1, weight_groups=1, avg_pool=True, weights_path=None,
+                          backbone_remat=False, *, device="cuda", seed=0, train=False,
+                          **kwargs) -> HyperGen:
     """Factory mirroring hyperseg_v0_1.hyperseg_efficientnet (:409-424).
 
     The backbone compresses its features by 0.25, as the reference's default
@@ -49,8 +51,16 @@ def hyperseg_efficientnet(model_name, pretrained=False, levels=3, down_groups=1,
     with gradients, as the v1_0 factory). `levels` is the weight mapper's
     pyramid depth. `pretrained` and `weights_path` as in the v1_0 factory:
     ImageNet backbone weights from a local file (raising when there is
-    none), or every tensor of a checkpoint that matches by key and shape."""
+    none), or every tensor of a checkpoint that matches by key and shape.
+    `backbone_remat` / `decoder_remat` as in the v1_0 factory."""
     return V1.make_model(build_hypergen, model_name, pretrained, weights_path, 0.25, levels,
                          device, seed, train,
                          dict(kwargs, down_groups=down_groups, flat_groups=flat_groups,
-                              weight_groups=weight_groups, avg_pool=avg_pool))
+                              weight_groups=weight_groups, avg_pool=avg_pool),
+                         backbone_remat)
+
+
+if __name__ == "__main__":
+    # python -m hyperseg_torch.models.hyperseg_v0_1 [-m SPEC] [-r H W] [-p N] [-b B] [--device cpu]
+    from hyperseg_torch.models.hypergen import smoke_main
+    smoke_main("hyperseg_torch.models.hyperseg_v0_1.hyperseg_efficientnet('efficientnet-b3', levels=3, kernel_sizes=(1,1,3,3,3,3), expand_ratio=2, weight_groups=16, num_classes=21)")

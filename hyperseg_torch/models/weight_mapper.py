@@ -101,7 +101,7 @@ class WeightMapperV0(EvalModule):
             for i in range(self.levels - 1):
                 feats.append(_conv_bn_relu(getattr(self, f"down_{i}"), feats[-1]))
             if self.avg_pool and feats[-1].shape[2:] != (1, 1):
-                feats[-1] = feats[-1].mean((2, 3), keepdim=True).expand_as(feats[-1])
+                feats[-1] = F.adaptive_avg_pool_1(feats[-1]).expand_as(feats[-1])
             for i in range(self.levels - 2, -1, -1):
                 up = F.upsample_nearest(feats.pop(-1), feats[-1].shape[2:])
                 # ReLU only above level 0 (hyperseg_v0_1.py:285-289)

@@ -7,6 +7,9 @@ Counterpart of hyperseg_tpu/nn/functional.py. Conventions:
     BN (`batch_norm_train`) normalizes with the batch statistics and writes
     the running statistics in place;
   * dropout draws from an explicit torch.Generator, never the global RNG;
+  * activation checkpointing (`checkpoint`, the specs of `checkpoint_policy`)
+    recomputes a region's forward in the backward without writing the BN
+    running statistics a second time or drawing another dropout mask;
   * `same_padding_2d` derives TF-SAME pads from the *nominal* model image
     size, as the reference's Conv2dStaticSamePadding does;
   * `resize_bilinear` is bilinear with half-pixel centres, edge clamp and no
@@ -24,6 +27,7 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as TF
+from torch.utils import checkpoint as _ckpt
 
 from hyperseg_torch.ops.kernels import resize as K6
 from hyperseg_torch.ops.kernels import wide
@@ -73,6 +77,27 @@ def conv2d(x, w, b=None, *, stride=1, padding=((0, 0), (0, 0)), groups=1):
     if b is not None:
         b = b.to(x.dtype)
     return TF.conv2d(x, w, b, stride=stride, padding=pad, groups=groups)
+
+
+def linear(x, w, b=None):
+    """x @ w + b with w of shape (in, out) (the JAX package's layout)."""
+    out = x @ w.to(x.dtype)
+    return out if b is None else out + b.to(out.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Pooling
+# ---------------------------------------------------------------------------
+
+
+def adaptive_avg_pool_1(x):
+    """Global average pool of NCHW to (B, C, 1, 1)."""
+    return x.mean((2, 3), keepdim=True)
+
+
+def avg_pool2d(x, kernel, stride=None):
+    """Average pooling of NCHW, VALID padding (torch F.avg_pool2d's default)."""
+    return TF.avg_pool2d(x, kernel, stride)
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +193,20 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, *, eps=1e-5,
     stats = []
     y = _BatchNormTrain.apply(x, weight, bias, channel_dim, eps, stats)
     mean, var = stats
-    n = x.numel() // x.shape[channel_dim]
+    _update_running(running_mean, running_var, mean, var, x.numel() // x.shape[channel_dim],
+                    momentum)
+    return y
+
+
+def _update_running(running_mean, running_var, mean, var, n, momentum):
+    """The in-place running-statistics update of a training-mode BN, with
+    the unbiased variance; skipped while a checkpointed region's forward is
+    recomputed in the backward, which already ran it once."""
+    if _RECOMPUTING.get():
+        return
     with torch.no_grad():
         running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
         running_var.mul_(1 - momentum).add_(var, alpha=momentum * n / max(n - 1, 1))
-    return y
 
 
 class _BatchNormMulti(torch.autograd.Function):
@@ -232,9 +266,7 @@ def batch_norm_multi(parts, weight, bias, running_mean, running_var, *, eps=1e-5
     stats = []
     out = _BatchNormMulti.apply(weight, bias, eps, stats, *parts)
     mean, var, n = stats
-    with torch.no_grad():
-        running_mean.mul_(1 - momentum).add_(mean, alpha=momentum)
-        running_var.mul_(1 - momentum).add_(var, alpha=momentum * n / max(n - 1, 1))
+    _update_running(running_mean, running_var, mean, var, n, momentum)
     return out
 
 
@@ -263,6 +295,93 @@ def _record_batch_stats(x, bn, channel_dim):
     mean = x32.mean(dims)
     bn[2].copy_(mean)
     bn[3].copy_((x32 - mean.view(shape)).square().mean(dims))
+
+
+# ---------------------------------------------------------------------------
+# Activation checkpointing (training only)
+# ---------------------------------------------------------------------------
+
+# True while a checkpointed region's forward is being recomputed in the
+# backward: batch_norm_train and batch_norm_multi then leave the running
+# statistics alone (the JAX package returns a region's BN updates as its
+# outputs instead, efficientnet.py:468-477, decoder.py:344-356).
+_RECOMPUTING = contextvars.ContextVar("hyperseg_torch_recomputing", default=False)
+
+_aten = torch.ops.aten
+# What the 'dots' spec keeps: the outputs of the products the training step
+# dispatches inside a region - the backbone's and the patch convs'
+# convolutions, the hyper units' batched matmuls and einsums (bmm) and their
+# 2-D forms - as JAX's dots_saveable keeps dot_general and
+# conv_general_dilated (tests/test_torch_remat.py records the ops a region
+# runs and holds them to this set).
+DOTS_SAVEABLE = frozenset({_aten.convolution.default, _aten.mm.default, _aten.bmm.default,
+                           _aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in DOTS_SAVEABLE
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def checkpoint_policy(spec):
+    """A remat spec as (enabled, policy) (hyperseg_tpu/nn/functional.py:
+    271-289): False (or falsy) -> no recomputation; True or 'full' -> the
+    region saves nothing but its inputs and recomputes everything in the
+    backward; 'dots' -> the convolutions' and matmuls' outputs stay
+    (DOTS_SAVEABLE) and only the elementwise, BN and activation chains
+    between them are recomputed. Any other value raises ValueError."""
+    if not spec:
+        return False, None
+    if spec is True or spec == "full":
+        return True, None
+    if spec == "dots":
+        return True, _dots_policy
+    raise ValueError(f"unknown remat spec {spec!r}")
+
+
+# the specs by the names a command line gives them (train/saved_memory.py --remat)
+REMAT_SPECS = {"False": False, "True": True, "full": "full", "dots": "dots"}
+
+
+def checkpoint(fn, *args, spec, generator=None):
+    """fn(*args) as a checkpointed region under `spec` (checkpoint_policy)
+    when gradients are on, else plainly: torch's non-reentrant checkpoint,
+    'dots' through a selective-checkpoint policy. The recomputation in the
+    backward writes no BN running statistics, and `generator`, the
+    torch.Generator the region draws its dropout masks from, is set back to
+    its state on entry for it and then returned to where it stood, so the
+    masks are the forward's and the generator ends the step where a plain
+    step leaves it. The region draws from no other random source, so torch's
+    default generators are not saved (preserve_rng_state=False)."""
+    enabled, policy = checkpoint_policy(spec)
+    if not (enabled and torch.is_grad_enabled()):
+        return fn(*args)
+    entry = None if generator is None else generator.get_state()
+
+    def context_fn():
+        forward, recompute = (_ckpt.create_selective_checkpoint_contexts(policy)
+                              if policy is not None
+                              else (contextlib.nullcontext(), contextlib.nullcontext()))
+        return forward, _recomputing(recompute, generator, entry)
+
+    return _ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
+                            preserve_rng_state=False)
+
+
+@contextlib.contextmanager
+def _recomputing(inner, generator, entry):
+    token = _RECOMPUTING.set(True)
+    now = None if generator is None else generator.get_state()
+    if generator is not None:
+        generator.set_state(entry)
+    try:
+        with inner:
+            yield
+    finally:
+        if generator is not None:
+            generator.set_state(now)
+        _RECOMPUTING.reset(token)
 
 
 # ---------------------------------------------------------------------------
@@ -323,6 +442,10 @@ def relu6(x):
 
 def swish(x):
     return TF.silu(x)
+
+
+def hard_sigmoid(x):
+    return relu6(x + 3.0) / 6.0
 
 
 ACTIVATIONS = {

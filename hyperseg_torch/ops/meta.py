@@ -94,3 +94,53 @@ class MetaSequential:
             else:
                 x = c(x)
         return x
+
+
+def main(argv=None):
+    """Smoke harness (JAX meta.py:117-149; reference meta_conv.py:233-254,
+    meta_patch.py:260-315): the meta ops' output shapes, then meta_conv2d's
+    img/s over 100 calls on `--device` (the card by default), timed by the
+    host clock around synchronised calls, printed with the device's name."""
+    import argparse
+    import time
+
+    import numpy as np
+
+    p = argparse.ArgumentParser("hyperseg_torch meta ops smoke test")
+    p.add_argument("--device", default="cuda")
+    dev = torch.device(p.parse_args(argv).device)
+    rng = np.random.RandomState(0)
+    b, cin, cout, h, w = 2, 8, 12, 32, 48
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x = t(rng.rand(b, cin, h, w))
+    wt = t(rng.rand(b, meta_conv2d_hyper_params(cout, cin, 3)))
+    y = meta_conv2d(x, wt, out_channels=cout, kernel_size=(3, 3), padding=((1, 1), (1, 1)))
+    assert tuple(y.shape) == (b, cout, h, w), y.shape
+    yl = meta_linear(x[:, :, 0, 0], t(rng.rand(b, cout * cin)), out_features=cout,
+                     in_features=cin)
+    assert tuple(yl.shape) == (b, cout), yl.shape
+    wp = t(rng.rand(b, meta_conv2d_hyper_params(cout, cin, 3), 4, 6))
+    yp = meta_patch_conv2d(x, wp, out_channels=cout, kernel_size=3)
+    assert tuple(yp.shape) == (b, cout, h, w), yp.shape
+
+    def conv():
+        return meta_conv2d(x, wt, out_channels=cout, kernel_size=(3, 3),
+                           padding=((1, 1), (1, 1)))
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    conv()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(100):
+        conv()
+    sync()
+    fps = 100 * b / (time.perf_counter() - t0)
+    name = torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+    print(f"meta ops ok; meta_conv2d {fps:.0f} img/s at {tuple(x.shape)} on {name}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,12 +1,12 @@
 """Segmentation losses, NCHW logits.
 
-Counterpart of hyperseg_tpu/train/losses.py:28-170. The bootstrapped cross
+Counterpart of hyperseg_tpu/train/losses.py:28-182. The bootstrapped cross
 entropy keeps, per image, only the hardest pixels (reference
 losses/bootstrapped_ce_loss.py:8-40): every pixel whose loss exceeds
 `thresh` when the (k+1)-th largest loss does, else exactly the top k, and
 averages; the result is the mean over images. Ties at the k-th value share
 the remaining top-k weight evenly, as the JAX package's "select" method
-does.
+does. `cross_entropy_loss` is the plain masked mean.
 """
 
 from __future__ import annotations
@@ -61,6 +61,22 @@ def bootstrapped_cross_entropy(logits, labels, *, k=4096, thresh=0.3, ignore_ind
         w = torch.where(strict, torch.ones_like(flat), torch.where(tied, tie_w, zero))
         mean_topk = (w * flat).sum(1) / kk
     return torch.where(take_all, mean_above, mean_topk).mean()
+
+
+def cross_entropy_loss(logits, labels, *, ignore_index=255, weight=None):
+    """The plain masked-mean CE (torch F.cross_entropy, reduction='mean'):
+    the summed per-pixel loss over the number of labelled pixels, or with a
+    class `weight` over the summed weights of their classes; 0 when every
+    pixel is ignored (JAX losses.py:172-182)."""
+    loss, valid = softmax_cross_entropy(logits, labels, ignore_index=ignore_index,
+                                        weight=weight)
+    if weight is None:
+        denom = valid.sum().clamp_min(1).to(loss.dtype)
+    else:
+        safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+        w = weight.to(loss.device, loss.dtype)[safe]
+        denom = torch.where(valid, w, torch.zeros_like(w)).sum().clamp_min(1e-8)
+    return loss.sum() / denom
 
 
 class BootstrappedCrossEntropyLoss:

@@ -4,7 +4,7 @@ A recipe holds the numbers of one config that the training step reads: the
 crop and batch, Adam's learning rate and the PolyLR schedule (every config
 sets Adam's betas to (0.5, 0.999), train/step.py's defaults).
 The models' own arguments are the factories' (HyperSeg-M, -L and -L VOC as
-`chip_smoke.MODELS` builds them); the whole configs, data and augmentation
+`train/harness.py` `MODELS` builds them); the whole configs, data and augmentation
 included, are `hyperseg_torch/configs/train/*.py`, whose numbers
 tests/test_torch_configs.py holds against these. Every shipped config uses
 bootstrapped CE ignoring 255 (train/losses.py) and normalises images with

@@ -36,3 +36,6 @@ def config_schedule(base_lr: float, max_epoch: int, power: float, *, per_batch: 
 def constant_lr(base_lr: float):
     return lambda step: base_lr
 
+
+SCHEDULES = {"poly": poly_lr, "constant": constant_lr}
+

@@ -1,5 +1,9 @@
 """The port's training step against the JAX make_train_step, for HyperSeg-M,
-HyperSeg-L and HyperSeg-L VOC's v0_1 family, on both training routes.
+HyperSeg-L and HyperSeg-L VOC's v0_1 family, on both training routes: the
+cases, the runs and the tests, shared by one test file per model
+(tests/test_torch_train_parity_{m,l,v}.py, so that pytest's workers take
+the three models' JAX compiles in parallel). This module is not collected
+itself.
 
 Each case runs on the CPU in float32, batch 2: HyperSeg-M (HYPERSEG_M_KW)
 and HyperSeg-L (HYPERSEG_L_KW, six levels, the last at full resolution) at
@@ -12,8 +16,8 @@ dropout at 0 on both sides. Both run bootstrapped CE with ignore_index 255
 and Adam with beta1 = 0.5 under PolyLR(1e-3, 100). The port runs each case
 on both training routes (ops/patch.py `ROUTES`: the 6-D gather
 everywhere, or the full-map forms wherever their gates allow them); the
-JAX step runs its own default route once per model. One module-scoped
-fixture runs three steps on each side; the tests read the first step's
+JAX step runs its own default route once per model. Each file's
+module-scoped fixture (`runs_fixture`) runs three steps on each side; the tests read the first step's
 loss, gradients, updates, BN running statistics and confusion matrix, the
 three losses, and the port's losses of steps 2 and 3 at JAX's parameters
 after steps 1 and 2. The JAX gradients are read from Adam's first moment
@@ -59,6 +63,13 @@ BATCH = 2
 # the v0_1 family as tests/test_train_parity.py:269-271 trains it
 V0_KW = dict(levels=2, kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2, with_out_fc=False,
              decoder_dropout=None, weight_groups=16, num_classes=21)
+
+
+# The port's steps run on 2 CPU threads (the noise floor's second reading on 1):
+# the three model files run at once in the suite's workers, and a thread a core in
+# each of them oversubscribes the machine. The tolerances below were read at 1 to 8
+# threads.
+PORT_THREADS = 2
 
 
 class Case(NamedTuple):
@@ -148,17 +159,26 @@ def _jax_run(model):
     return batches, jax_out
 
 
-@pytest.fixture(scope="module", params=[(m, r) for m in CASES for r in P.ROUTES],
-                ids=lambda p: f"{p[0]}-{p[1]}")
-def runs(request):
-    model, route = request.param
-    factory, backbone, kw = CASES[model][:3]
-    batches, jax_out = _jax_run(model)
-    with pytest.MonkeyPatch.context() as mp:
-        for lever, value in P.ROUTES[route].items():
-            mp.setattr(P, lever, value)
-        port = _port_run(factory, backbone, kw, batches, jax_out)
-    return jax_out, port, model
+def runs_fixture(model):
+    """The module-scoped fixture of one model's test file: the JAX run (cached
+    per model) and the port's on each training route, ids "<model>-<route>"."""
+    @pytest.fixture(scope="module", params=[(model, r) for r in P.ROUTES],
+                    ids=lambda p: f"{p[0]}-{p[1]}")
+    def runs(request):
+        model, route = request.param
+        factory, backbone, kw = CASES[model][:3]
+        batches, jax_out = _jax_run(model)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(PORT_THREADS)
+        try:
+            with pytest.MonkeyPatch.context() as mp:
+                for lever, value in P.ROUTES[route].items():
+                    mp.setattr(P, lever, value)
+                port = _port_run(factory, backbone, kw, batches, jax_out)
+        finally:
+            torch.set_num_threads(threads)
+        return jax_out, port, model
+    return runs
 
 
 def _port_run(factory, backbone, kw, batches, jax_out):
