@@ -148,6 +148,35 @@ Phases (any failure exits non-zero before the result lines):
          just before and read just after (K3's raw conv once and K6 five
          times a step under every spec: neither is recomputed), finite and
          falling losses, ms per step, img/s and peak memory (`remat` lines);
+  DDP. data parallelism (hyperseg_torch.parallel) on the one card, at T3's
+     cell (HyperSeg-M 512x1024, global batch 16, float32, TF32 off, drop
+     connect and dropout on), in a process group of this process alone over
+     NCCL for (a) and the CLI's training run: (a) the plain step and the
+     DistributedDataParallel step (train/step.py under the group: the
+     training BNs all-reduce their statistics, the dropouts draw the global
+     batch's masks), one step each on deterministic algorithms from the same
+     seed-0 weights, batch and generator: loss, every parameter and running
+     statistic and the generator's state bit-equal (an all-reduce of one
+     rank is the identity), with the all-reduces a step counted; then
+     DDP["calls"] calls of each, alternated, of DDP["steps"] steps: ms a
+     step (CUDA events, the median call), peak GiB, the launch counters set
+     to 0 just before and read just after (K3's raw conv once and K6 five
+     times a step); one profiled step of each (device ms, device ops, NCCL's);
+     (b) two ranks spawned over gloo on cuda:0 (NCCL refuses two ranks on one
+     card), batch 8 each: rank 0's loss, gradients, parameters and running
+     statistics after one deterministic step against (a)'s plain step at
+     batch 16 (loss DDP["loss_rtol"], statistics DDP["stats_rel_l2"], the
+     gradients and parameters within DDP["floor_margin"] times the plain
+     step's own distance from itself with its image one float32 ulp away),
+     and its ms a step, staged through the host by gloo (no multi-GPU
+     speed); (c)
+     hyperseg_torch.cli.train from the M config through the NCCL group of
+     one rank on a small synthetic tree (DDP["train_frames"] train and
+     DDP["val_frames"] val frames), TRAIN's gates; and hyperseg_torch.cli.test
+     on the TEST phase's M tree and checkpoint in float32, on two gloo ranks
+     on cuda:0 at a global batch of 4 and on one process at 2 (the batches
+     each rank runs): the confusion matrices and scores.npz equal (`ddp`
+     lines);
   5. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
 
@@ -173,8 +202,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from hyperseg_torch.train.harness import (MODELS, synthetic_batch,  # noqa: E402
-                                          timed_steps, train_model, trainer)
+from hyperseg_torch.train.harness import (MODELS, deterministic,  # noqa: E402
+                                          synthetic_batch, timed_steps, train_model, trainer)
 
 # H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
 # flop/s by input type (bf16 on the tensor cores, float32 on the CUDA cores)
@@ -1352,10 +1381,10 @@ def step_parts(exp_dir, batch, dtype, num_classes):
     return parts
 
 
-def run_test(smi):
-    """The TEST phase. Returns (numbers, {model: launches}, K6's label-
+def run_test(smi, tmp):
+    """The TEST phase, its trees and checkpoints under `tmp` (the DDP phase
+    reads M's again). Returns (numbers, {model: launches}, K6's label-
     resolution entries)."""
-    import tempfile
     import numpy as np
     from hyperseg_torch import native
     from hyperseg_torch.cli import test as test_cli
@@ -1373,100 +1402,99 @@ def run_test(smi):
     out, launches, label_resize = {"native": native.library_path()}, {}, {}
     per_forward = dict(MODELS["M"].per_forward)
     per_forward["resize_bilinear"] += 1           # the logits to the labels' resolution
-    with tempfile.TemporaryDirectory() as tmp:
-        root, exp_dir = os.path.join(tmp, "cityscapes"), os.path.join(tmp, "exp_m")
-        make_cityscapes(root, exp_dir)
-        spec = f"cityscapes.CityscapesDataset({root!r}, 'val', 'fine', 'semantic')"
-        img_tf = [f"seg_transforms.ImageResize({list(TEST['res'])})"]
-        for tag, dtype_name, batch, workers in TEST["runs"]:
-            dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
-            report, scores, lc = run_cli(tag, "M", exp_dir, spec, img_tf, dtype_name, batch,
-                                         workers, per_forward, smi)
-            for name, v in lc.items():
-                launches.setdefault("M", {})[name] = launches.get("M", {}).get(name, 0) + v
-            ds, loader = test_loaders(spec, img_tf, batch)
-            eager, first, preds, k6 = eager_pass(exp_dir, loader, dtype, 19, True)
-            if not np.array_equal(report["confmat"], eager):
-                fail(f"test M {tag}: the CLI's confusion matrix differs from the eager step's "
-                     f"by {np.abs(report['confmat'] - eager).sum()} counts")
-            labels = first["label"].cpu().numpy()
-            host = [M.per_image_jaccard(labels[j], preds[j], 19, ignore_index=0)
-                    for j in range(batch)]
-            if list(report["ious"][:batch]) != host:
-                fail(f"test M {tag}: per-image ious {report['ious'][:batch]} != numpy "
-                     f"per_image_jaccard {host}")
-            first_batch_vs_plain(ds, first, batch)
-            present = eager.sum(1) > 0
-            iou = scores["class_iou"][present]
-            print(f"test   M {tag}: confusion matrix equals the eager step's ({int(eager.sum())} "
-                  f"pixels); per-image ious equal numpy per_image_jaccard on batch 0; the "
-                  f"loader's first batch equals the plain path's (native *_plain twins, numpy "
-                  f"stack); classes present {int(present.sum())}, their IoU "
-                  f"{iou.min():.6f}-{iou.max():.6f}", flush=True)
-            if tag == "a" and not (float(scores["global_acc"]) >= TEST_GLOBAL_ACC
-                                   and iou.min() >= TEST_CLASS_IOU):
-                fail(f"test M a: global_acc {float(scores['global_acc'])} (min "
-                     f"{TEST_GLOBAL_ACC}), class IoU {iou.min()} (min {TEST_CLASS_IOU}) on "
-                     f"labels the model made")
-            label_resize[f"b{batch} {dtype_name}"] = r = label_resize_check(k6, dtype)
-            print(f"test   K6 at the label resolution {r['shape']} -> {r['out']} {dtype_name}: "
-                  f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}); kernel "
-                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, interpolate "
-                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
-                  flush=True)
-            parts = step_parts(exp_dir, first, dtype, 19)
-            print(f"test   M {tag} the step's parts, device ms (events): " + ", ".join(
-                f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}, "
-                f"replay {report['timings']['replay_ms']:.3f}", flush=True)
-            if tag == "a":
-                stages = out["sample_stages_ms"] = sample_parts(ds)
-                print(f"test   M one sample's host stages, ms on one core: " + ", ".join(
-                    f"{k} {v:.3f}" for k, v in stages.items()) + f"; sum "
-                    f"{sum(stages.values()):.3f}", flush=True)
-            feed = None
-            if tag == "a":     # the loader alone, once (PR 14 read both runs)
-                feed = loader_feed(ds, batch)
-                print(f"test   M {tag} loader alone, b{batch}, two passes: " + "; ".join(
-                    f"4 {k}: first batch after {v[0]:.3f} s, then {v[1]:.3f} ms a batch"
-                    for k, v in feed.items()) + f"; replay "
-                    f"{report['timings']['replay_ms']:.3f} ms [{smi}]", flush=True)
-            out[f"M {tag}"] = dict(dtype=dtype_name, batch=batch, workers=workers,
-                                   timings=report["timings"], launches=lc,
-                                   global_acc=float(scores["global_acc"]),
-                                   miou=float(np.mean(scores["class_iou"])),
-                                   classes_present=int(present.sum()),
-                                   min_present_iou=float(iou.min()),
-                                   step_parts_ms=parts, loader_alone=feed)
-            del loader, first, k6
-            torch.cuda.empty_cache()
-        # the cache: a second run without `forced` reads scores.npz, runs nothing
-        LAUNCHES.clear()
-        report = {}
-        miou = test_cli.main(exp_dir, test_dataset=spec, img_transforms=img_tf, report=report)
-        if report["confmat"] is not None or sum(LAUNCHES.values()) or \
-                miou != out["M b"]["miou"]:
-            fail("test M: a run without forced did not read scores.npz")
-        print(f"test   M cached: a run without forced read scores.npz (mIoU {miou:.4f}, no "
-              f"launch)", flush=True)
-
-        root, exp_dir = os.path.join(tmp, "vocsbd"), os.path.join(tmp, "exp_v")
-        make_voc(root, exp_dir)
-        spec = f"voc_sbd.VOCSBDDataset({root!r}, 'val')"
-        img_tf = ["seg_transforms.ConstantPad(512, lbl_fill=255)"]
-        report, scores, launches["V"] = run_cli("voc", "V", exp_dir, spec, img_tf, "float32",
-                                                TEST["voc_batch"], 4, MODELS["V"].per_forward,
-                                                smi)
-        ds, loader = test_loaders(spec, img_tf, TEST["voc_batch"])
-        eager, first, _, _ = eager_pass(exp_dir, loader, torch.float32, 21, False)
+    root, exp_dir = os.path.join(tmp, "cityscapes"), os.path.join(tmp, "exp_m")
+    make_cityscapes(root, exp_dir)
+    spec = f"cityscapes.CityscapesDataset({root!r}, 'val', 'fine', 'semantic')"
+    img_tf = [f"seg_transforms.ImageResize({list(TEST['res'])})"]
+    for tag, dtype_name, batch, workers in TEST["runs"]:
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+        report, scores, lc = run_cli(tag, "M", exp_dir, spec, img_tf, dtype_name, batch,
+                                     workers, per_forward, smi)
+        for name, v in lc.items():
+            launches.setdefault("M", {})[name] = launches.get("M", {}).get(name, 0) + v
+        ds, loader = test_loaders(spec, img_tf, batch)
+        eager, first, preds, k6 = eager_pass(exp_dir, loader, dtype, 19, True)
         if not np.array_equal(report["confmat"], eager):
-            fail("test V: the CLI's confusion matrix differs from the eager step's")
-        first_batch_vs_plain(ds, first, TEST["voc_batch"])
-        print(f"test   V voc: confusion matrix equals the eager step's ({int(eager.sum())} "
-              f"pixels); the loader's first batch equals the plain path's", flush=True)
-        out["V voc"] = dict(dtype="float32", batch=TEST["voc_batch"], workers=4,
-                            timings=report["timings"], launches=launches["V"],
-                            miou=float(np.mean(scores["class_iou"])))
-        del loader, first
+            fail(f"test M {tag}: the CLI's confusion matrix differs from the eager step's "
+                 f"by {np.abs(report['confmat'] - eager).sum()} counts")
+        labels = first["label"].cpu().numpy()
+        host = [M.per_image_jaccard(labels[j], preds[j], 19, ignore_index=0)
+                for j in range(batch)]
+        if list(report["ious"][:batch]) != host:
+            fail(f"test M {tag}: per-image ious {report['ious'][:batch]} != numpy "
+                 f"per_image_jaccard {host}")
+        first_batch_vs_plain(ds, first, batch)
+        present = eager.sum(1) > 0
+        iou = scores["class_iou"][present]
+        print(f"test   M {tag}: confusion matrix equals the eager step's ({int(eager.sum())} "
+              f"pixels); per-image ious equal numpy per_image_jaccard on batch 0; the "
+              f"loader's first batch equals the plain path's (native *_plain twins, numpy "
+              f"stack); classes present {int(present.sum())}, their IoU "
+              f"{iou.min():.6f}-{iou.max():.6f}", flush=True)
+        if tag == "a" and not (float(scores["global_acc"]) >= TEST_GLOBAL_ACC
+                               and iou.min() >= TEST_CLASS_IOU):
+            fail(f"test M a: global_acc {float(scores['global_acc'])} (min "
+                 f"{TEST_GLOBAL_ACC}), class IoU {iou.min()} (min {TEST_CLASS_IOU}) on "
+                 f"labels the model made")
+        label_resize[f"b{batch} {dtype_name}"] = r = label_resize_check(k6, dtype)
+        print(f"test   K6 at the label resolution {r['shape']} -> {r['out']} {dtype_name}: "
+              f"max_abs_err {r['max_abs_err']:.3e} (tol {r['tol']:.3e}); kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, interpolate "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})",
+              flush=True)
+        parts = step_parts(exp_dir, first, dtype, 19)
+        print(f"test   M {tag} the step's parts, device ms (events): " + ", ".join(
+            f"{k} {v:.3f}" for k, v in parts.items()) + f"; sum {sum(parts.values()):.3f}, "
+            f"replay {report['timings']['replay_ms']:.3f}", flush=True)
+        if tag == "a":
+            stages = out["sample_stages_ms"] = sample_parts(ds)
+            print(f"test   M one sample's host stages, ms on one core: " + ", ".join(
+                f"{k} {v:.3f}" for k, v in stages.items()) + f"; sum "
+                f"{sum(stages.values()):.3f}", flush=True)
+        feed = None
+        if tag == "a":     # the loader alone, in run (a) only
+            feed = loader_feed(ds, batch)
+            print(f"test   M {tag} loader alone, b{batch}, two passes: " + "; ".join(
+                f"4 {k}: first batch after {v[0]:.3f} s, then {v[1]:.3f} ms a batch"
+                for k, v in feed.items()) + f"; replay "
+                f"{report['timings']['replay_ms']:.3f} ms [{smi}]", flush=True)
+        out[f"M {tag}"] = dict(dtype=dtype_name, batch=batch, workers=workers,
+                               timings=report["timings"], launches=lc,
+                               global_acc=float(scores["global_acc"]),
+                               miou=float(np.mean(scores["class_iou"])),
+                               classes_present=int(present.sum()),
+                               min_present_iou=float(iou.min()),
+                               step_parts_ms=parts, loader_alone=feed)
+        del loader, first, k6
+        torch.cuda.empty_cache()
+    # the cache: a second run without `forced` reads scores.npz, runs nothing
+    LAUNCHES.clear()
+    report = {}
+    miou = test_cli.main(exp_dir, test_dataset=spec, img_transforms=img_tf, report=report)
+    if report["confmat"] is not None or sum(LAUNCHES.values()) or \
+            miou != out["M b"]["miou"]:
+        fail("test M: a run without forced did not read scores.npz")
+    print(f"test   M cached: a run without forced read scores.npz (mIoU {miou:.4f}, no "
+          f"launch)", flush=True)
+
+    root, exp_dir = os.path.join(tmp, "vocsbd"), os.path.join(tmp, "exp_v")
+    make_voc(root, exp_dir)
+    spec = f"voc_sbd.VOCSBDDataset({root!r}, 'val')"
+    img_tf = ["seg_transforms.ConstantPad(512, lbl_fill=255)"]
+    report, scores, launches["V"] = run_cli("voc", "V", exp_dir, spec, img_tf, "float32",
+                                            TEST["voc_batch"], 4, MODELS["V"].per_forward,
+                                            smi)
+    ds, loader = test_loaders(spec, img_tf, TEST["voc_batch"])
+    eager, first, _, _ = eager_pass(exp_dir, loader, torch.float32, 21, False)
+    if not np.array_equal(report["confmat"], eager):
+        fail("test V: the CLI's confusion matrix differs from the eager step's")
+    first_batch_vs_plain(ds, first, TEST["voc_batch"])
+    print(f"test   V voc: confusion matrix equals the eager step's ({int(eager.sum())} "
+          f"pixels); the loader's first batch equals the plain path's", flush=True)
+    out["V voc"] = dict(dtype="float32", batch=TEST["voc_batch"], workers=4,
+                        timings=report["timings"], launches=launches["V"],
+                        miou=float(np.mean(scores["class_iou"])))
+    del loader, first
     torch.cuda.synchronize()
     gc.collect()
     left = torch.cuda.memory_allocated()
@@ -1480,9 +1508,10 @@ def run_test(smi):
     return out, launches, label_resize
 
 
-def make_cityscapes_trainval(root):
-    """The TRAIN phase's synthetic Cityscapes tree: TRAIN_CLI["train_frames"]
-    frames in two cities and TRAIN_CLI["val_frames"] in one, leftImg8bit
+def make_cityscapes_trainval(root, train_frames=TRAIN_CLI["train_frames"],
+                             val_frames=TRAIN_CLI["val_frames"]):
+    """The TRAIN phase's synthetic Cityscapes tree: `train_frames` frames in
+    two cities and `val_frames` in one, leftImg8bit
     PNGs at 2048x1024 (structured_image), labels of square tiles of random
     classes (a Cityscapes label id of each of the 19 train classes) with a
     band of void (id 0, train id 255) across each frame."""
@@ -1501,8 +1530,8 @@ def make_cityscapes_trainval(root):
         lab[top:top + band] = 0
         return lab
     items = []
-    for split, n, cities in (("train", TRAIN_CLI["train_frames"], TRAIN_CLI["cities"]),
-                             ("val", TRAIN_CLI["val_frames"], ("frankfurt",))):
+    for split, n, cities in (("train", train_frames, TRAIN_CLI["cities"]),
+                             ("val", val_frames, ("frankfurt",))):
         for i in range(n):
             city = cities[i * len(cities) // n]
             stem = f"{city}_000000_{i:06d}"
@@ -1515,8 +1544,8 @@ def make_cityscapes_trainval(root):
                                        f"{stem}_gtFine_labelIds.png"),
                           functools.partial(label, 10_000 + seed)))
     save_pngs(items)
-    print(f"train_cli M synthetic Cityscapes: {TRAIN_CLI['train_frames']} train and "
-          f"{TRAIN_CLI['val_frames']} val frames {w}x{h}, labels of {t}x{t} tiles of the 19 "
+    print(f"train_cli M synthetic Cityscapes: {train_frames} train and "
+          f"{val_frames} val frames {w}x{h}, labels of {t}x{t} tiles of the 19 "
           f"classes with {band} rows of void ({time.perf_counter() - t0:.1f} s)", flush=True)
 
 
@@ -2250,25 +2279,6 @@ def train_vs_cpu():
                 adam_err=upd_worst, adam_rule_err=rule_worst, small_grad_flips=small_flips)
 
 
-@contextlib.contextmanager
-def deterministic():
-    """cuDNN's deterministic algorithms and torch's deterministic mode for the
-    ops that have one (the others, such as reflection_pad2d's backward, keep
-    their atomics; their warnings are silenced)."""
-    import warnings
-    old = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
-           torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            yield
-    finally:
-        torch.backends.cudnn.deterministic = old[0]
-        torch.use_deterministic_algorithms(old[1], warn_only=old[2])
-
-
 def step_grads(model, x, lbl, state, exact=False):
     """One forward, loss and backward of `model`, without an update, from the
     weights and statistics `state` on (x, lbl), its generator seeded 3, under
@@ -2425,6 +2435,302 @@ def run_training():
     return launches, stem, resize, numbers
 
 
+# The DDP phase: T3's cell (the M recipe's batch and crop), float32, TF32 off
+DDP = dict(key="M", calls=4, steps=3,
+           # (b) two gloo ranks on one card against (a)'s one-process step. At T3 the
+           # step from seed-0 weights is chaotic at rounding level: the one-process
+           # step against itself with its image one float32 ulp away (2^-22 relative)
+           # moved the gradients by rel L2 2.2e-2 and the parameters after Adam by
+           # 1.7e-3 on an H100 (the loss by 1.5e-7, the statistics by 1e-6), so the
+           # gradients and parameters are held within `floor_margin` times that floor,
+           # measured in the same run and never above max_rel_l2 (gradients summed
+           # over the ranks and not averaged sit at 1), the loss and the statistics,
+           # which the forward sets, by fixed limits
+           gloo_ranks=2, gloo_timed=2, loss_rtol=1e-4, stats_rel_l2=1e-3, floor_margin=2.0,
+           max_rel_l2=0.1,
+           # (c) the training CLI's short epoch: sampled with replacement from few frames
+           train_frames=4, val_frames=4, cli_steps=3, workers=4)
+
+
+def all_reduce_counter():
+    """(count, undo): counts the all-reduces the port issues from Python (the
+    BNs' and the losses'; DDP's bucket all-reduces run in its C++ reducer)."""
+    import torch.distributed as dist
+    count, real = [0], dist.all_reduce
+
+    def counted(*args, **kwargs):
+        count[0] += 1
+        return real(*args, **kwargs)
+    dist.all_reduce = counted
+
+    def undo():
+        dist.all_reduce = real
+    return count, undo
+
+
+def ddp_world1(key, b, res, smi):
+    """(a): the plain and the DDP step in a group of one rank over NCCL.
+    Returns (numbers, the DDP calls' launches, (loss, state, generator
+    state) of the plain step on deterministic algorithms)."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.parallel import distributed as D
+    img, lbl = synthetic_batch(b, res, 2, "cuda", MODELS[key].kw["num_classes"])
+    models = {name: train_model(key, "cuda", drop=True) for name in ("plain", "ddp")}
+    if not all(torch.equal(x, y) for x, y in zip(models["plain"].state_dict().values(),
+                                                 models["ddp"].state_dict().values())):
+        fail("ddp: two seed-0 models differ")
+    init = {k: v.detach().clone() for k, v in models["plain"].state_dict().items()}
+    ddp = D.wrap_model(models["ddp"], "cuda")
+    steps = {"plain": trainer(models["plain"], key), "ddp": trainer(ddp, key)}
+    first = {}
+    for name in ("plain", "ddp"):
+        gen = torch.Generator("cuda").manual_seed(3)
+        count, undo = all_reduce_counter()
+        try:
+            with deterministic():
+                loss = steps[name](img, lbl, gen)["loss"].item()
+        finally:
+            undo()
+        first[name] = (loss, {k: v.detach().clone() for k, v in models[name].state_dict().items()},
+                       gen.get_state(), count[0],
+                       {k: p.grad.cpu() for k, p in models[name].named_parameters()
+                        if p.grad is not None})
+    (l0, s0, g0, _, grads0), (l1, s1, g1, reduces, _) = first["plain"], first["ddp"]
+    differ = [k for k in s0 if not torch.equal(s0[k], s1[k])]
+    print(f"ddp    (a) T3 {key} b{b} {res[0]}x{res[1]} float32, NCCL world size 1, one step on "
+          f"deterministic algorithms: DDP loss {l1!r}, plain {l0!r}; {len(differ)} of {len(s0)} "
+          f"state tensors differ, generator state equal {torch.equal(g0, g1)}; {reduces} "
+          f"all-reduces from the BNs and the loss a step (DDP's buckets aside), 0 in the "
+          f"plain step ({first['plain'][3]})", flush=True)
+    if l0 != l1 or differ or not torch.equal(g0, g1) or first["plain"][3] or not reduces:
+        fail(f"ddp (a): the world-size-1 DDP step is not bit-equal to the plain step: loss "
+             f"{l1!r} vs {l0!r}, differing {differ[:5]}, all-reduces {reduces}")
+    # the noise floor of (b): the plain step again from the same weights, on deterministic
+    # algorithms, its image one float32 ulp away
+    models["plain"].load_state_dict(init)
+    gen = torch.Generator("cuda").manual_seed(3)
+    with deterministic():
+        lf = trainer(models["plain"], key)(img * (1 + 2 ** -22), lbl, gen)["loss"].item()
+    sf = {k: v.detach().cpu() for k, v in models["plain"].state_dict().items()}
+    gf = {k: p.grad.cpu() for k, p in models["plain"].named_parameters() if p.grad is not None}
+    ref = (l0, {k: v.cpu() for k, v in s0.items()}, g0, grads0, (lf, sf, gf))
+    del s0, s1, first, init
+    numbers = {"plain": [], "ddp": []}
+    launches = {}
+    for call in range(DDP["calls"]):
+        for name in ("plain", "ddp"):
+            gen = torch.Generator("cuda").manual_seed(3)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            ms, losses = timed_steps(steps[name], img, lbl, gen, DDP["steps"])
+            got = {n: c for n, c in LAUNCHES.items() if c}
+            want = {n: per * DDP["steps"] for n, per in TRAIN_PER_STEP.items()}
+            if got != want or not all(math.isfinite(v) for v in losses):
+                fail(f"ddp (a) {name}: launches {got} in {DDP['steps']} steps, expected {want}; "
+                     f"losses {losses}")
+            if name == "ddp":
+                for n, c in got.items():
+                    launches[n] = launches.get(n, 0) + c
+            numbers[name].append(dict(ms=ms, peak_bytes=torch.cuda.max_memory_allocated(),
+                                      losses=losses))
+    summary = {}
+    for name in ("plain", "ddp"):
+        ms = [c["ms"] for c in numbers[name]]
+        med = sorted(ms)[len(ms) // 2]
+        summary[name] = dict(ms_per_step=med, ms_calls=ms,
+                             peak_bytes=max(c["peak_bytes"] for c in numbers[name]),
+                             img_per_s=b * 1e3 / med, **ddp_device(steps[name], img, lbl))
+        print(f"ddp    (a) T3 {name}: {med:.3f} ms a step (CUDA events; the median of "
+              f"{DDP['calls']} calls of {DDP['steps']} steps, alternated: "
+              f"{', '.join(f'{v:.3f}' for v in ms)}), {summary[name]['img_per_s']:.2f} img/s, peak "
+              f"{summary[name]['peak_bytes'] / 2 ** 30:.3f} GiB; one profiled step: "
+              f"{summary[name]['device_ms']:.3f} device ms in {summary[name]['device_ops']} device "
+              f"ops, NCCL {summary[name]['nccl_ms']:.3f} ms in {summary[name]['nccl_ops']} "
+              f"[{smi}]", flush=True)
+    plain, dp = summary["plain"], summary["ddp"]
+    print(f"ddp    (a) T3 DDP against plain: {dp['ms_per_step'] - plain['ms_per_step']:+.3f} ms a "
+          f"step ({dp['ms_per_step'] / plain['ms_per_step']:.4f}x), device "
+          f"{dp['device_ms'] - plain['device_ms']:+.3f} ms in "
+          f"{dp['device_ops'] - plain['device_ops']:+d} ops, {reduces} all-reduces a step, peak "
+          f"{(dp['peak_bytes'] - plain['peak_bytes']) / 2 ** 20:+.1f} MiB; launches {launches} in "
+          f"{DDP['calls'] * DDP['steps']} steps", flush=True)
+    summary.update(allreduces_per_step=reduces, bit_equal=True, launches=launches)
+    del models, ddp, steps, img, lbl
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, launches, ref
+
+
+def ddp_device(step, img, lbl):
+    """One more step under torch.profiler: its device time and device ops,
+    those of NCCL's kernels apart."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator("cuda").manual_seed(3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(img, lbl, gen)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.events() if e.device_type == cuda and not annotation(e)]
+    nccl = [e for e in kernels if "nccl" in e.name.lower()]
+    return dict(device_ms=sum(e.device_time for e in kernels) / 1e3, device_ops=len(kernels),
+                nccl_ms=sum(e.device_time for e in nccl) / 1e3, nccl_ops=len(nccl))
+
+
+def ddp_gloo(key, b, res, ref, smi):
+    """(b): two ranks over gloo on cuda:0 at b / 2 each against (a)'s plain
+    step at b."""
+    from hyperseg_torch.parallel import distributed as D
+    from hyperseg_torch.train.harness import ddp_rank_step
+    t0 = time.perf_counter()
+    got = D.run_ranks(ddp_rank_step, ["cuda:0"] * DDP["gloo_ranks"], backend="gloo",
+                      kwargs=dict(key=key, batch=b, res=res, timed=DDP["gloo_timed"]))
+    wall = time.perf_counter() - t0
+    loss0, state0, gen0, grads0, (loss_f, state_f, grads_f) = ref
+    params = [k for k in state0 if not k.endswith(("running_mean", "running_var"))]
+    stats = [k for k in state0 if k not in params]
+
+    def errors(state, grads, loss):
+        return (rel_l2({k: grads[k].double() for k in grads0},
+                       {k: v.double() for k, v in grads0.items()}),
+                rel_l2({k: state[k].double() for k in params},
+                       {k: state0[k].double() for k in params}),
+                rel_l2({k: state[k].double() for k in stats},
+                       {k: state0[k].double() for k in stats}),
+                abs(loss - loss0) / abs(loss0))
+    err_g, err_p, err_s, loss_rel = errors(got["state"], got["grads"], got["loss"])
+    floor_g, floor_p, floor_s, floor_loss = errors(state_f, grads_f, loss_f)
+    lim_g, lim_p = (min(DDP["max_rel_l2"], DDP["floor_margin"] * f) for f in (floor_g, floor_p))
+    same_gen = torch.equal(got["generator"], gen0)
+    print(f"ddp    (b) T3 {key} {DDP['gloo_ranks']} gloo ranks on cuda:0, "
+          f"b{b // DDP['gloo_ranks']} each, one deterministic step against (a)'s plain b{b} "
+          f"step: loss {got['loss']!r} "
+          f"({loss0!r}, rel {loss_rel:.3e}, limit {DDP['loss_rtol']:.0e}); gradients rel L2 "
+          f"{err_g:.3e} (limit {lim_g:.3e}), parameters {err_p:.3e} (limit {lim_p:.3e}), running "
+          f"statistics {err_s:.3e} (limit {DDP['stats_rel_l2']:.0e}); the floor, the plain step "
+          f"with its image one ulp away: loss {floor_loss:.3e}, gradients {floor_g:.3e}, "
+          f"parameters {floor_p:.3e}, statistics {floor_s:.3e}; generator "
+          f"state equal {same_gen}; then {', '.join(f'{v:.1f}' for v in got['ms'])} ms a step "
+          f"(host clock around synchronised steps; gloo stages every all-reduce through the "
+          f"host: no multi-GPU speed); {wall:.1f} s wall with the ranks' start [{smi}]",
+          flush=True)
+    if not (loss_rel <= DDP["loss_rtol"] and err_g <= lim_g and err_p <= lim_p
+            and err_s <= DDP["stats_rel_l2"] and same_gen):
+        fail(f"ddp (b): two gloo ranks differ from one process: loss rel {loss_rel:.3e}, "
+             f"gradients {err_g:.3e}, parameters {err_p:.3e}, statistics {err_s:.3e}, "
+             f"generator equal {same_gen}")
+    return dict(loss=got["loss"], loss_rel=loss_rel, params_rel_l2=err_p, stats_rel_l2=err_s,
+                grads_rel_l2=err_g, floor=dict(loss_rel=floor_loss, grads_rel_l2=floor_g,
+                                               params_rel_l2=floor_p, stats_rel_l2=floor_s),
+                generator_equal=same_gen, ms_per_step_gloo=got["ms"], wall_s=wall)
+
+
+def ddp_train_cli(smi):
+    """(c): the training CLI as rank 0 of the running NCCL group of one."""
+    import tempfile
+    from hyperseg_torch.cli import train as train_cli
+    from hyperseg_torch.core.predictor import GRAPH_WARMUP
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    cfg = load_config(TRAIN_CLI["config"])
+    steps = DDP["cli_steps"]
+    val_launches = {n: per * (GRAPH_WARMUP + 1) for n, per in MODELS["M"].per_forward.items()
+                    if per}
+    val_launches["resize_bilinear"] += GRAPH_WARMUP + 1
+    with tempfile.TemporaryDirectory() as tmp:
+        root, exp = os.path.join(tmp, "cityscapes"), os.path.join(tmp, "exp")
+        make_cityscapes_trainval(root, DDP["train_frames"], DDP["val_frames"])
+        kw = cfg.build_kwargs(root)
+        kw["model"] = kw["model"].with_overrides(pretrained=False)
+        kw.update(workers=DDP["workers"], log_every=1, epochs=1,
+                  train_iterations=steps * kw["batch_size"])
+        report = {}
+        LAUNCHES.clear()
+        t0 = time.perf_counter()
+        train_cli.main(exp, report=report, **kw)
+        wall = time.perf_counter() - t0
+        got = {n: c for n, c in LAUNCHES.items() if c}
+        total = train_cli_gates("ddp", report, steps, val_launches)
+        if got != total:
+            fail(f"ddp (c) train_cli: launches {got} != the passes' sum {total}")
+        for name in ("model_latest.npz", "model_best.npz", "model_latest.opt.npz"):
+            if not os.path.isfile(os.path.join(exp, name)):
+                fail(f"ddp (c) train_cli: {name} was not written")
+        train_cli_line("ddp nccl world 1", "float32", report["epochs"][0], smi)
+    print(f"ddp    (c) train_cli M through the NCCL group of one rank: {steps} steps and a val "
+          f"pass in {wall:.1f} s wall, launches {got}", flush=True)
+    e = report["epochs"][0]
+    return dict(wall_s=wall, launches=got,
+                **{p: {k: e[p][k] for k in PASS_KEYS} for p in ("train", "val")}), got
+
+
+def ddp_test_cli(test_tmp, smi):
+    """(c): cli.test on the TEST phase's M tree in float32, two gloo ranks on
+    cuda:0 at a global batch of 4 against one process at 2, the per-rank
+    batch, whose batches hold the images each rank's do (cuDNN picks its
+    algorithms by batch size, and the seed-0 model's near-tied logits, which
+    made the labels, flip with them)."""
+    import shutil
+    import numpy as np
+    from hyperseg_torch.cli import test as test_cli
+    root, exp_m = os.path.join(test_tmp, "cityscapes"), os.path.join(test_tmp, "exp_m")
+    spec = f"cityscapes.CityscapesDataset({root!r}, 'val', 'fine', 'semantic')"
+    img_tf = [f"seg_transforms.ImageResize({list(TEST['res'])})"]
+    runs = {}
+    for tag, device, batch in (("one process", "cuda", 2), ("two gloo ranks", ["cuda:0"] * 2, 4)):
+        exp = os.path.join(test_tmp, "exp_ddp_" + tag.split()[0])
+        os.makedirs(exp)
+        for f in os.listdir(exp_m):
+            if f.startswith("model_best"):
+                shutil.copy(os.path.join(exp_m, f), exp)
+        report = {}
+        t0 = time.perf_counter()
+        miou = test_cli.main(exp, test_dataset=spec, img_transforms=img_tf, batch_size=batch,
+                             workers=2, forced=True, compute_dtype="float32", device=device,
+                             backend="gloo", report=report)
+        wall = time.perf_counter() - t0
+        with np.load(os.path.join(exp, "test", "scores.npz")) as z:
+            runs[tag] = dict(miou=miou, confmat=report["confmat"], wall=wall,
+                             timings=report["timings"], scores={k: z[k] for k in z.files})
+    one, two = runs["one process"], runs["two gloo ranks"]
+    same = (np.array_equal(one["confmat"], two["confmat"]) and one["scores"].keys() ==
+            two["scores"].keys() and all(np.array_equal(one["scores"][k], two["scores"][k])
+                                         for k in one["scores"]))
+    print(f"ddp    (c) test M float32 on {TEST['images']} frames: two gloo ranks on cuda:0 at b4 "
+          f"against one process at b2: confusion matrix and scores.npz equal {same} (mIoU "
+          f"{two['miou']:.6f}, {one['miou']:.6f}; {int(one['confmat'].sum())} pixels); "
+          f"{two['wall']:.1f} s and {one['wall']:.1f} s wall [{smi}]", flush=True)
+    if not same:
+        fail("ddp (c) test: two gloo ranks' confusion matrix or scores.npz differ from one "
+             "process's")
+    return {tag: dict(miou=r["miou"], wall_s=r["wall"], timings=r["timings"])
+            for tag, r in runs.items()}
+
+
+def run_ddp(smi, test_tmp):
+    """The DDP phase. Returns (numbers, {"M ddp...": launches})."""
+    from hyperseg_torch.parallel import distributed as D
+    from hyperseg_torch.train.recipes import RECIPES
+    t_phase = time.perf_counter()
+    key = DDP["key"]
+    b, res = RECIPES[key].batch, RECIPES[key].crop
+    out, launches = {}, {}
+    # the group of this process alone: its rendezvous and NCCL's bootstrap on loopback
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    D.initialize(f"localhost:{D.free_port()}", 1, 0, device="cuda")
+    try:
+        out["nccl_world1"], launches[f"{key} ddp"], ref = ddp_world1(key, b, res, smi)
+        out["train_cli"], launches[f"{key} ddp train_cli"] = ddp_train_cli(smi)
+    finally:
+        torch.distributed.destroy_process_group()
+    out["gloo_x2"] = ddp_gloo(key, b, res, ref, smi)
+    del ref
+    out["test_cli"] = ddp_test_cli(test_tmp, smi)
+    torch.cuda.synchronize()
+    print(f"ddp    done in {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out, launches
+
+
 def kernels_line(rows, launches):
     """One entry per kernel: the per-forward numbers of the first model (M,
     L, V, SC, SV) that runs it, each model's under `by_model`; launches
@@ -2491,11 +2797,15 @@ def main():
     fps_runs, fps_launches = run_fps(fps["M"])
     print(f"fps    done in {time.perf_counter() - t0:.1f} s wall", flush=True)
 
-    test_runs, test_launches, label_resize = run_test(smi.stdout.strip())
+    import tempfile
+    with tempfile.TemporaryDirectory() as test_tmp:
+        test_runs, test_launches, label_resize = run_test(smi.stdout.strip(), test_tmp)
 
-    train_cli_runs, train_cli_launches = run_train_cli(smi.stdout.strip())
+        train_cli_runs, train_cli_launches = run_train_cli(smi.stdout.strip())
 
-    train_launches, stem_conv, resize_train, train = run_training()
+        train_launches, stem_conv, resize_train, train = run_training()
+
+        ddp_runs, ddp_launches = run_ddp(smi.stdout.strip(), test_tmp)
 
     kernels = kernels_line(rows, launches)
     for k in kernels:
@@ -2514,7 +2824,7 @@ def main():
     k6["train"] = resize_train
     kernels.append(stem_conv)
     for k in kernels:
-        for m, c in train_cli_launches.items():
+        for m, c in list(train_cli_launches.items()) + list(ddp_launches.items()):
             k["launches"] += c.get(k["name"], 0)
             k["launches_by_model"][m] = c.get(k["name"], 0)
     print(json.dumps({"kernels": kernels,
@@ -2522,7 +2832,7 @@ def main():
                                     for m, f in fps.items()},
                       "graph": {m: e["graph"] for m, e in extra.items()},
                       "test_fps": fps_runs, "test": test_runs, "train_cli": train_cli_runs,
-                      "train": train,
+                      "train": train, "ddp": ddp_runs,
                       "unify_copy": extra["SC"]["unify_copy"], "tta": extra["SV"]["tta"]}),
           flush=True)
     print(smi.stdout.strip(), flush=True)

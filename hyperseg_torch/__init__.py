@@ -34,8 +34,11 @@ of worker processes that uploads pinned batches on a side stream;
 graph), `cli.test`, `cli.test_fps` and `cli.convert` entry points, and the
 nine shipped configs with their targets in this package (`configs/`); and
 the utilities `utils.misc`, `utils.batch`, `utils.profile` and the dynamic
-convolutions of `ops.meta`. Data parallelism over several cards is not
-ported yet.
+convolutions of `ops.meta`; and data parallelism (`parallel/`: one process
+a device over torch.distributed, NCCL or gloo, the global batch's BN
+statistics, dropout masks, loss and confusion matrices, a rank-sharded
+loader, and the CLIs' device lists). Sharding an image over a 'spatial'
+mesh axis is not ported.
 
 This package imports neither JAX nor `hyperseg_tpu`.
 """

@@ -26,8 +26,18 @@ pinned memory, uploaded on a side stream; per batch the host copies back
 (B, C, C) counts, not the predictions, and scores the batch before while
 the card runs this one; fillers get no jaccard entry. The display images
 run eagerly. On the CPU, which the caller asks for with device="cpu", the
-step runs eagerly. The JAX CLI's device mesh (test.py:76-91) waits for the
-parallelism slice: this CLI runs on one card.
+step runs eagerly.
+
+Data parallelism, the counterpart of the JAX CLI's mesh (`devices`,
+test.py:76-91): `device` may be a list, whose ranks
+(`make_mesh_for_batch(batch_size, device)`, spawned by
+parallel/distributed.py `run_ranks`) each load their rows of every global
+batch of `batch_size` (the last one padded as a whole) and replay their own
+captured step; each batch's per-image matrices come back in dataset order
+through one all-reduce (each rank writes its rows into a zeroed (B, C, C)
+buffer), so every rank holds the matrix and the jaccard scores of one
+process's run, and rank 0 alone writes scores.npz, prints and saves the
+grids. A process that is already a rank of a group evaluates as that rank.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ from hyperseg_torch.data.loader import DataLoader
 from hyperseg_torch.data.seg_transforms import Compose
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import cast_weights
+from hyperseg_torch.parallel import distributed as D
 from hyperseg_torch.train import metrics as M
 from hyperseg_torch.train.step import make_eval_step
 from hyperseg_torch.utils.img_utils import blend_seg, denormalize, make_grid
@@ -94,8 +105,11 @@ def _images(batch):
 
 def evaluate(model, loader, *, num_classes, dtype, n_images, background, device):
     """One pass over the loader: (confusion matrix (C, C) int64 on the host,
-    per-image jaccard scores, timings)."""
+    per-image jaccard scores, timings), those of the global batches when the
+    loader is a rank's (the module's docstring)."""
     on_card = torch.device(device).type == "cuda"
+    grouped = torch.distributed.is_initialized()
+    rows = slice(loader.rank * loader.local_batch, (loader.rank + 1) * loader.local_batch)
     test_step = None
     confmat = torch.zeros(num_classes, num_classes, dtype=torch.int64, device=device)
     ious, step, pending = [], None, None
@@ -137,13 +151,22 @@ def evaluate(model, loader, *, num_classes, dtype, n_images, background, device)
             out = step(*inputs)
             end.record()
             replays.append((start, end))
-            buf = counts[len(replays) % 2]
-            buf.copy_(out["per_image"], non_blocking=True)
-            ready.record()
         else:
             out = test_step(*inputs)
-            buf, ready = out["per_image"], None
-        confmat += out["confmat"]
+        per_image, batch_confmat = out["per_image"], out["confmat"]
+        if grouped:     # every rank's rows, in dataset order
+            per_image = torch.zeros((loader.batch_size, num_classes, num_classes),
+                                    dtype=torch.int64, device=device)
+            per_image[rows] = out["per_image"]
+            torch.distributed.all_reduce(per_image)
+            batch_confmat = per_image.sum(0)
+        if on_card:
+            buf = counts[len(replays) % 2]
+            buf.copy_(per_image, non_blocking=True)
+            ready.record()
+        else:
+            buf, ready = per_image, None
+        confmat += batch_confmat
         if pending is not None:
             score(*pending)
         pending = (buf, ready)
@@ -176,12 +199,31 @@ def main(exp_dir, *, model=None, arch=None, test_dataset=None,
          batch_size=4, workers=4, forced=False, compute_dtype="float32",
          display_worst=0, display_best=0, display_alpha=0.5,
          display_background_index=0, display_sources=None, out_dir=None,
-         device="cuda", report=None):
-    """Evaluate; returns the mIoU. `report`, a dict, receives the pass's
+         device="cuda", backend=None, report=None):
+    """Evaluate; returns the mIoU. `device` is one device, or a list to
+    evaluate on in data parallel (the module's docstring; `backend`
+    overrides the process group's). `report`, a dict, receives the pass's
     confusion matrix ("confmat", None when the cache was read), its per-image
     jaccard scores ("ious") and its timings ("timings": img/s over the pass,
     ms per batch waiting on the loader, in the upload and the replay (CUDA
-    events) and in the host's jaccard)."""
+    events) and in the host's jaccard; rank 0's under data parallelism)."""
+    kw = dict(model=model, arch=arch, test_dataset=test_dataset, img_transforms=img_transforms,
+              tensor_transforms=tensor_transforms, batch_size=batch_size, workers=workers,
+              forced=forced, compute_dtype=compute_dtype, display_worst=display_worst,
+              display_best=display_best, display_alpha=display_alpha,
+              display_background_index=display_background_index,
+              display_sources=display_sources, out_dir=out_dir)
+    if torch.distributed.is_initialized():
+        return _main(exp_dir, device=D.this_rank_device(device), report=report, **kw)
+    devices = D.rank_devices(batch_size, device)
+    if len(devices) == 1:
+        return _main(exp_dir, device=devices[0], report=report, **kw)
+    return D.spawn_main(main, devices, exp_dir, report, kw, backend=backend)
+
+
+def _main(exp_dir, *, model, arch, test_dataset, img_transforms, tensor_transforms, batch_size,
+          workers, forced, compute_dtype, display_worst, display_best, display_alpha,
+          display_background_index, display_sources, out_dir, device, report):
     assert os.path.isdir(exp_dir), f'exp_dir "{exp_dir}" must be a directory'
     if model is None:
         for cand in ("model_best.npz", "model_best.pth"):
@@ -205,21 +247,25 @@ def main(exp_dir, *, model=None, arch=None, test_dataset=None,
     report = {} if report is None else report
     report.update(confmat=None, timings=None)
 
+    main_process = D.is_main_process()
     if forced or not os.path.isfile(scores_path):
         loader = DataLoader(test_ds, batch_size=batch_size, workers=workers, pad_last=True,
-                            device=device)
+                            device=device, rank=D.get_rank(), world=D.get_world_size())
         confmat, ious, timings = evaluate(
             net, loader, num_classes=num_classes, dtype=dtype, n_images=len(test_ds),
             background=display_background_index, device=device)
         global_acc, class_acc, class_iou = M.eval_scores_from_confmat(confmat)
-        np.savez(scores_path, ious=ious, global_acc=global_acc,
-                 class_acc=class_acc, class_iou=class_iou)
+        if main_process:
+            np.savez(scores_path, ious=ious, global_acc=global_acc,
+                     class_acc=class_acc, class_iou=class_iou)
         report.update(confmat=confmat, timings=timings)
     else:
         with np.load(scores_path) as z:
             ious, global_acc = z["ious"], z["global_acc"]
             class_acc, class_iou = z["class_acc"], z["class_iou"]
     report["ious"] = ious
+    if not main_process:
+        return float(np.mean(class_iou))
 
     print(f"global_acc={global_acc}")
     print(f"class_acc={class_acc}")
@@ -316,14 +362,16 @@ def cli():
                    help="directories of label-index PNGs to blend as extra "
                         "comparison columns (one image per dataset item)")
     p.add_argument("--compute_dtype", default="float32", choices=sorted(DTYPES))
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", nargs="+", default=["cuda"],
+                   help="one device, or several to evaluate on in data parallel")
+    p.add_argument("--backend", help="the process group's backend (nccl, gloo)")
     a = p.parse_args()
     main(a.exp_dir, model=a.model, arch=a.arch, test_dataset=a.test_dataset,
          img_transforms=a.img_transforms, tensor_transforms=a.tensor_transforms,
          batch_size=a.batch_size, workers=a.workers, forced=a.forced,
          display_worst=a.display_worst, display_best=a.display_best,
          display_sources=a.display_sources, compute_dtype=a.compute_dtype,
-         device=a.device)
+         device=a.device[0] if len(a.device) == 1 else a.device, backend=a.backend)
 
 
 if __name__ == "__main__":

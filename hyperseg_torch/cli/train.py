@@ -35,14 +35,30 @@ copied in place from the trained model before each pass; on the card the
 step is captured once as a CUDA graph (core/predictor.py `graphed`) and
 replayed per batch, so each replay reads the weights of that epoch. The
 loop reads the loss and the scores on the host every `log_every` steps
-only. The JAX CLI's device mesh waits for the parallelism slice: this CLI
-runs on one device.
+only.
+
+Data parallelism, the counterpart of the JAX CLI's mesh (`devices`,
+hyperseg_tpu/cli/train.py:68-76): `device` may be a list. A list of n > 1
+trains on the ranks of `make_mesh_for_batch(batch_size, device)`, one
+spawned process a device (parallel/distributed.py `run_ranks`; NCCL on CUDA
+devices, gloo on the CPU, or `backend`), and `batch_size` stays the global
+batch: each rank loads its rows of every global batch (data/loader.py), the
+model steps in DistributedDataParallel with the global batch's BN
+statistics and dropout masks (train/step.py), and a step computes what one
+process computes at the global batch. A process that is already a rank of a
+group (`parallel.distributed.initialize()` on a multi-host launch) trains as
+that rank. Every rank loads a resumed checkpoint; the loss and the
+confusion matrices are all-reduced where the loop reads them, and each
+rank's validation replays its own captured step on its shard (no
+collective is captured). Rank 0 alone logs, prints, writes the TensorBoard
+scalars and the checkpoints, and fills `report`.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import io
 import os
 import time
 
@@ -57,11 +73,13 @@ from hyperseg_torch.data.loader import DataLoader, RandomSampler
 from hyperseg_torch.models.backbones.pretrained import load_matching
 from hyperseg_torch.nn.modules import cast_weights
 from hyperseg_torch.ops.kernels import LAUNCHES
+from hyperseg_torch.parallel import distributed as D
 from hyperseg_torch.train import losses as L
 from hyperseg_torch.train import metrics as M
 from hyperseg_torch.train import schedule as S
 from hyperseg_torch.train import step as T
 from hyperseg_torch.utils.logging import ProgressMeter, TensorBoardLogger
+from hyperseg_torch.utils.seg_utils import ConfusionMatrix
 
 DEFAULT_TENSOR_TRANSFORMS = (
     "hyperseg_torch.data.seg_transforms.ToArray()",
@@ -69,16 +87,9 @@ DEFAULT_TENSOR_TRANSFORMS = (
 )
 
 
-def one_device(device) -> torch.device:
-    """The device to train on; a list of more than one raises: data
-    parallelism is the port's next slice (ROADMAP Queue 1 item 7)."""
-    if isinstance(device, (list, tuple)):
-        if len(device) != 1:
-            raise NotImplementedError(
-                f"train: {len(device)} devices; this CLI trains on one (data parallelism "
-                "over several is ROADMAP Queue 1 item 7)")
-        device = device[0]
-    return torch.device(device)
+def silent_meter(total):
+    """A progress meter that shows nothing: the other ranks'."""
+    return ProgressMeter(total, unit="batches", stream=io.StringIO())
 
 
 @contextlib.contextmanager
@@ -134,38 +145,51 @@ def main(exp_dir, *, model, train_dataset, val_dataset=None,
          epochs=100, train_iterations=None, batch_size=16, workers=4,
          optimizer=None, scheduler=None, criterion=None, pretrained=False,
          pretrained_weights=None, batch_scheduler=True, resume=None, seed=0,
-         compute_dtype="float32", log_every=50, device="cuda", report=None):
+         compute_dtype="float32", log_every=50, device="cuda", backend=None, report=None):
     """Train; returns the best mIoU (val's, or the training confusion
     matrix's without a val set). `model` is a spec (string, registry.Spec
     or callable) of a factory taking num_classes, device, seed and train;
-    `device` one device (a list of one is taken). `report`, a dict,
+    `device` one device, or a list of devices to train on in data parallel
+    (the module's docstring; `backend` overrides the process group's
+    backend, and the specs must then be importable by the spawned ranks:
+    strings, Specs or module-level callables). `report`, a dict,
     receives "start" (epoch, step, best_iou, checkpoint resumed, and on a
     resume the restored Adam step and the sum of its second moments) and
     "epochs": per epoch its train and val passes, each with the logged
     losses, mIoU, confusion matrix, the learning rate of the first step,
     kernel launches, and its timings (ms waiting on the loader a step, host
     clock; the step's device ms by CUDA events; the upload's ms; the val
-    replay's ms; seconds, img/s, seconds to the first batch, peak bytes)."""
-    device = one_device(device)
+    replay's ms; seconds, img/s, seconds to the first batch, peak bytes);
+    under data parallelism rank 0's, its images the global batches'."""
+    kw = dict(model=model, train_dataset=train_dataset, val_dataset=val_dataset,
+              train_img_transforms=train_img_transforms, val_img_transforms=val_img_transforms,
+              tensor_transforms=tensor_transforms, epochs=epochs,
+              train_iterations=train_iterations, batch_size=batch_size, workers=workers,
+              optimizer=optimizer, scheduler=scheduler, criterion=criterion,
+              pretrained=pretrained, pretrained_weights=pretrained_weights,
+              batch_scheduler=batch_scheduler, resume=resume, seed=seed,
+              compute_dtype=compute_dtype, log_every=log_every)
+    if torch.distributed.is_initialized():
+        device = D.this_rank_device(device)
+    else:
+        devices = D.rank_devices(batch_size, device)
+        if len(devices) > 1:
+            return D.spawn_main(main, devices, exp_dir, report, kw, backend=backend)
+        device = devices[0]
+    kw["dtype"] = DTYPES[kw.pop("compute_dtype")]
     with no_tf32():
-        return _train(exp_dir, model=model, train_dataset=train_dataset,
-                      val_dataset=val_dataset, train_img_transforms=train_img_transforms,
-                      val_img_transforms=val_img_transforms,
-                      tensor_transforms=tensor_transforms, epochs=epochs,
-                      train_iterations=train_iterations, batch_size=batch_size,
-                      workers=workers, optimizer=optimizer, scheduler=scheduler,
-                      criterion=criterion, pretrained=pretrained,
-                      pretrained_weights=pretrained_weights,
-                      batch_scheduler=batch_scheduler, resume=resume, seed=seed,
-                      dtype=DTYPES[compute_dtype], log_every=log_every, device=device,
-                      report=report)
+        return _train(exp_dir, device=device, report=report, **kw)
 
 
 def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
            val_img_transforms, tensor_transforms, epochs, train_iterations, batch_size,
            workers, optimizer, scheduler, criterion, pretrained, pretrained_weights,
            batch_scheduler, resume, seed, dtype, log_every, device, report):
-    logger = TensorBoardLogger(exp_dir)
+    rank, world = D.get_rank(), D.get_world_size()
+    grouped = torch.distributed.is_initialized()
+    main_process = rank == 0
+    logger = TensorBoardLogger(exp_dir if main_process else None)
+    report = report if main_process else None
     np.random.seed(seed)
     on_card = device.type == "cuda"
 
@@ -176,13 +200,14 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
                if train_iterations is not None else None)
     train_loader = DataLoader(train_ds, batch_size=batch_size, sampler=sampler,
                               shuffle=sampler is None, drop_last=True, workers=workers,
-                              seed=seed, device=device)
+                              seed=seed, device=device, rank=rank, world=world)
     val_loader = None
     if val_dataset is not None:
         val_ds = registry.build(val_dataset, transforms=build_transforms(
             val_img_transforms, tensor_transforms))
         val_loader = DataLoader(val_ds, batch_size=batch_size, workers=workers,
-                                pad_last=True, seed=seed, device=device)
+                                pad_last=True, seed=seed, device=device, rank=rank,
+                                world=world)
 
     # the model (train.py:203-204); its arch string rebuilds it from a checkpoint
     num_classes = len(train_ds.classes)
@@ -199,7 +224,8 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
     start_epoch, best_iou, step = 0, 0.0, 0
     ckpt = checkpoint_to_resume(exp_dir, resume)
     if ckpt is not None:
-        print(f"=> resuming from '{ckpt}'")
+        if main_process:
+            print(f"=> resuming from '{ckpt}'")
         loaded, meta = C.load_params(ckpt)
         net.load_state_dict(loaded, strict=True)
         start_epoch = int(meta.get("epoch", 0))
@@ -233,7 +259,9 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
 
     criterion_obj = (registry.build(criterion) if criterion is not None
                      else L.BootstrappedCrossEntropyLoss(ignore_index=255))
-    train_step = T.make_train_step(net, criterion_obj, opt, sched, num_classes=num_classes)
+    # in a group: DistributedDataParallel, which starts every rank from rank 0's state
+    stepped = D.wrap_model(net, device) if grouped else net
+    train_step = T.make_train_step(stepped, criterion_obj, opt, sched, num_classes=num_classes)
     shadow = Shadow(net, dtype) if val_loader is not None else None
     eval_step = (T.make_eval_step(shadow.model, num_classes=num_classes)
                  if shadow is not None else None)
@@ -245,7 +273,8 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
         logger.reset(prefix=f"{phase}: Epoch: {epoch + 1} / {epochs};")
         # tqdm-parity live meter: the count ticks every batch without a sync;
         # the description refreshes only where the host reads the loss
-        pbar = ProgressMeter(len(loader), unit="batches")
+        pbar = (ProgressMeter(len(loader), unit="batches") if main_process
+                else silent_meter(len(loader)))
         confmat = torch.zeros(num_classes, num_classes, dtype=torch.int64, device=device)
         generator = torch.Generator(device).manual_seed(seed * 1_000_003 + epoch)
         loss_sum, logged, losses, lr_first, grid = 0.0, 0, [], None, None
@@ -281,8 +310,10 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
                 events.append(ev)
             confmat += out["confmat"]
             if train and (i + 1) % log_every == 0:
-                loss = out["loss"].item()
-                scores = M.scores_from_confmat(confmat.cpu().numpy())
+                # the global batch's: the ranks' mean loss, their summed matrices
+                loss = D.all_reduce_(out["loss"].clone()).item() / world
+                scores = M.scores_from_confmat(
+                    ConfusionMatrix.reduce_across_devices(confmat.clone()).cpu().numpy())
                 logger.update("losses", total=loss)
                 logger.update("bench", iou=scores["mean_iou"])
                 # reference train.py:146: per-batch scalars under 'batch' at the
@@ -299,7 +330,7 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
             if first_done is None:
                 first_done = time.perf_counter()
             pbar.update()
-        confmat = confmat.cpu().numpy()
+        confmat = ConfusionMatrix.reduce_across_devices(confmat).cpu().numpy()
         seconds = time.perf_counter() - t_start
         batches.close()     # the workers shut down here, outside the timed pass
         scores = M.scores_from_confmat(confmat)
@@ -347,12 +378,13 @@ def _train(exp_dir, *, model, train_dataset, val_dataset, train_img_transforms,
             epoch_loss, epoch_iou = run_pass(val_loader, False, epoch)
         is_best = epoch_iou >= best_iou
         best_iou = max(epoch_iou, best_iou)
-        print(f"epoch {epoch}: mIoU={epoch_iou:.4f} best={best_iou:.4f} "
-              f"({time.time() - t0:.1f}s)")
-        C.save_checkpoint(exp_dir, "model", net,
-                          meta={"epoch": epoch + 1, "best_iou": best_iou, "arch": arch,
-                                "step": step},
-                          optimizer=opt, is_best=is_best)
+        if main_process:
+            print(f"epoch {epoch}: mIoU={epoch_iou:.4f} best={best_iou:.4f} "
+                  f"({time.time() - t0:.1f}s)")
+            C.save_checkpoint(exp_dir, "model", net,
+                              meta={"epoch": epoch + 1, "best_iou": best_iou, "arch": arch,
+                                    "step": step},
+                              optimizer=opt, is_best=is_best)
     logger.close()
     return best_iou
 
@@ -376,7 +408,9 @@ def cli():
     p.add_argument("-r", "--resume")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--compute_dtype", default="float32", choices=sorted(DTYPES))
-    p.add_argument("--device", default="cuda")
+    p.add_argument("--device", nargs="+", default=["cuda"],
+                   help="one device, or several to train on in data parallel")
+    p.add_argument("--backend", help="the process group's backend (nccl, gloo)")
     a = p.parse_args()
     os.makedirs(a.exp_dir, exist_ok=True)
     main(a.exp_dir, model=a.model, train_dataset=a.train_dataset,
@@ -385,7 +419,8 @@ def cli():
          tensor_transforms=a.tensor_transforms, epochs=a.epochs,
          train_iterations=a.train_iterations, batch_size=a.batch_size,
          workers=a.workers, optimizer={"lr": a.lr}, resume=a.resume,
-         seed=a.seed, compute_dtype=a.compute_dtype, device=a.device)
+         seed=a.seed, compute_dtype=a.compute_dtype,
+         device=a.device[0] if len(a.device) == 1 else a.device, backend=a.backend)
 
 
 if __name__ == "__main__":

@@ -36,8 +36,14 @@ def graphed(fn: Callable, *example_inputs: torch.Tensor):
     uses the one the warm-up allocated, outside any graph's memory pool, and
     the kernels cuBLAS picked with it. (On torch's shared capture stream a
     float32 capture after earlier bfloat16 captures failed on an H100 with
-    CUBLAS_STATUS_EXECUTION_FAILED, though it passed alone.) A capture that
-    fails raises; there is no eager fallback."""
+    CUBLAS_STATUS_EXECUTION_FAILED, though it passed alone.) The capture
+    forbids unsafe CUDA calls in this thread alone ("thread_local"): other
+    threads run on beside it and touch no captured stream - the loader's
+    pin-memory thread, which may allocate pinned memory for the next batch
+    (under "global" that invalidated a capture of cli/test.py's step on an
+    H100), and a process group's watchdog, which polls its collectives'
+    events (the captured step holds no collective). A capture that fails
+    raises; there is no eager fallback."""
     static = [x.clone() for x in example_inputs]
     if any(x.device.type != "cuda" for x in static):
         raise ValueError("graphed: the inputs must be CUDA tensors")
@@ -48,7 +54,7 @@ def graphed(fn: Callable, *example_inputs: torch.Tensor):
             fn(*static)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side):
+    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
         out = fn(*static)
 
     def replay(*inputs):

@@ -18,6 +18,16 @@ threads:
     stream, one batch ahead; the consumer's stream waits on an event
     recorded after each batch's copies. The workers never touch CUDA.
     Labels travel as uint8 and are widened on the card by their consumer.
+
+Data parallelism: a loader of rank `rank` of `world` (the CLIs' ranks)
+yields that rank's rows of each global batch of `batch_size`. Every rank
+walks the same global order (the samplers seeded alike), so a global
+batch's sample indices are those of one process's batch, and `len()` is
+the number of global batches on every rank; `pad_last` fills the short
+last global batch before it is split, so a rank whose rows all lie past
+the data gets fillers only. The random transforms are drawn per rank and
+worker, so augmented batches equal one process's in distribution only, as
+they do between worker counts today.
 """
 
 from __future__ import annotations
@@ -107,6 +117,55 @@ class PadLast:
         return self.collate_fn(samples)
 
 
+class ShardBatches:
+    """The batch sampler of rank `rank` of `world`: the global batches of
+    `sampler` (BatchSampler of `batch_size`, `drop_last`), a short last one
+    first filled to `batch_size` with fillers when `pad_last` (a
+    ("pad", i) entry: sample i with every label `pad_label`), and of each
+    this rank's contiguous rows."""
+
+    def __init__(self, sampler, batch_size, rank, world, drop_last, pad_last):
+        if batch_size % world:
+            raise ValueError(f"a global batch of {batch_size} over {world} ranks")
+        if not (drop_last or pad_last):
+            raise ValueError("sharded batches need drop_last or pad_last: a short last "
+                             "global batch would leave the ranks different batch counts")
+        self.batches = tud.BatchSampler(sampler, batch_size, drop_last)
+        self.batch_size, self.rank, self.local = batch_size, rank, batch_size // world
+        self.pad_last = pad_last
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        for batch in self.batches:
+            if self.pad_last and len(batch) < self.batch_size:
+                batch = batch + [("pad", batch[-1])] * (self.batch_size - len(batch))
+            yield batch[self.rank * self.local:(self.rank + 1) * self.local]
+
+
+class Fillable(tud.Dataset):
+    """A dataset that also answers ShardBatches' fillers: ("pad", i) is
+    sample i with every label `pad_label`."""
+
+    def __init__(self, dataset, pad_label):
+        self.dataset = dataset
+        self.pad_label = pad_label
+
+    @property
+    def transforms(self):
+        return getattr(self.dataset, "transforms", None)
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index):
+        if isinstance(index, tuple):
+            img, lbl = self.dataset[index[1]]
+            return img, torch.full_like(torch.as_tensor(lbl), self.pad_label)
+        return self.dataset[index]
+
+
 def seed_transforms(dataset, seed) -> None:
     """Seed the dataset's pipeline (a seg_transforms.Compose) with `seed`."""
     transforms = getattr(dataset, "transforms", None)
@@ -133,14 +192,18 @@ class DataLoader:
     """Map-style loader: worker processes fetch and transform the samples,
     a collate stacks them, and with a CUDA `device` each batch arrives on
     the card, uploaded from pinned memory on a side stream. `upload_ms()`
-    reads the device time of each batch's copies in the last pass."""
+    reads the device time of each batch's copies in the last pass. With
+    `world` > 1 it yields rank `rank`'s `local_batch` rows of each global
+    batch of `batch_size` (ShardBatches)."""
 
     def __init__(self, dataset, batch_size=1, sampler=None, shuffle=False,
                  drop_last=False, workers=4, prefetch=2, seed=None,
                  collate_fn=default_collate, pad_last=False, pad_label=255,
-                 device=None):
+                 device=None, rank=0, world=1):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.rank, self.world = rank, world
+        self.local_batch = batch_size // world
         self.drop_last = drop_last
         self.pad_last = pad_last
         self.pad_label = pad_label
@@ -152,6 +215,8 @@ class DataLoader:
         if sampler is None:
             sampler = ShuffleSampler(dataset, seed) if shuffle else SequentialSampler(dataset)
         self.sampler = sampler
+        if world > 1:      # checks the split now, not at the first pass
+            ShardBatches(sampler, batch_size, rank, world, drop_last, pad_last)
         self._passes = 0
         self._upload_events = []
 
@@ -165,18 +230,28 @@ class DataLoader:
 
     def _host_loader(self):
         base = f"{secrets.randbits(63) if self.seed is None else self.seed}/{self._passes}"
+        if self.world > 1:
+            base += f"/rank{self.rank}"
         self._passes += 1
         if self.workers == 0:
             seed_transforms(self.dataset, f"{base}/0")
         # the seeds torch gives each worker's own random, numpy and torch
         # generators come from this generator, not the process's global one
         generator = torch.Generator().manual_seed(zlib.crc32(base.encode()))
+        if self.world > 1:
+            dataset = Fillable(self.dataset, self.pad_label)
+            batches = ShardBatches(self.sampler, self.batch_size, self.rank, self.world,
+                                   self.drop_last, self.pad_last)
+            collate = self.collate_fn
+        else:
+            dataset = self.dataset
+            batches = tud.BatchSampler(self.sampler, self.batch_size, self.drop_last)
+            collate = PadLast(self.collate_fn, self.batch_size, self.pad_last, self.pad_label)
         return tud.DataLoader(
-            self.dataset,
-            batch_sampler=tud.BatchSampler(self.sampler, self.batch_size, self.drop_last),
+            dataset,
+            batch_sampler=batches,
             num_workers=self.workers,
-            collate_fn=PadLast(self.collate_fn, self.batch_size, self.pad_last,
-                               self.pad_label),
+            collate_fn=collate,
             pin_memory=self.on_card,
             worker_init_fn=functools.partial(_init_worker, base) if self.workers else None,
             multiprocessing_context="spawn" if self.workers else None,

@@ -7,6 +7,10 @@ Counterpart of hyperseg_tpu/nn/functional.py. Conventions:
     BN (`batch_norm_train`) normalizes with the batch statistics and writes
     the running statistics in place;
   * dropout draws from an explicit torch.Generator, never the global RNG;
+  * under `data_parallel` (the data-parallel training step) the training
+    BNs take the statistics of the global batch over the process group and
+    the dropouts draw the global batch's masks, so n ranks at a global batch
+    B compute what one process computes at B;
   * activation checkpointing (`checkpoint`, the specs of `checkpoint_policy`)
     recomputes a region's forward in the backward without writing the BN
     running statistics a second time or drawing another dropout mask;
@@ -23,6 +27,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -143,26 +148,98 @@ def batch_norm_dim(x, bn, channel_dim, *, eps=1e-5):
     return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
 
 
+# ---------------------------------------------------------------------------
+# Data parallelism (training only): the global batch's statistics and masks
+# ---------------------------------------------------------------------------
+
+
+class DataParallelGroup(NamedTuple):
+    group: object       # a torch.distributed process group
+    rank: int
+    world: int
+
+
+# The group of a data-parallel training step, set by train/step.py for the
+# step's forward and backward (None outside one). The JAX package gets these
+# semantics from GSPMD, which reduces over the global batch wherever the
+# program does; here each reduction is written: the training BNs all-reduce
+# their statistics and their backward's sums, and `_keep_mask` draws the
+# global batch's mask. An autograd Function keeps the group it ran under for
+# its backward (which may run on another thread), and a checkpointed region
+# sets it again while its forward is recomputed.
+_DATA_PARALLEL = contextvars.ContextVar("hyperseg_torch_data_parallel", default=None)
+
+
+@contextlib.contextmanager
+def data_parallel(group):
+    """Within this context the training BNs (batch_norm_train,
+    batch_norm_multi) normalize with the statistics of the global batch,
+    every rank's of `group`, and the dropouts draw the global batch's masks
+    from the generator (the same seed on every rank) and keep this rank's
+    rows. Every rank must run the same BNs in the same order. At world size
+    1 the outputs, gradients and running statistics are those outside the
+    context, bit for bit. Yields the DataParallelGroup."""
+    import torch.distributed as dist
+    dp = DataParallelGroup(group, dist.get_rank(group), dist.get_world_size(group))
+    token = _DATA_PARALLEL.set(dp)
+    try:
+        yield dp
+    finally:
+        _DATA_PARALLEL.reset(token)
+
+
+def data_parallel_group():
+    """The DataParallelGroup of the running step, or None."""
+    return _DATA_PARALLEL.get()
+
+
+def _global_means(dp, n, *means, count=None):
+    """The global batch's per-channel means from each rank's `means` over its
+    n elements, and the global count: one all-reduce over dp.group of the
+    float64 vector [n * mean, ..., n] (the count left out when `count`, a
+    float64 (1,) tensor, is given), divided by the count, in the means'
+    dtype. n * mean is exact in float64 for a float32 mean, so at world
+    size 1 each mean comes back bit for bit. Returns (means, count)."""
+    import torch.distributed as dist
+    parts = [m.double() * n for m in means]
+    if count is None:
+        parts.append(torch.full((1,), float(n), dtype=torch.float64, device=means[0].device))
+    buf = torch.cat(parts)
+    dist.all_reduce(buf, group=dp.group)
+    if count is None:
+        count = buf[-1:]
+    out = (buf[:sum(m.numel() for m in means)] / count).split([m.numel() for m in means])
+    return tuple(o.to(m.dtype) for o, m in zip(out, means)), count
+
+
 class _BatchNormTrain(torch.autograd.Function):
     """Training-mode BN over every axis but `channel_dim`. The forward takes
     the batch statistics in float32 (centred two-pass variance) and
     normalizes as one affine x * s + b; the backward is BN's closed form, so
-    only x and the per-channel statistics are kept for it."""
+    only x and the per-channel statistics are kept for it. Under `dp` (a
+    DataParallelGroup) each statistic and the backward's two means are the
+    global batch's (`_global_means`)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, channel_dim, eps, stats):
+    def forward(ctx, x, weight, bias, channel_dim, eps, stats, dp):
         dims = [d for d in range(x.dim()) if d != channel_dim]
         shape = [1] * x.dim()
         shape[channel_dim] = -1
         x32 = wide(x)
+        n = x.numel() // x.shape[channel_dim]
         mean = x32.mean(dims)
+        if dp is not None:
+            (mean,), ctx.count = _global_means(dp, n, mean)
         var = (x32 - mean.view(shape)).square().mean(dims)
+        if dp is not None:
+            (var,), _ = _global_means(dp, n, var, count=ctx.count)
         invstd = torch.rsqrt(var + eps)
         s = wide(weight) * invstd
         b = wide(bias) - mean * s
         stats.extend((mean, var))
         ctx.save_for_backward(x, weight, mean, invstd)
         ctx.channel_dim = channel_dim
+        ctx.dp = dp
         return x * s.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
 
     @staticmethod
@@ -177,9 +254,13 @@ class _BatchNormTrain(torch.autograd.Function):
         mean_dy = dy32.mean(dims)
         mean_dy_xhat = (dy32 * xhat).mean(dims)
         n = x.numel() // x.shape[c]
+        g_dy, g_dy_xhat = mean_dy, mean_dy_xhat
+        if ctx.dp is not None:
+            (g_dy, g_dy_xhat), _ = _global_means(ctx.dp, n, mean_dy, mean_dy_xhat,
+                                                 count=ctx.count)
         dx = ((wide(weight) * invstd).view(shape)
-              * (dy32 - mean_dy.view(shape) - xhat * mean_dy_xhat.view(shape)))
-        return dx.to(x.dtype), mean_dy_xhat * n, mean_dy * n, None, None, None
+              * (dy32 - g_dy.view(shape) - xhat * g_dy_xhat.view(shape)))
+        return dx.to(x.dtype), mean_dy_xhat * n, mean_dy * n, None, None, None, None
 
 
 def batch_norm_train(x, weight, bias, running_mean, running_var, *, eps=1e-5,
@@ -189,12 +270,15 @@ def batch_norm_train(x, weight, bias, running_mean, running_var, *, eps=1e-5,
     batch variance, and writes the running statistics in place, outside
     the autograd graph, with the unbiased variance (n / (n - 1)) and torch's
     momentum convention new = (1 - momentum) * old + momentum * batch
-    (hyperseg_tpu/nn/functional.py:148-179)."""
+    (hyperseg_tpu/nn/functional.py:148-179). Under `data_parallel` the
+    batch is the global one: its statistics, its count n and the backward's
+    sums span every rank."""
     stats = []
-    y = _BatchNormTrain.apply(x, weight, bias, channel_dim, eps, stats)
+    dp = _DATA_PARALLEL.get()
+    y = _BatchNormTrain.apply(x, weight, bias, channel_dim, eps, stats, dp)
     mean, var = stats
-    _update_running(running_mean, running_var, mean, var, x.numel() // x.shape[channel_dim],
-                    momentum)
+    _update_running(running_mean, running_var, mean, var,
+                    x.numel() // x.shape[channel_dim] * (dp.world if dp else 1), momentum)
     return y
 
 
@@ -214,19 +298,25 @@ class _BatchNormMulti(torch.autograd.Function):
     tensors, channel axis 1 in each: one mean and variance over every
     element of every part, float32 two-pass, and BN's closed-form backward
     with the sums taken over all the parts, so each part's gradient sees
-    the others. Keeps the parts, not a concatenation of them."""
+    the others. Keeps the parts, not a concatenation of them. Under `dp`
+    the union also spans every rank's parts (`_global_means`)."""
 
     @staticmethod
-    def forward(ctx, weight, bias, eps, stats, *parts):
+    def forward(ctx, weight, bias, eps, stats, dp, *parts):
         n = sum(p.numel() // p.shape[1] for p in parts)
         mean = sum(wide(p).sum(_other_dims(p)) for p in parts) / n
+        if dp is not None:
+            (mean,), ctx.count = _global_means(dp, n, mean)
         var = sum((wide(p) - _per_channel(mean, p)).square().sum(_other_dims(p))
                   for p in parts) / n
+        if dp is not None:
+            (var,), _ = _global_means(dp, n, var, count=ctx.count)
         invstd = torch.rsqrt(var + eps)
         s = wide(weight) * invstd
         b = wide(bias) - mean * s
         stats.extend((mean, var, n))
         ctx.save_for_backward(weight, mean, invstd, *parts)
+        ctx.dp = dp
         return tuple(p * _per_channel(s, p).to(p.dtype) + _per_channel(b, p).to(p.dtype)
                      for p in parts)
 
@@ -237,11 +327,15 @@ class _BatchNormMulti(torch.autograd.Function):
         xhats = [(wide(p) - _per_channel(mean, p)) * _per_channel(invstd, p) for p in parts]
         sum_dy = sum(wide(dy).sum(_other_dims(dy)) for dy in dys)
         sum_dy_xhat = sum((wide(dy) * xh).sum(_other_dims(dy)) for dy, xh in zip(dys, xhats))
+        mean_dy, mean_dy_xhat = sum_dy / n, sum_dy_xhat / n
+        if ctx.dp is not None:
+            (mean_dy, mean_dy_xhat), _ = _global_means(ctx.dp, n, mean_dy, mean_dy_xhat,
+                                                       count=ctx.count)
         scale = wide(weight) * invstd
-        dxs = tuple((_per_channel(scale, p) * (wide(dy) - _per_channel(sum_dy / n, p)
-                                              - xh * _per_channel(sum_dy_xhat / n, p))).to(p.dtype)
+        dxs = tuple((_per_channel(scale, p) * (wide(dy) - _per_channel(mean_dy, p)
+                                              - xh * _per_channel(mean_dy_xhat, p))).to(p.dtype)
                     for p, dy, xh in zip(parts, dys, xhats))
-        return (sum_dy_xhat, sum_dy, None, None) + dxs
+        return (sum_dy_xhat, sum_dy, None, None, None) + dxs
 
 
 def _other_dims(t):
@@ -264,9 +358,10 @@ def batch_norm_multi(parts, weight, bias, running_mean, running_var, *, eps=1e-5
     as batch_norm_train does, the variance unbiased over the union's count
     n, n / (n - 1)."""
     stats = []
-    out = _BatchNormMulti.apply(weight, bias, eps, stats, *parts)
+    dp = _DATA_PARALLEL.get()
+    out = _BatchNormMulti.apply(weight, bias, eps, stats, dp, *parts)
     mean, var, n = stats
-    _update_running(running_mean, running_var, mean, var, n, momentum)
+    _update_running(running_mean, running_var, mean, var, n * (dp.world if dp else 1), momentum)
     return out
 
 
@@ -363,15 +458,19 @@ def checkpoint(fn, *args, spec, generator=None):
         forward, recompute = (_ckpt.create_selective_checkpoint_contexts(policy)
                               if policy is not None
                               else (contextlib.nullcontext(), contextlib.nullcontext()))
-        return forward, _recomputing(recompute, generator, entry)
+        return forward, _recomputing(recompute, generator, entry, _DATA_PARALLEL.get())
 
     return _ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
                             preserve_rng_state=False)
 
 
 @contextlib.contextmanager
-def _recomputing(inner, generator, entry):
+def _recomputing(inner, generator, entry, dp):
+    """The recomputation of a region: no running-statistics update, the
+    generator at the region's entry state, and the data-parallel group the
+    region's forward ran under (the backward may run on another thread)."""
     token = _RECOMPUTING.set(True)
+    dp_token = _DATA_PARALLEL.set(dp)
     now = None if generator is None else generator.get_state()
     if generator is not None:
         generator.set_state(entry)
@@ -381,6 +480,7 @@ def _recomputing(inner, generator, entry):
     finally:
         if generator is not None:
             generator.set_state(now)
+        _DATA_PARALLEL.reset(dp_token)
         _RECOMPUTING.reset(token)
 
 
@@ -390,11 +490,23 @@ def _recomputing(inner, generator, entry):
 
 
 def _keep_mask(shape, keep, generator, like):
-    """A float mask of `shape` on like's device, 1 with probability `keep`."""
+    """A float mask of `shape` on like's device, 1 with probability `keep`.
+    Under `data_parallel` it is this rank's rows of the global batch's mask,
+    drawn whole (shape[0] * world rows) from the generator that every rank
+    seeds alike: rank r of a group of equal shards drops what one process
+    drops at the global batch, rows [r * B, (r + 1) * B), as JAX's global
+    key does."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on the tensor's device")
+    dp = _DATA_PARALLEL.get()
+    rows = shape[0]
+    if dp is not None:
+        shape = (rows * dp.world, *shape[1:])
     probs = torch.full(shape, keep, device=like.device, dtype=torch.float32)
-    return torch.bernoulli(probs, generator=generator).to(like.dtype)
+    mask = torch.bernoulli(probs, generator=generator)
+    if dp is not None:
+        mask = mask[dp.rank * rows:(dp.rank + 1) * rows]
+    return mask.to(like.dtype)
 
 
 def dropout(x, p, generator):

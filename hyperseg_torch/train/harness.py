@@ -7,14 +7,18 @@ count and the kernel launches a forward makes); `train_model` builds one
 from seed 0 in training mode, `synthetic_batch` makes a seeded training
 batch, `trainer` the config's train step (train/step.py with the recipe's
 Adam, PolyLR and bootstrapped CE), and `timed_steps` times steps of it by
-CUDA events. chip_smoke.py (which also exposes `MODELS`, as wall_ab.py
-reads it from each tree it compares), train/saved_memory.py and
+CUDA events, `deterministic` runs them on deterministic algorithms, and
+`ddp_rank_step` is one rank's data-parallel step. chip_smoke.py (which
+also exposes `MODELS`, as wall_ab.py reads it from each tree it compares),
+train/saved_memory.py and
 train/remat_sweep.py read them from here.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
+import time
 from dataclasses import dataclass
 
 import torch
@@ -156,3 +160,54 @@ def timed_steps(step, img, lbl, gen, n):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n, [v.item() for v in losses]
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic mode for the
+    ops that have one (the others, such as reflection_pad2d's backward, keep
+    their atomics; their warnings are silenced)."""
+    import warnings
+    old = (torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            yield
+    finally:
+        torch.backends.cudnn.deterministic = old[0]
+        torch.use_deterministic_algorithms(old[1], warn_only=old[2])
+
+
+def ddp_rank_step(device, *, key, batch, res, timed):
+    """One rank's data-parallel training of model `key` (seed 0, drop
+    connect and dropout on, in DistributedDataParallel over the running
+    group), float32 with TF32 off, on its rows of the synthetic global batch
+    of `batch` at `res` (seed 2): one step on deterministic algorithms, the
+    generator seeded 3, then `timed` steps by host clock around
+    synchronised steps. Returns the global loss of the first step (the
+    ranks' mean), the state dict after it and its gradients (averaged over
+    the ranks) on the CPU, the generator's state after it, and the ms of
+    each timed step."""
+    from hyperseg_torch.parallel import distributed as D
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    world, rank = D.get_world_size(), D.get_rank()
+    img, lbl = synthetic_batch(batch, res, 2, device, MODELS[key].kw["num_classes"])
+    b = batch // world
+    img, lbl = img[rank * b:(rank + 1) * b], lbl[rank * b:(rank + 1) * b]
+    model = train_model(key, device, drop=True)
+    step = trainer(D.wrap_model(model, device), key)
+    gen = torch.Generator(device).manual_seed(3)
+    with deterministic():
+        loss = D.all_reduce_(step(img, lbl, gen)["loss"].clone()) / world
+    out = dict(loss=loss.item(), generator=gen.get_state(),
+               state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+               grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                      if p.grad is not None}, ms=[])
+    for _ in range(timed):
+        t0 = time.perf_counter()
+        step(img, lbl, gen)["loss"].item()      # the step's end, on the device
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+    return out

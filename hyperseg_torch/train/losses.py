@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from hyperseg_torch.nn import functional as F
 from hyperseg_torch.ops.kernels import wide
 
 
@@ -67,20 +68,49 @@ def cross_entropy_loss(logits, labels, *, ignore_index=255, weight=None):
     """The plain masked-mean CE (torch F.cross_entropy, reduction='mean'):
     the summed per-pixel loss over the number of labelled pixels, or with a
     class `weight` over the summed weights of their classes; 0 when every
-    pixel is ignored (JAX losses.py:172-182)."""
+    pixel is ignored (JAX losses.py:172-182).
+
+    In a data-parallel step (nn/functional.py `data_parallel`) the mean is
+    the global batch's: the denominator is all-reduced over the group, and
+    the rank's sum over it is scaled by the world size, so that the mean of
+    the ranks' losses - what DistributedDataParallel's averaged gradient
+    differentiates - is the global masked mean, however unevenly the
+    labelled pixels fall across the ranks."""
     loss, valid = softmax_cross_entropy(logits, labels, ignore_index=ignore_index,
                                         weight=weight)
+    dp = F.data_parallel_group()
     if weight is None:
-        denom = valid.sum().clamp_min(1).to(loss.dtype)
+        denom = valid.sum()
+        if dp is not None:
+            denom = _all_reduced(denom, dp)
+        denom = denom.clamp_min(1).to(loss.dtype)
     else:
         safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
         w = weight.to(loss.device, loss.dtype)[safe]
-        denom = torch.where(valid, w, torch.zeros_like(w)).sum().clamp_min(1e-8)
-    return loss.sum() / denom
+        denom = torch.where(valid, w, torch.zeros_like(w)).sum()
+        if dp is not None:
+            denom = _all_reduced(denom, dp)
+        denom = denom.clamp_min(1e-8)
+    if dp is None:
+        return loss.sum() / denom
+    return loss.sum() / denom * dp.world
+
+
+def _all_reduced(t, dp):
+    """A scalar summed over the group (in float64, exact for the counts),
+    back in its dtype."""
+    import torch.distributed as dist
+    buf = t.detach().double().reshape(1)
+    dist.all_reduce(buf, group=dp.group)
+    return buf[0].to(t.dtype)
 
 
 class BootstrappedCrossEntropyLoss:
-    """Callable configuration with the reference class's defaults."""
+    """Callable configuration with the reference class's defaults. Its loss
+    is a mean over the images of per-image means, so in a data-parallel step
+    of equal shards the mean of the ranks' losses is the global batch's,
+    and DistributedDataParallel's averaged gradient is its gradient: it needs
+    no reduction of its own."""
 
     def __init__(self, k=4096, thresh=0.3, weight=None, ignore_index=-100):
         self.k = k

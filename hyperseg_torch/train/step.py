@@ -6,11 +6,25 @@ differ, the criterion, the backward, Adam with beta1 = 0.5 and the learning
 rate of the per-batch schedule, and the step's confusion matrix. The BN
 running statistics are buffers, written in place by the forward; the
 optimizer sees only the trainable parameters.
+
+Data parallelism. Given a model in DistributedDataParallel
+(parallel/distributed.py `wrap_model`), one process a device, each rank
+steps on its shard of the global batch and the step computes what one
+process computes at the global batch, as the JAX step jitted over a mesh
+does: the training BNs and the dropouts run under nn/functional.py
+`data_parallel` for the forward and the backward (global statistics, the
+global batch's masks), the loss is the global one (train/losses.py), and
+DistributedDataParallel averages the gradients over the ranks before Adam.
+The step's loss and confusion matrix stay this rank's; the caller reduces
+them when it reads them.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from hyperseg_torch.nn import functional as F
@@ -51,17 +65,24 @@ def make_train_step(model, criterion, optimizer, scheduler, *, num_classes: int,
     is a detached scalar tensor, 'confmat' the step's (C, C) matrix from
     the logits before the update: accumulate it across steps and derive the
     scores on the host (metrics.scores_from_confmat). The phases run under
-    profiler ranges train_step.{forward,backward,optimizer,metrics}."""
+    profiler ranges train_step.{forward,backward,optimizer,metrics}.
+
+    A model in DistributedDataParallel makes a data-parallel step (the
+    module's docstring): every rank passes its shard of the global batch
+    and a generator seeded as every other rank's; 'loss' and 'confmat'
+    are then this rank's (the global loss is the mean of the ranks')."""
+    group = model.process_group if isinstance(model, DistributedDataParallel) else None
 
     def train_step(image, label, generator=None):
-        with record_function("train_step.forward"):
-            logits = model(image, generator)
-            if logits.shape[2:] != label.shape[1:]:
-                logits = F.resize_bilinear(logits, label.shape[1:])
-            loss = criterion(logits, label)
-        with record_function("train_step.backward"):
-            optimizer.zero_grad(set_to_none=True)
-            loss.backward()
+        with F.data_parallel(group) if group is not None else contextlib.nullcontext():
+            with record_function("train_step.forward"):
+                logits = model(image, generator)
+                if logits.shape[2:] != label.shape[1:]:
+                    logits = F.resize_bilinear(logits, label.shape[1:])
+                loss = criterion(logits, label)
+            with record_function("train_step.backward"):
+                optimizer.zero_grad(set_to_none=True)
+                loss.backward()
         with record_function("train_step.optimizer"):
             optimizer.step()
             scheduler.step()

@@ -5,8 +5,10 @@ hyperseg/utils/seg_utils.py): ConfusionMatrix with eps-guarded acc/IoU
 (:5-56) and the IOUBenchmark wrapper (:59-79). The matrix accumulates on
 the device of the tensors it is given (train/metrics.py confusion_matrix),
 moving there at the first update;
-the scores are derived on the host. Its `reduce_across_devices` comes with
-the parallelism slice. Visualization helpers live in
+the scores are derived on the host. `reduce_across_devices` sums a matrix
+over the ranks of a data-parallel group, the working form of the
+reference's dormant torch.distributed all_reduce (:38-44). Visualization
+helpers live in
 hyperseg_torch.utils.img_utils (blend_seg).
 """
 
@@ -38,6 +40,16 @@ class ConfusionMatrix:
         """(global_acc, class_acc, class_iou) with epsilon guards
         (seg_utils.py:22-36)."""
         return M.eval_scores_from_confmat(self.mat.cpu().numpy(), eps=eps)
+
+    @staticmethod
+    def reduce_across_devices(mat, group=None):
+        """`mat` summed in place over the ranks of `group` (the default group
+        when one is initialized; the identity without one), as the JAX
+        package's psum over the mesh's data axis. Returns it."""
+        import torch.distributed as dist
+        if group is not None or dist.is_initialized():
+            dist.all_reduce(mat, group=group)
+        return mat
 
 
 class IOUBenchmark:

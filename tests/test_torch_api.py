@@ -337,7 +337,6 @@ COUNTERPARTS = {
 }
 TPU_GATES = ("TPU dispatch gates and layout levers; the H100's dispatch is decided by "
              "H100 measurement (ROADMAP rules: port the computation, not the layout)")
-PARALLEL = "ROADMAP Queue 1 item 3 (parallelism), the next module slice"
 # no counterpart, on purpose: a module (every name of it) or one name -> why
 NOT_PORTED = {
     "utils/download.py": "no network: the port downloads nothing, it raises instead",
@@ -355,10 +354,6 @@ NOT_PORTED = {
                                         "block_until_ready may return early",
     "core/torch_import.py:export_state_dict": "the port's state dict is already the "
                                               "reference's layout",
-    "parallel/__init__.py": PARALLEL,
-    "parallel/mesh.py": PARALLEL,
-    "parallel/distributed.py": PARALLEL,
-    "utils/seg_utils.py:ConfusionMatrix.reduce_across_devices": PARALLEL,
 }
 
 

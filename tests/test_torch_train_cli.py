@@ -369,7 +369,12 @@ def test_schedule_follows_the_reference_not_the_jax_cli(runs):
 
 
 def test_more_than_one_device_raises():
-    """Data parallelism waits for its slice: a list of devices is refused."""
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        train_cli.main("unused", model=None, train_dataset=None, device=["cpu", "cpu"])
-    assert train_cli.one_device(["cpu"]) == torch.device("cpu")
+    """A list of devices trains on the ranks of make_mesh_for_batch (the
+    largest count that divides the global batch; tests/test_torch_parallel_cli.py
+    runs them); an empty list is refused."""
+    with pytest.raises(ValueError, match="no device given"):
+        train_cli.main("unused", model=None, train_dataset=None, device=[])
+    cpu = torch.device("cpu")
+    assert train_cli.D.rank_devices(16, "cpu") == [cpu]
+    assert train_cli.D.rank_devices(16, ["cpu"] * 3) == [cpu] * 2
+    assert train_cli.D.rank_devices(3, ["cpu", "cpu"]) == [cpu]
