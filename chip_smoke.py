@@ -83,15 +83,16 @@ Phases (any failure exits non-zero before the result lines):
      pretrained=False, log_every 1, min(16, cores) loader workers and a few
      steps an epoch, on a synthetic Cityscapes tree at the real file size
      (2048x1024 PNGs; train labels of 64x64 tiles of random classes with a
-     band of void, val the same, two batches): (a) float32 (TF32 off), two
-     epochs with validation, then a third resumed from model_latest, without
-     validation: the checkpoint files and their meta, Adam's step and second
-     moments as the file holds them, the resumed first step's learning rate
-     schedule(saved step); (b) bfloat16, one fresh epoch of more steps than
-     the workers make while the first batch is awaited (the loader's pace),
-     with validation. Each with the launch counters set to 0 just before and read
-     just after, and per pass from the report: K3's raw conv once and K6
-     five times a training step, no eval-only kernel in training, the val
+     band of void, val the same, two batches): (a) float32 (TF32 off),
+     TRAIN_CLI["epochs_a"] epochs with validation, then one more resumed
+     from model_latest, without validation: the checkpoint files and their
+     meta, Adam's step and second moments as the file holds them, the
+     resumed first step's learning rate schedule(saved step); (b) bfloat16,
+     one fresh epoch of more steps than the workers make while the first
+     batch is awaited (the loader's pace), with validation. Each with the
+     launch counters set to 0 just before and read just after, and per
+     pass from the report: K3's raw conv once and K6 five times a training
+     step, no eval-only kernel in training, the val
      pass's capture (4 forwards, K6 once more each at the labels'
      resolution) and nothing per replay; finite losses; each run's last val
      matrix equal to an eager eval step's over the same batches on the saved
@@ -116,7 +117,7 @@ Phases (any failure exits non-zero before the result lines):
          steps with the launch counters set to 0 just before and read just
          after - K3's raw conv once a step and K6 at each decoder upsample,
          no eval-only kernel; finite losses, step 5's below step 1's; ms per
-         step by CUDA events over steps 2-5, img/s, peak memory (each
+         step by CUDA events over steps 2-4, img/s, peak memory (each
          route's model alone on the card); then one
          step under torch.profiler, split into forward, backward, optimizer
          and metrics and by layer, with the top device kernels of the step
@@ -176,6 +177,26 @@ Phases (any failure exits non-zero before the result lines):
      on the TEST phase's M tree and checkpoint in float32, on two gloo ranks
      on cuda:0 at a global batch of 4 and on one process at 2 (the batches
      each rank runs): the confusion matrices and scores.npz equal (`ddp`
+     lines);
+  SPATIAL. spatial sharding (hyperseg_torch/parallel/spatial.py: each rank
+     holds a band of every image's rows and exchanges halos with its
+     neighbours) on the one card, HyperSeg-M: (a) the eager eval forward at
+     1024x512 on a 1x2 mesh at b1 and a 2x2 mesh at b8 (gloo ranks on
+     cuda:0, float32 then bfloat16), gathered and held against one
+     process's forward of the whole batch stage by stage (the stride-2 and
+     stride-4 features and the decoder on one process's features and
+     signal at KERNEL_TOL, argmax agreement SPATIAL["agree"]; the logits
+     within SPATIAL["floor_margin"] times a floor measured in the same
+     run), each rank launching what one process launches a forward; (b)
+     each kernel's slab form (the kernel on a band with its neighbours'
+     rows attached, the attached rows' outputs cropped) at every call of
+     M's b1 forward, on 2 and 4 bands, in both dtypes: against its plain
+     version on the same slab and against the unsharded kernel's rows,
+     K1/K2 also at k=5; (c) T3 on the 1x2 and
+     2x2 meshes against the ddp phase's plain b16 step, at the ddp phase's
+     (b) gates, with each rank's peak memory, launches, exchanges and
+     all-reduces a step; (d) the step under a 1x1 mesh's spatial sharding
+     over NCCL, bit-equal to the plain step with no exchange (`spatial`
      lines);
   5. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
@@ -255,7 +276,7 @@ FPS = dict(batches=(1, 8), iterations=50, remove_bn=(False, True))
 # The training steps: each model at its shipped config's crop, batch, Adam and PolyLR
 # (hyperseg_torch/train/recipes.py), bootstrapped CE ignoring 255; float32, as the JAX
 # step's default. T2 runs a reduced HyperSeg-M step.
-TRAIN = dict(steps=5, reduced_batch=2, reduced_res=(256, 512))
+TRAIN = dict(steps=4, reduced_batch=2, reduced_res=(256, 512))   # 5 steps until PR 18
 # Each cell's A/B, run in this order, the other levers at their defaults: the k=3
 # InvResUnits of M and L on the 6-D gather and on the full-map form; V's patch convs on
 # the 6-D forms, on the full-map forms, and with the full-map depthwise only
@@ -303,14 +324,15 @@ REMAT_STATS_RTOL = 1e-6     # the BN running statistics, of each one's largest m
 
 
 # The TRAIN phase: the training CLI from the port's M config on a synthetic
-# Cityscapes tree: (a) float32, two epochs and a resumed third, (b) bfloat16,
+# Cityscapes tree: (a) float32, epochs_a epochs and one more resumed, (b) bfloat16,
 # one epoch of more steps; steps at the config's batch 16
 TRAIN_CLI = dict(config="hyperseg_torch/configs/train/cityscapes_efficientnet_b1_hyperseg-m.py",
                  # val: two batches, the second a replay of the captured step
                  train_frames=16, val_frames=24, cities=("aachen", "bochum"),
                  # (b) runs past what the workers make while the first batch is
                  # awaited (8 workers x 2 prefetched), so its wait shows their pace
-                 steps_a=6, steps_b=48, tile=64, void_rows=64,
+                 # (a) runs epochs_a epochs, then one more resumed in its directory
+                 epochs_a=1, steps_a=6, steps_b=24, tile=64, void_rows=64,
                  # (b)'s step-1 loss against (a)'s, relative: bf16 activations
                  # through the whole network at random init
                  bf16_loss_rtol=5e-2)
@@ -1663,8 +1685,9 @@ def run_train_cli(smi):
               f"batch {kw['batch_size']}, pretrained False, log_every 1", flush=True)
         sched = kw["scheduler"]
         schedule = poly_lr(kw["optimizer"]["lr"], sched["max_epoch"], sched["power"])
-        for tag, dtype, epochs, steps in (("a", "float32", 2, TRAIN_CLI["steps_a"]),
-                                          ("a resumed", "float32", 3, TRAIN_CLI["steps_a"]),
+        ea = TRAIN_CLI["epochs_a"]
+        for tag, dtype, epochs, steps in (("a", "float32", ea, TRAIN_CLI["steps_a"]),
+                                          ("a resumed", "float32", ea + 1, TRAIN_CLI["steps_a"]),
                                           ("b", "bfloat16", 1, TRAIN_CLI["steps_b"])):
             # the resumed epoch trains only: its checks read the restored state
             run_kw = dict(kw, val_dataset=None) if tag == "a resumed" else kw
@@ -1701,17 +1724,17 @@ def run_train_cli(smi):
             start = report["start"]
             if tag == "a resumed":
                 lr = report["epochs"][0]["train"]["lr_first"]
-                ok = (start["epoch"] == 2 and start["step"] == 2 * steps
-                      and saved_steps == {float(2 * steps)}
-                      and start["adam_step"] == 2 * steps
+                ok = (start["epoch"] == ea and start["step"] == ea * steps
+                      and saved_steps == {float(ea * steps)}
+                      and start["adam_step"] == ea * steps
                       and abs(start["exp_avg_sq_sum"] / saved_sq - 1) < 1e-9
-                      and abs(lr / schedule(2 * steps) - 1) < 1e-12
+                      and abs(lr / schedule(ea * steps) - 1) < 1e-12
                       and len(report["epochs"]) == 1)
                 print(f"train_cli M {tag}: from epoch {start['epoch']}, step {start['step']}; "
                       f"Adam's step {start['adam_step']} (file {sorted(saved_steps)}), second "
                       f"moments sum {start['exp_avg_sq_sum']:.9e} (file {saved_sq:.9e}); lr of "
-                      f"the first resumed step {lr:.12g}, schedule({2 * steps}) "
-                      f"{schedule(2 * steps):.12g} (base {kw['optimizer']['lr']})", flush=True)
+                      f"the first resumed step {lr:.12g}, schedule({ea * steps}) "
+                      f"{schedule(ea * steps):.12g} (base {kw['optimizer']['lr']})", flush=True)
                 if not ok:
                     fail(f"train_cli {tag}: the resume did not restore the epoch, step, Adam's "
                          f"state and the schedule: {start}, lr {lr}")
@@ -1757,7 +1780,7 @@ def set_levers(levers):
 def train_ab(cell):
     """T3-T5: one model's training step at its config's crop and batch on
     each route of the cell's A/B, in order, from the same seed-0 weights on
-    one fixed synthetic batch. Per route: five steps with the launch
+    one fixed synthetic batch. Per route: TRAIN["steps"] steps with the launch
     counters set to 0 just before and read just after (step 1's kernel
     calls recorded at T3's first route, for T1), then one profiled step;
     each route's model is freed before the next is built, so each peak is
@@ -1852,8 +1875,8 @@ def train_ab(cell):
 def bf16_step(cell, key, levers, img, lbl, level):
     """The cell's step with its image cast to bfloat16 (float32 parameters,
     gradients and Adam state), on `levers`' route, from the same seed-0
-    weights on the same batch: the launch counts of five steps, finite and
-    falling losses, ms per step by CUDA events over steps 2-5, peak memory,
+    weights on the same batch: the launch counts of TRAIN["steps"] steps, finite and
+    falling losses, ms per step by CUDA events over steps 2-4, peak memory,
     then one profiled step. Returns (numbers, launches)."""
     from hyperseg_torch.ops.kernels import LAUNCHES
     defaults = set_levers(levers)
@@ -2316,10 +2339,10 @@ def remat_ab(cell, dtype, specs):
     drop connect and dropout on, each spec's model alone on the card: the
     step's gradients, BN statistics and generator state against the plain
     step's (the first spec, False; its own spread from a second plain
-    step), then five steps through the trainer with the launch counters set
+    step), then TRAIN["steps"] steps through the trainer with the launch counters set
     to 0 just before and read just after (K3's raw conv once and K6 five
     times a step: neither is in a checkpointed region), finite and falling
-    losses, ms per step by CUDA events over steps 2-5, img/s and peak
+    losses, ms per step by CUDA events over steps 2-4, img/s and peak
     memory. Returns {spec: numbers}."""
     from hyperseg_torch.ops.kernels import LAUNCHES
     from hyperseg_torch.train.recipes import RECIPES
@@ -2436,7 +2459,7 @@ def run_training():
 
 
 # The DDP phase: T3's cell (the M recipe's batch and crop), float32, TF32 off
-DDP = dict(key="M", calls=4, steps=3,
+DDP = dict(key="M", calls=3, steps=3,     # 4 calls until PR 18
            # (b) two gloo ranks on one card against (a)'s one-process step. At T3 the
            # step from seed-0 weights is chaotic at rounding level: the one-process
            # step against itself with its image one float32 ulp away (2^-22 relative)
@@ -2587,21 +2610,9 @@ def ddp_gloo(key, b, res, ref, smi):
     got = D.run_ranks(ddp_rank_step, ["cuda:0"] * DDP["gloo_ranks"], backend="gloo",
                       kwargs=dict(key=key, batch=b, res=res, timed=DDP["gloo_timed"]))
     wall = time.perf_counter() - t0
-    loss0, state0, gen0, grads0, (loss_f, state_f, grads_f) = ref
-    params = [k for k in state0 if not k.endswith(("running_mean", "running_var"))]
-    stats = [k for k in state0 if k not in params]
-
-    def errors(state, grads, loss):
-        return (rel_l2({k: grads[k].double() for k in grads0},
-                       {k: v.double() for k, v in grads0.items()}),
-                rel_l2({k: state[k].double() for k in params},
-                       {k: state0[k].double() for k in params}),
-                rel_l2({k: state[k].double() for k in stats},
-                       {k: state0[k].double() for k in stats}),
-                abs(loss - loss0) / abs(loss0))
-    err_g, err_p, err_s, loss_rel = errors(got["state"], got["grads"], got["loss"])
-    floor_g, floor_p, floor_s, floor_loss = errors(state_f, grads_f, loss_f)
-    lim_g, lim_p = (min(DDP["max_rel_l2"], DDP["floor_margin"] * f) for f in (floor_g, floor_p))
+    loss0, gen0 = ref[0], ref[2]
+    (err_g, err_p, err_s, loss_rel), (floor_g, floor_p, floor_s, floor_loss), (lim_g, lim_p) = (
+        step_errors(ref, got))
     same_gen = torch.equal(got["generator"], gen0)
     print(f"ddp    (b) T3 {key} {DDP['gloo_ranks']} gloo ranks on cuda:0, "
           f"b{b // DDP['gloo_ranks']} each, one deterministic step against (a)'s plain b{b} "
@@ -2624,6 +2635,29 @@ def ddp_gloo(key, b, res, ref, smi):
                 grads_rel_l2=err_g, floor=dict(loss_rel=floor_loss, grads_rel_l2=floor_g,
                                                params_rel_l2=floor_p, stats_rel_l2=floor_s),
                 generator_equal=same_gen, ms_per_step_gloo=got["ms"], wall_s=wall)
+
+
+def step_errors(ref, got):
+    """A rank's step (`got`: loss, state, grads) against the plain step of
+    `ref` (ddp_world1's): ((gradients, parameters, statistics rel L2, loss
+    rel), the same for the floor step, (the gradients' and parameters'
+    limits: DDP["floor_margin"] times the floor, at most
+    DDP["max_rel_l2"]))."""
+    loss0, state0, _, grads0, (loss_f, state_f, grads_f) = ref
+    params = [k for k in state0 if not k.endswith(("running_mean", "running_var"))]
+    stats = [k for k in state0 if k not in params]
+
+    def errors(state, grads, loss):
+        return (rel_l2({k: grads[k].double() for k in grads0},
+                       {k: v.double() for k, v in grads0.items()}),
+                rel_l2({k: state[k].double() for k in params},
+                       {k: state0[k].double() for k in params}),
+                rel_l2({k: state[k].double() for k in stats},
+                       {k: state0[k].double() for k in stats}),
+                abs(loss - loss0) / abs(loss0))
+    floor = errors(state_f, grads_f, loss_f)
+    return (errors(got["state"], got["grads"], got["loss"]), floor,
+            tuple(min(DDP["max_rel_l2"], DDP["floor_margin"] * f) for f in floor[:2]))
 
 
 def ddp_train_cli(smi):
@@ -2708,7 +2742,8 @@ def ddp_test_cli(test_tmp, smi):
 
 
 def run_ddp(smi, test_tmp):
-    """The DDP phase. Returns (numbers, {"M ddp...": launches})."""
+    """The DDP phase. Returns (numbers, {"M ddp...": launches}, the plain
+    T3 step's reference for the spatial phase)."""
     from hyperseg_torch.parallel import distributed as D
     from hyperseg_torch.train.recipes import RECIPES
     t_phase = time.perf_counter()
@@ -2724,10 +2759,303 @@ def run_ddp(smi, test_tmp):
     finally:
         torch.distributed.destroy_process_group()
     out["gloo_x2"] = ddp_gloo(key, b, res, ref, smi)
-    del ref
     out["test_cli"] = ddp_test_cli(test_tmp, smi)
     torch.cuda.synchronize()
     print(f"ddp    done in {time.perf_counter() - t_phase:.1f} s wall", flush=True)
+    return out, launches, ref
+
+
+SPATIAL = dict(key="M",
+               # (a) and (c): (n_data, n_spatial, eval batch); the step takes T3's b16
+               meshes=((1, 2, 1), (2, 2, 8)), agree=0.999, timed=0,
+               # (a): the gathered logits against one process's. float32: within the
+               # larger of KERNEL_TOL and twice the floor measured in the same run, one
+               # process with its image one float32 ulp away (a calibrated random-weight
+               # M amplifies float32 reassociation - the SE means' sums, cuDNN's choice
+               # of algorithm by shape - to about 4e-4 at its 13.6 logits). bfloat16
+               # stage by stage at KERNEL_TOL (the stride-2 and stride-4 features, the
+               # decoder on the bands of one process's features and signal), since the
+               # net amplifies bfloat16 rounding through its depth: one process's own
+               # bfloat16 logits sit 6.3 from its float32 ones at 0.77 argmax
+               # agreement; the bfloat16 logits are held within that drift
+               floor_margin={"float32": 2.0, "bfloat16": 1.0},
+               # (b): the bands each kernel's slab form is checked on
+               bands=(2, 4))
+# (b): each kernel's slab form, as (its halo rows above and below, crop in
+# output rows per attached input row); K1/K2 attach whole patch rows
+SLABS = {"stem": (0, 1), "mbconv_dw": (1, 1), "mbconv_expand_dw": None,
+         "resize_bilinear": (1, 1), "patch_invres_s2w": None, "patch_invres": None}
+
+
+def band_of(t, i, n, top, bottom, dim=2):
+    """(slab, t, b): band i of n of `t` along `dim` with `top` rows above and
+    `bottom` below attached where the image holds them (t, b attached)."""
+    h = t.shape[dim] // n
+    a, b = (0 if i == 0 else top), (0 if i == n - 1 else bottom)
+    return t.narrow(dim, i * h - a, h + a + b).contiguous(), a, b
+
+
+def slab_forms(c, i, n):
+    """(kernel band form, plain band form, the unsharded output's band) of
+    recorded call `c` on band i of n."""
+    from hyperseg_torch.ops.kernels import mbconv as K4
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+    from hyperseg_torch.ops.kernels import resize as K6
+    from hyperseg_torch.ops.kernels import stem as K3
+    a, kw, out = c.args, c.kw, c.out
+    ho = out.shape[2] // n
+    rows = out[:, :, i * ho:(i + 1) * ho]
+    if c.name == "stem":
+        xs, _, _ = band_of(a[0], i, n, 0, 1)
+        return (lambda: K3.stem(xs, *a[1:], **kw), lambda: K3.stem_plain(xs, *a[1:], **kw),
+                rows)
+    if c.name == "mbconv_dw":
+        xs, t, b = band_of(a[0], i, n, 1, 1)
+        return (lambda: K4.mbconv_dw_band(xs, *a[1:], **kw, top=t, bottom=b),
+                lambda: K4.mbconv_dw_band_plain(xs, *a[1:], **kw, top=t, bottom=b), rows)
+    if c.name == "mbconv_expand_dw":
+        stride = a[5]
+        xs, t, b = band_of(a[0], i, n, 2 - stride, 1)
+        return (lambda: K4.mbconv_expand_dw_band(xs, *a[1:], **kw, top=t, bottom=b),
+                lambda: K4.mbconv_expand_dw_band_plain(xs, *a[1:], **kw, top=t, bottom=b),
+                rows)
+    if c.name == "resize_bilinear":
+        scale = out.shape[2] // a[0].shape[2]
+        xs, t, b = band_of(a[0], i, n, 1, 1)
+        return (lambda: K6.resize_bilinear_band(xs, scale, t, b),
+                lambda: K6.resize_bilinear_band_plain(xs, scale, t, b), rows)
+    x, m = a[0], a[1]
+    fh = m.shape[2] if c.name == "patch_invres_s2w" else m.shape[1]
+    ph = x.shape[2] // fh
+    xs, t, b = band_of(x, i, n, ph, ph)
+    if c.name == "patch_invres_s2w":
+        ss, _, _ = band_of(m, i, n, 1, 1)
+        return (lambda: PI.patch_invres_s2w_band(xs, ss, *a[2:], **kw, top=t // ph,
+                                                 bottom=b // ph),
+                lambda: PI.patch_invres_s2w_band_plain(xs, ss, *a[2:], **kw, top=t // ph,
+                                                       bottom=b // ph), rows)
+    ms, _, _ = band_of(m, i, n, 1, 1, dim=1)
+    return (lambda: PI.patch_invres_band(xs, ms, *a[2:], **kw, top=t // ph, bottom=b // ph),
+            lambda: PI.patch_invres_band_plain(xs, ms, *a[2:], **kw, top=t // ph,
+                                               bottom=b // ph), rows)
+
+
+def k5_calls(calls):
+    """K1 and K2 at a 5x5 depthwise on the inputs of M's first k=3 K1 call
+    (no shipped config has one): a signal2weights weight and a weight map
+    for k=5 from a seeded generator, recorded as calls with their
+    unsharded outputs."""
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+    c = next(c for c in calls if c.name == "patch_invres_s2w")
+    x, s, w = c.args[:3]
+    kw = dict(c.kw, kernel=5)
+    p = PI.hyper_params(x.shape[1], kw["hidden"], kw["out_ch"], 5)
+    g = torch.Generator("cuda").manual_seed(5)
+    n_out = -(-p // kw["groups"]) * kw["groups"]
+    w5 = (torch.randn(n_out, *w.shape[1:], generator=g, device="cuda") * w.float().std()
+          ).to(w.dtype)
+    m5 = PI.s2w_generate(s, w5, groups=kw["groups"], p=p)
+    k2 = {k: v for k, v in kw.items() if k != "groups"}
+    return [Call("patch_invres_s2w", (x, s, w5), kw, PI.patch_invres_s2w(x, s, w5, **kw)),
+            Call("patch_invres", (x, m5), k2, PI.patch_invres(x, m5, **k2))]
+
+
+def spatial_slabs(model, x1, smi):
+    """(b): every slab form at M's b1 calls, float32 then bfloat16."""
+    from hyperseg_torch.nn.modules import cast_weights
+    gpu = copy.deepcopy(model).to("cuda")
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            cast_weights(gpu, dtype)
+        with torch.no_grad():
+            with recording({k: KERNELS[k] for k in SLABS}) as calls:
+                gpu(x1.to("cuda", dtype))
+            calls = calls + k5_calls(calls)
+            for c in calls:
+                for n in SPATIAL["bands"]:
+                    e_plain = e_rows = 0.0
+                    for i in range(n):
+                        kernel, plain, rows = slab_forms(c, i, n)
+                        got, want = kernel(), plain()
+                        if got.shape != rows.shape or not torch.isfinite(got).all():
+                            fail(f"spatial (b) {c.name} band {i} of {n}: {tuple(got.shape)} "
+                                 f"against {tuple(rows.shape)}")
+                        e_plain = max(e_plain, (got.float() - want.float()).abs().max().item())
+                        e_rows = max(e_rows, (got.float() - rows.float()).abs().max().item())
+                    scale = max(1.0, c.out.float().abs().max().item())
+                    tol = KERNEL_TOL[dtype] * scale
+                    k = 5 if c.kw.get("kernel") == 5 else 3
+                    tag = f"{c.name}{' k=5' if k == 5 else ''}"
+                    ok = e_plain <= tol and e_rows <= tol
+                    print(f"spatial (b) {tag:22s} {str(dtype)[6:]:8s} x {tuple(c.args[0].shape)} "
+                          f"{n} bands: slab vs its plain version {e_plain:.3e}, vs the "
+                          f"unsharded kernel's rows {e_rows:.3e} (tol {tol:.3e}) "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok:
+                        fail(f"spatial (b): {tag}'s slab form on {n} bands disagrees in {dtype}")
+                    w = worst.setdefault(tag, {})
+                    d = str(dtype)[6:]
+                    w[d] = max(w.get(d, 0.0), e_plain, e_rows)
+            del calls
+    del gpu
+    torch.cuda.empty_cache()
+    return worst
+
+
+def spatial_ranks(key, state, x8, n_data, n_spatial, b_eval, ref, smi):
+    """(a) and (c) on one (n_data, n_spatial) mesh of gloo ranks on cuda:0."""
+    from hyperseg_torch.parallel import distributed as D
+    from hyperseg_torch.train.harness import spatial_rank
+    from hyperseg_torch.train.recipes import RECIPES
+    world = n_data * n_spatial
+    tag = f"{n_data}x{n_spatial}"
+    b, res = RECIPES[key].batch, RECIPES[key].crop
+    t0 = time.perf_counter()
+    got = D.run_ranks(spatial_rank, ["cuda:0"] * world, backend="gloo", kwargs=dict(
+        eval_kw=dict(key=key, state=state, x=x8[:b_eval], n_data=n_data, n_spatial=n_spatial),
+        step_kw=dict(key=key, batch=b, res=res, n_data=n_data, n_spatial=n_spatial,
+                     timed=SPATIAL["timed"])))
+    wall = time.perf_counter() - t0
+    per = MODELS[key].per_forward
+    want = {n: c for n, c in per.items() if c}
+    out, failed = {"wall_s": wall}, []
+    for dtype, e in got["eval"].items():
+        kernel_tol = KERNEL_TOL[getattr(torch, dtype)]
+        floor = e["floor"]
+        ok = e["launches"] == want and e["one_launches"] == want
+        for name, st in e["stages"].items():
+            tol = kernel_tol * max(1.0, st["ref_max"])
+            # bfloat16 logits: within the drift alone, with no agreement minimum
+            gated_agree = name != "logits" or dtype == "float32"
+            if name == "logits":
+                tol = max(tol if dtype == "float32" else 0.0,
+                          SPATIAL["floor_margin"][dtype] * floor["max_abs_err"])
+            good = (st["finite"] and st["max_abs_err"] <= tol
+                    and (not gated_agree or st.get("agree", 1.0) >= SPATIAL["agree"]))
+            ok = ok and good
+            st["tol"] = tol
+            agree = (f", argmax agreement {st['agree']:.6f}"
+                     f"{' (min ' + str(SPATIAL['agree']) + ')' if gated_agree else ''}"
+                     if "agree" in st else "")
+            print(f"spatial (a) {key} {tag} b{b_eval} {dtype} {name} {st['shape']}: gathered "
+                  f"bands vs one process: max_abs_err {st['max_abs_err']:.3e} (tol {tol:.3e}, "
+                  f"largest {st['ref_max']:.3f}), rel L2 {st['rel_l2']:.3e}{agree} "
+                  f"{'ok' if good else 'FAIL'}", flush=True)
+        what = ("one process, its image one float32 ulp away" if dtype == "float32"
+                else "one process bfloat16 against float32")
+        print(f"spatial (a) {key} {tag} b{b_eval} {dtype} eager forward, rank 0's band "
+              f"{e['band']}: logits floor ({what}) max_abs_err {floor['max_abs_err']:.3e}, "
+              f"argmax agreement {floor['agree']:.6f}; launches a forward per rank "
+              f"{e['launches']}, one process {e['one_launches']}; {e['exchanges']} exchanges "
+              f"({e['halo_bytes'] / 2 ** 20:.2f} MiB of neighbours' rows received, "
+              f"{e['wire_bytes'] / 2 ** 20:.2f} MiB all-reduced) and {e['all_reduces']} "
+              f"all-reduces a forward; {e['ms']:.1f} ms a forward by host clock (gloo stages "
+              f"every exchange through the host: not a speed) [{smi}] {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+            failed.append(f"spatial (a) {tag} {dtype}: the sharded forward differs from one "
+                          f"process's or launches otherwise")
+        out[f"eval_{dtype}"] = e
+    st = got["step"]
+    (err_g, err_p, err_s, loss_rel), floor, (lim_g, lim_p) = step_errors(ref, st)
+    same_gen = torch.equal(st["generator"], ref[2])
+    want = TRAIN_PER_STEP
+    ok = (loss_rel <= DDP["loss_rtol"] and err_g <= lim_g and err_p <= lim_p
+          and err_s <= DDP["stats_rel_l2"] and same_gen and st["launches"] == want)
+    print(f"spatial (c) T3 {key} {tag}, rank 0's band {st['band']}, one deterministic step "
+          f"against the ddp phase's plain b{b} step: loss {st['loss']!r} (rel {loss_rel:.3e}, "
+          f"limit {DDP['loss_rtol']:.0e}); gradients rel L2 {err_g:.3e} (limit {lim_g:.3e}), "
+          f"parameters {err_p:.3e} (limit {lim_p:.3e}), running statistics {err_s:.3e} (limit "
+          f"{DDP['stats_rel_l2']:.0e}); floor: gradients {floor[0]:.3e}, parameters "
+          f"{floor[1]:.3e}; generator equal {same_gen}; launches per rank {st['launches']} "
+          f"(want {want}) [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"spatial (c) T3 {key} {tag} rank 0: peak {st['peak_bytes'] / 2 ** 30:.3f} GiB; "
+          f"{st['exchanges']} exchanges a step in the forward ({st['halo_bytes'] / 2 ** 20:.2f} "
+          f"MiB of neighbours' rows received, {st['wire_bytes'] / 2 ** 20:.2f} MiB all-reduced; "
+          f"each has a backward all-reduce of the same size), {st['all_reduces']} all-reduces "
+          f"a step from Python (exchanges, BNs, pooled means, the gather, the loss; DDP's "
+          f"buckets aside); {', '.join(f'{v:.1f}' for v in st['ms'])} ms a step by host clock "
+          f"(not a speed: gloo stages every collective through the host); {wall:.1f} s wall "
+          f"with the ranks' start [{smi}]", flush=True)
+    if not ok:
+        failed.append(f"spatial (c) {tag}: the sharded step differs from one process's: loss "
+                      f"rel {loss_rel:.3e}, gradients {err_g:.3e}, parameters {err_p:.3e}, "
+                      f"statistics {err_s:.3e}, generator equal {same_gen}, launches "
+                      f"{st['launches']}")
+    if failed:
+        fail("; ".join(failed))
+    out["step"] = dict(loss=st["loss"], loss_rel=loss_rel, grads_rel_l2=err_g,
+                       params_rel_l2=err_p, stats_rel_l2=err_s, floor=floor[:2],
+                       generator_equal=same_gen, peak_bytes=st["peak_bytes"],
+                       exchanges=st["exchanges"], halo_bytes=st["halo_bytes"],
+                       wire_bytes=st["wire_bytes"], all_reduces=st["all_reduces"],
+                       ms_per_step_gloo=st["ms"], launches=st["launches"])
+    launches = {f"{key} spatial {tag} eval b{b_eval} {d}": got["eval"][d]["launches"]
+                for d in got["eval"]}
+    launches[f"{key} spatial {tag} T3 step"] = st["launches"]
+    return out, launches
+
+
+def spatial_world1(key, ref, smi):
+    """(d): the T3 step under a 1x1 mesh's spatial sharding, in a NCCL group
+    of this process alone: bit-equal to the plain step, no exchange."""
+    from hyperseg_torch.parallel import distributed as D
+    from hyperseg_torch.parallel import mesh as PM
+    from hyperseg_torch.parallel import spatial as SP
+    from hyperseg_torch.train.harness import collective_counter
+    from hyperseg_torch.train.recipes import RECIPES
+    b, res = RECIPES[key].batch, RECIPES[key].crop
+    D.initialize(f"localhost:{D.free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = PM.make_mesh(1, 1, devices=["cuda"])
+        img, lbl = synthetic_batch(b, res, 2, "cuda", MODELS[key].kw["num_classes"])
+        img, lbl = PM.shard_batch(mesh, [img, lbl], sharding=[
+            PM.data_sharded(mesh, spatial_dim=2), PM.data_sharded(mesh, spatial_dim=1)])
+        model = train_model(key, "cuda", drop=True)
+        step = trainer(D.wrap_model(model, "cuda"), key)
+        gen = torch.Generator("cuda").manual_seed(3)
+        with deterministic(), SP.spatial_parallel(mesh) as sg, collective_counter() as counts:
+            loss = step(img, lbl, gen)["loss"].item()
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    finally:
+        torch.distributed.destroy_process_group()
+    differ = [k for k in ref[1] if not torch.equal(ref[1][k], state[k])]
+    same_gen = torch.equal(gen.get_state(), ref[2])
+    ok = loss == ref[0] and not differ and same_gen and sg is None and not counts["exchanges"]
+    print(f"spatial (d) T3 {key} b{b} under spatial_parallel(make_mesh(1, 1)), NCCL world "
+          f"size 1, one deterministic DDP step: loss {loss!r} (plain {ref[0]!r}); {len(differ)} "
+          f"of {len(state)} state tensors differ; generator equal {same_gen}; spatial group "
+          f"{sg}; {counts['exchanges']} exchanges, {counts['all_reduces']} all-reduces [{smi}] "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"spatial (d): the 1x1-mesh step is not the plain step: differing {differ[:5]}")
+    del model, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(bit_equal=True, exchanges=counts["exchanges"],
+                all_reduces=counts["all_reduces"])
+
+
+def run_spatial(smi, ref):
+    """The spatial phase. Returns (numbers, {"M spatial ...": launches})."""
+    from hyperseg_torch.utils.calibrate import calibrate_bn
+    t_phase = time.perf_counter()
+    key = SPATIAL["key"]
+    cfg = MODELS[key]
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
+    model = factory.hyperseg_efficientnet(cfg.backbone, device="cpu", seed=0, **cfg.kw)
+    x8 = torch.randn(8, 3, *cfg.res, generator=torch.Generator().manual_seed(1))
+    calibrate_bn(model, x8[:1])
+    out = {"slabs": spatial_slabs(model, x8[:1], smi)}
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    launches = {}
+    for n_data, n_spatial, b_eval in SPATIAL["meshes"]:
+        out[f"{n_data}x{n_spatial}"], got = spatial_ranks(key, state, x8, n_data, n_spatial,
+                                                           b_eval, ref, smi)
+        launches.update(got)
+    out["nccl_world1"] = spatial_world1(key, ref, smi)
+    print(f"spatial done in {time.perf_counter() - t_phase:.1f} s wall", flush=True)
     return out, launches
 
 
@@ -2805,7 +3133,10 @@ def main():
 
         train_launches, stem_conv, resize_train, train = run_training()
 
-        ddp_runs, ddp_launches = run_ddp(smi.stdout.strip(), test_tmp)
+        ddp_runs, ddp_launches, ref = run_ddp(smi.stdout.strip(), test_tmp)
+
+    spatial_runs, spatial_launches = run_spatial(smi.stdout.strip(), ref)
+    del ref
 
     kernels = kernels_line(rows, launches)
     for k in kernels:
@@ -2824,7 +3155,8 @@ def main():
     k6["train"] = resize_train
     kernels.append(stem_conv)
     for k in kernels:
-        for m, c in list(train_cli_launches.items()) + list(ddp_launches.items()):
+        for m, c in (list(train_cli_launches.items()) + list(ddp_launches.items())
+                     + list(spatial_launches.items())):
             k["launches"] += c.get(k["name"], 0)
             k["launches_by_model"][m] = c.get(k["name"], 0)
     print(json.dumps({"kernels": kernels,
@@ -2832,7 +3164,7 @@ def main():
                                     for m, f in fps.items()},
                       "graph": {m: e["graph"] for m, e in extra.items()},
                       "test_fps": fps_runs, "test": test_runs, "train_cli": train_cli_runs,
-                      "train": train, "ddp": ddp_runs,
+                      "train": train, "ddp": ddp_runs, "spatial": spatial_runs,
                       "unify_copy": extra["SC"]["unify_copy"], "tta": extra["SV"]["tta"]}),
           flush=True)
     print(smi.stdout.strip(), flush=True)

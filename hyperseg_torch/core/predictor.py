@@ -18,6 +18,7 @@ from typing import Callable, Dict, Tuple
 import numpy as np
 import torch
 
+from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import cast_weights
 
 GRAPH_WARMUP = 3   # eager runs on a side stream before the capture
@@ -43,7 +44,11 @@ def graphed(fn: Callable, *example_inputs: torch.Tensor):
     (under "global" that invalidated a capture of cli/test.py's step on an
     H100), and a process group's watchdog, which polls its collectives'
     events (the captured step holds no collective). A capture that fails
-    raises; there is no eager fallback."""
+    raises; there is no eager fallback. Under spatial sharding it raises
+    ValueError: such a forward runs eager."""
+    if F.spatial_group() is not None:
+        raise ValueError("graphed: a spatially sharded forward runs eager (its gloo halo "
+                         "exchanges cannot be captured); ROADMAP Queue 2 H3")
     static = [x.clone() for x in example_inputs]
     if any(x.device.type != "cuda" for x in static):
         raise ValueError("graphed: the inputs must be CUDA tensors")

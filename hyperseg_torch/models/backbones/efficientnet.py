@@ -26,6 +26,15 @@ feature's dropout draw from the generator passed to `forward`. With `remat`
 region in training (efficientnet.py:465-477); the stem, the feature taps,
 the head and its dropout stay outside, so K3's raw conv is never
 recomputed.
+
+Under spatial sharding (nn/functional.py `spatial`) the input is this
+rank's band of each image, a multiple of 32 rows. Every conv with a spatial
+extent reads the neighbouring bands' rows that its static TF-SAME pads
+cover: the eager convs through `conv2d_band`, the kernels on a slab of the
+band with those rows attached (`band_slab`; K3 and K5 at stride 2 the first
+row below, K4a and K5 at stride 1 one row each side, their rows' outputs
+cropped), and the image's border keeps its zero pad. The SE pools are the
+image's means (`mean_hw`, `adaptive_avg_pool_1`).
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv, init_params
 from hyperseg_torch.ops.kernels import mbconv as K4
 from hyperseg_torch.ops.kernels import stem as K3
+from hyperseg_torch.ops.kernels import wide_dtype
+from hyperseg_torch.parallel import spatial as SP
 
 # width, depth, nominal resolution, head-feature dropout — compound scaling
 # (efficientnet_utils.py:465-505)
@@ -147,10 +158,12 @@ class MBConvBlock(EvalModule):
         self._bn2 = BatchNorm2d(plan.out_ch, BN_EPS, BN_MOMENTUM, device=device)
 
     def _se_scale(self, pooled):
-        """The SE MLP on the (B, mid) pooled map, float32, sigmoid applied."""
+        """The SE MLP on the (B, mid) pooled map in its dtype (float32, or
+        float64 for a float64 map), sigmoid applied."""
         r, e = self._se_reduce, self._se_expand
-        se = pooled @ r.weight[:, :, 0, 0].float().t() + r.bias.float()
-        se = F.swish(se) @ e.weight[:, :, 0, 0].float().t() + e.bias.float()
+        dt = pooled.dtype
+        se = pooled @ r.weight[:, :, 0, 0].to(dt).t() + r.bias.to(dt)
+        se = F.swish(se) @ e.weight[:, :, 0, 0].to(dt).t() + e.bias.to(dt)
         return torch.sigmoid(se)
 
     def forward(self, x, drop_rate=0.0, generator=None):
@@ -164,19 +177,21 @@ class MBConvBlock(EvalModule):
         p = self.plan
         if p.fusable:
             # K4a -> SE (torch) -> K4b, as the TPU's dw_phase / project_phase
-            h = K4.mbconv_dw(x, self._depthwise_conv.weight, self._bn1.params,
-                             eps=BN_EPS)
-            se = self._se_scale(h.mean((2, 3), dtype=torch.float32))
+            xs, top, bottom = F.band_slab(x, 1, 1)
+            h = K4.mbconv_dw_band(xs, self._depthwise_conv.weight, self._bn1.params,
+                                  eps=BN_EPS, top=top, bottom=bottom)
+            se = self._se_scale(F.mean_hw(h, wide_dtype(h.dtype)))
             return K4.mbconv_project(h, se, self._project_conv.weight,
                                      self._bn2.params,
                                      residual=x if p.residual else None,
                                      eps=BN_EPS)
         if p.expand_fusable:
             # K5 -> SE (torch) -> K4b or a torch projection
-            h = K4.mbconv_expand_dw(x, self._expand_conv.weight, self._bn0.params,
-                                    self._depthwise_conv.weight, self._bn1.params,
-                                    p.stride, eps=BN_EPS)
-            se = self._se_scale(h.mean((2, 3), dtype=torch.float32))
+            xs, top, bottom = F.band_slab(x, 2 - p.stride, 1)
+            h = K4.mbconv_expand_dw_band(xs, self._expand_conv.weight, self._bn0.params,
+                                         self._depthwise_conv.weight, self._bn1.params,
+                                         p.stride, eps=BN_EPS, top=top, bottom=bottom)
+            se = self._se_scale(F.mean_hw(h, wide_dtype(h.dtype)))
             residual = x if p.residual else None
             if p.out_ch <= K4.MAX_PROJECT_OUT:
                 return K4.mbconv_project(h, se, self._project_conv.weight,
@@ -193,8 +208,8 @@ class MBConvBlock(EvalModule):
         inputs = x
         if p.expand != 1:
             x = F.swish(self._bn0(F.conv2d(x, self._expand_conv.weight)))
-        x = F.conv2d(x, self._depthwise_conv.weight, stride=p.stride,
-                     padding=p.dw_pad, groups=p.mid)
+        x = F.conv2d_band(x, self._depthwise_conv.weight, stride=p.stride,
+                          padding=p.dw_pad, groups=p.mid)
         x = F.swish(self._bn1(x))
         if p.se_ch is not None:
             se = F.conv2d(F.adaptive_avg_pool_1(x), self._se_reduce.weight,
@@ -286,17 +301,23 @@ class EfficientNet(EvalModule):
         otherwise."""
         w = self._conv_stem.weight
         k3 = self.in_channels == 3 and self.stem_pad == ((0, 1), (0, 1))
-        if k3 and not self.training:
-            return K3.stem(x, w, self._bn0.params, eps=BN_EPS)
+        if not k3:
+            return F.swish(self._bn0(F.conv2d_band(x, w, stride=2, padding=self.stem_pad)))
+        xs, _, _ = F.band_slab(x, 0, 1)     # a band: the first row below attached
+        if not self.training:
+            return K3.stem(xs, w, self._bn0.params, eps=BN_EPS)
         # K3 takes its filter in x's dtype: a bfloat16 step casts the float32
         # weight here, and the cast's backward returns a float32 gradient
-        conv = (K3.stem_conv(x, w.to(x.dtype)) if k3
-                else F.conv2d(x, w, stride=2, padding=self.stem_pad))
+        conv = K3.stem_conv(xs, w.to(x.dtype))
         return F.swish(self._bn0(conv))
 
     def forward(self, x, generator=None):
         """x: (B, in_channels, H, W) -> [features by stride level..., head].
-        `generator` feeds drop connect and the head dropout in training."""
+        `generator` feeds drop connect and the head dropout in training.
+        Under spatial sharding x is this rank's band of each image."""
+        sg = F.spatial_group()
+        if sg is not None:
+            SP.check_band(x.shape[2], sg)
         x = self._stem(x)
         feats = []
         n = len(self._blocks)

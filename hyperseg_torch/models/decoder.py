@@ -50,6 +50,16 @@ Training has two routes through the patch convs, the 6-D gather and the
 full-map forms, chosen by the levers in ops/patch.py (FULLMAP_INVRES for
 InvResUnit, FULLMAP_MIN_BATCH / FULLMAP_POINTWISE for PatchConvUnit); the
 two compute the same function.
+
+Under spatial sharding (nn/functional.py `spatial`) MultiScaleDecoderV1
+runs on this rank's band of each level: whole patch rows, with the band's
+rows of the signal and of the coordinate grid. The k=1 units are local to
+their patches; the k=3 units' reflect halos read the neighbouring bands'
+rows (ops/patch.py through nn.functional.pad_band in training; in eval K1
+on a slab with a whole patch row of each neighbour attached,
+`patch_invres_s2w_band`), and the upsamples run K6 on a band with one row
+of each neighbour (nn.functional.resize_bilinear). The unify and v0_1
+decoders raise NotImplementedError there (ROADMAP Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -62,6 +72,7 @@ from torch import nn
 
 from hyperseg_torch.models.signal_split import (divide_feature, divide_feature_legacy_v02,
                                                 next_multiply)
+from hyperseg_torch.models.weight_mapper import no_spatial
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 from hyperseg_torch.ops import patch as P
@@ -303,12 +314,21 @@ class InvResUnit(EvalModule):
         r = self.route
         if self.training:
             return self._apply_eager(x, self.weights(s))
-        sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
-        return PI.patch_invres_s2w(
-            x, sl, self.signal2weights.weight, groups=r.groups,
-            hidden=self.hidden, out_ch=self.out_ch, bn1=self.bn1.params,
-            bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS,
-            kernel=self.kernel)
+        kw = dict(groups=r.groups, hidden=self.hidden, out_ch=self.out_ch,
+                  bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS,
+                  kernel=self.kernel)
+        if F.spatial_group() is None:
+            sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
+            return PI.patch_invres_s2w(x, sl, self.signal2weights.weight, **kw)
+        # a slab with a whole patch row of each neighbouring band, and the
+        # signal's rows of the same patch rows (K1 reads a channel slice of a
+        # contiguous signal)
+        ph = x.shape[2] // s.shape[2]
+        xs, top, bottom = F.band_slab(x, ph, ph)
+        ss, _, _ = F.band_slab(s, 1, 1)
+        sl = ss.contiguous()[:, r.signal_index:r.signal_index + r.signal_ch]
+        return PI.patch_invres_s2w_band(xs, sl, self.signal2weights.weight, top=top // ph,
+                                        bottom=bottom // ph, **kw)
 
 
 class V01InvResUnit(EvalModule):
@@ -397,12 +417,15 @@ class _Decoder(EvalModule):
 
     def _level_input(self, p, feat):
         """cat(coordinates, feat, p upsampled to feat's size), or with p None
-        cat(coordinates, feat)."""
+        cat(coordinates, feat); under spatial sharding the band's rows of
+        the image's coordinates."""
         if p is not None:
             feat = torch.cat([feat, F.resize_bilinear(p, feat.shape[2:])], 1)
-        key = (feat.shape[2], feat.shape[3], feat.dtype, feat.device)
+        sg = F.spatial_group()
+        band = (0, 1) if sg is None else (sg.index, sg.n)
+        key = (feat.shape[2], feat.shape[3], feat.dtype, feat.device, band)
         if key not in self._coords:
-            self._coords[key] = F.image_coordinates(1, *key)
+            self._coords[key] = F.image_coordinates(1, *key[:4], band=band)
         return torch.cat([self._coords[key].expand(feat.shape[0], -1, -1, -1), feat], 1)
 
 
@@ -579,6 +602,7 @@ class MultiScaleDecoderUnify(_Decoder):
         head excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32.
         `generator` is unused: the decoder has no dropout."""
         del generator
+        no_spatial("MultiScaleDecoderUnify")
         p, shared = None, None
         for lv, units in enumerate(self.level_blocks):
             p = self._level_input(p, xs[-lv - 1])
@@ -646,6 +670,7 @@ class MultiScaleDecoderV0(_Decoder):
         head excluded), NCHW; weights: one (B, fh, fw, P_level) map per level
         (and one for out_fc); `generator` feeds the out_fc dropout in
         training."""
+        no_spatial("MultiScaleDecoderV0")
         p = None
         for lv in range(self.levels):
             p = self._level_input(p, xs[-lv - 1])

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from hyperseg_torch.nn import functional as F
+from hyperseg_torch.models.weight_mapper import no_spatial
 from hyperseg_torch.nn.modules import EvalModule
 
 
@@ -34,7 +35,11 @@ class HyperGen(EvalModule):
 
     def forward(self, x, generator=None):
         """x: (B, 3, H, W) -> logits (B, num_classes, H, W). `generator`, a
-        torch.Generator on x's device, feeds the dropouts in training."""
+        torch.Generator on x's device, feeds the dropouts in training. Under
+        spatial sharding (parallel/spatial.py `spatial_parallel`) x is this
+        rank's band of each image and the logits are the band's: the
+        backbone and decoder run on the band, the weight mapper on the
+        gathered head feature."""
         feats = self.backbone(x, generator)
         s = self.weight_mapper(feats[-1])
         return self.decoder([x] + feats[:-1], s, generator)
@@ -45,7 +50,9 @@ class HyperGen(EvalModule):
         level's logits - with `inference_hflip` the maximum of the image's
         and its mirror's, mirrored back - resized to the first level's size,
         then gathered level by level with `inference_gather`, "mean" as
-        (out + p) * 0.5, else the maximum."""
+        (out + p) * 0.5, else the maximum. Not under spatial sharding
+        (ROADMAP Queue 1 item 5)."""
+        no_spatial("forward_pyramid")
         out_hw = pyramid[0].shape[2:]
         out = None
         for x in pyramid:

@@ -12,9 +12,20 @@ hyperseg_v0_1.py:249-362): a U-Net at constant width (2x2/s2 down convs,
 the coarsest map's global average, nearest upsample + 1x1 flat convs), then
 one grouped 1x1 head per decoder level on its own slice of the channels,
 which emits that level's weight map.
+
+Under spatial sharding (nn/functional.py `spatial`) WeightMapperV1 gathers
+the stride-32 head feature whole from every band (parallel/spatial.py
+`gather_rows`), runs replicated on every rank of the spatial group, and
+returns this band's rows of the signal: exact at any band height, the 1-row
+bands of a 64-row image included. Its training BNs then take the statistics
+of the data group alone (each image's map is whole on every band's rank;
+over the world each pixel would count n_spatial times). WeightMapperV0
+(v0_1) raises: ROADMAP Queue 1 item 5.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -22,6 +33,17 @@ from torch import nn
 from hyperseg_torch.models.signal_split import divide_feature_legacy_v01, next_multiply
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
+from hyperseg_torch.parallel import spatial as SP
+
+# what the decoders and mappers not ported to spatial sharding raise
+SPATIAL_TODO = ("spatial sharding for the unify and v0_1 decoders and for forward_pyramid "
+                "is not ported (ROADMAP Queue 1 item 5); use a mesh of n_spatial=1")
+
+
+def no_spatial(what):
+    """Raise NotImplementedError for `what` under spatial sharding."""
+    if F.spatial_group() is not None:
+        raise NotImplementedError(f"{what}: {SPATIAL_TODO}")
 
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # the apply_bn default (hyperseg_tpu/nn/functional.py:215-216)
@@ -57,6 +79,17 @@ class WeightMapperV1(EvalModule):
                                        for _ in range(levels - 1))
 
     def forward(self, x):
+        sg = F.spatial_group()
+        if sg is None:
+            return self._forward(x)
+        full = SP.gather_rows(x, sg)
+        training = F.data_parallel_group() is not None
+        with F.spatial(None), (F.data_parallel(sg.data_group) if training
+                               else contextlib.nullcontext()):
+            s = self._forward(full)
+        return SP.own_rows(s, sg)
+
+    def _forward(self, x):
         x = _conv_bn_relu(self.in_conv, x)
         skips = [x]
         for blk in self.down_blocks:
@@ -96,6 +129,7 @@ class WeightMapperV0(EvalModule):
                                                        device=device))
 
     def forward(self, x):
+        no_spatial("WeightMapperV0")
         if self.levels > 1:
             feats = [x]
             for i in range(self.levels - 1):

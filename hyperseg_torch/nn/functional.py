@@ -36,6 +36,7 @@ from torch.utils import checkpoint as _ckpt
 
 from hyperseg_torch.ops.kernels import resize as K6
 from hyperseg_torch.ops.kernels import wide
+from hyperseg_torch.parallel import spatial as SP
 
 # ---------------------------------------------------------------------------
 # Padding
@@ -64,6 +65,20 @@ def pad2d(x, pad_hw, mode="constant"):
     return TF.pad(x, (pl, pr, pt, pb), mode=mode)
 
 
+def pad_band(x, pad_hw, mode="constant"):
+    """pad2d of an NCHW map that under `spatial` is this rank's band of the
+    image: the rows beyond an interior edge of the band come from the
+    neighbouring band, and only the image's top and bottom (and the
+    columns) are padded by `mode`. pad2d outside `spatial`."""
+    sg = _SPATIAL.get()
+    if sg is None:
+        return pad2d(x, pad_hw, mode)
+    (pt, pb), cols = pad_hw
+    SP.check_halo(max(pt, pb), x.shape[2], sg, mode)
+    xs, t, b = SP.slab(x, pt, pb, sg)
+    return pad2d(xs, ((pt - t, pb - b), cols), mode)
+
+
 # ---------------------------------------------------------------------------
 # Convolution
 # ---------------------------------------------------------------------------
@@ -84,6 +99,24 @@ def conv2d(x, w, b=None, *, stride=1, padding=((0, 0), (0, 0)), groups=1):
     return TF.conv2d(x, w, b, stride=stride, padding=pad, groups=groups)
 
 
+def conv2d_band(x, w, b=None, *, stride=1, padding=((0, 0), (0, 0)), groups=1):
+    """conv2d with its static pads, on this rank's band under `spatial`: the
+    rows above the band that the first output row reads (the top pad) and
+    those below that the last one reads (k - stride - top) come from the
+    neighbouring bands, zeros at the image's top and bottom, where the
+    unsharded conv reads its zero pad. A band whose rows are a multiple of
+    the stride then gives exactly its rows of the unsharded output. conv2d
+    outside `spatial`."""
+    sg = _SPATIAL.get()
+    if sg is None:
+        return conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
+    (pt, _), cols = padding
+    bottom = w.shape[2] - stride - pt
+    above, below = SP.halo(x, pt, bottom, sg)
+    return conv2d(torch.cat([above, x, below], 2), w, b, stride=stride,
+                  padding=((0, 0), cols), groups=groups)
+
+
 def linear(x, w, b=None):
     """x @ w + b with w of shape (in, out) (the JAX package's layout)."""
     out = x @ w.to(x.dtype)
@@ -96,8 +129,23 @@ def linear(x, w, b=None):
 
 
 def adaptive_avg_pool_1(x):
-    """Global average pool of NCHW to (B, C, 1, 1)."""
-    return x.mean((2, 3), keepdim=True)
+    """Global average pool of NCHW to (B, C, 1, 1); under `spatial` the
+    image's mean (mean_hw)."""
+    if _SPATIAL.get() is None:
+        return x.mean((2, 3), keepdim=True)
+    return mean_hw(x)[:, :, None, None]
+
+
+def mean_hw(x, dtype=None):
+    """The mean of NCHW over H and W, (B, C), in `dtype` (x's by default).
+    Under `spatial` the image's: the band's sums added over the spatial
+    group (SP.all_sum, whose backward adds the bands' partial gradients of
+    the shared mean) over the image's pixel count."""
+    sg = _SPATIAL.get()
+    if sg is None:
+        return x.mean((2, 3), dtype=dtype)
+    total = SP.all_sum(x.sum((2, 3), dtype=dtype), sg)
+    return total / (x.shape[2] * sg.n * x.shape[3])
 
 
 def avg_pool2d(x, kernel, stride=None):
@@ -191,6 +239,41 @@ def data_parallel(group):
 def data_parallel_group():
     """The DataParallelGroup of the running step, or None."""
     return _DATA_PARALLEL.get()
+
+
+# This rank's band of a spatially sharded image (a parallel/spatial.py
+# SpatialGroup), set by parallel/spatial.py `spatial_parallel` for a forward
+# and its backward (None outside one, and on a mesh of one band). The ops that
+# read it exchange halos or reduce over its spatial group; an autograd
+# Function keeps the group it ran under, and a checkpointed region sets it
+# again while its forward is recomputed.
+_SPATIAL = contextvars.ContextVar("hyperseg_torch_spatial", default=None)
+
+
+@contextlib.contextmanager
+def spatial(sg):
+    """Within this context the ops run on this rank's band `sg` (a
+    SpatialGroup) of each image; `spatial(None)` runs them on whole maps
+    (the weight mapper's replicated map, a kernel's slab). Every rank of
+    the spatial group must run the same ops in the same order."""
+    token = _SPATIAL.set(sg)
+    try:
+        yield sg
+    finally:
+        _SPATIAL.reset(token)
+
+
+def spatial_group():
+    """The SpatialGroup of the running forward, or None."""
+    return _SPATIAL.get()
+
+
+def band_slab(x, top, bottom):
+    """(slab, t, b) of the band x under `spatial` (SP.slab): its `top` rows
+    above and `bottom` below attached at the band's interior edges, nothing
+    at the image's top or bottom. x, 0, 0 outside `spatial`."""
+    sg = _SPATIAL.get()
+    return (x, 0, 0) if sg is None else SP.slab(x, top, bottom, sg)
 
 
 def _global_means(dp, n, *means, count=None):
@@ -458,19 +541,22 @@ def checkpoint(fn, *args, spec, generator=None):
         forward, recompute = (_ckpt.create_selective_checkpoint_contexts(policy)
                               if policy is not None
                               else (contextlib.nullcontext(), contextlib.nullcontext()))
-        return forward, _recomputing(recompute, generator, entry, _DATA_PARALLEL.get())
+        return forward, _recomputing(recompute, generator, entry, _DATA_PARALLEL.get(),
+                                     _SPATIAL.get())
 
     return _ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn,
                             preserve_rng_state=False)
 
 
 @contextlib.contextmanager
-def _recomputing(inner, generator, entry, dp):
+def _recomputing(inner, generator, entry, dp, sg):
     """The recomputation of a region: no running-statistics update, the
-    generator at the region's entry state, and the data-parallel group the
-    region's forward ran under (the backward may run on another thread)."""
+    generator at the region's entry state, and the data-parallel group and
+    the band the region's forward ran under (the backward may run on
+    another thread)."""
     token = _RECOMPUTING.set(True)
     dp_token = _DATA_PARALLEL.set(dp)
+    sp_token = _SPATIAL.set(sg)
     now = None if generator is None else generator.get_state()
     if generator is not None:
         generator.set_state(entry)
@@ -480,6 +566,7 @@ def _recomputing(inner, generator, entry, dp):
     finally:
         if generator is not None:
             generator.set_state(now)
+        _SPATIAL.reset(sp_token)
         _DATA_PARALLEL.reset(dp_token)
         _RECOMPUTING.reset(token)
 
@@ -495,17 +582,19 @@ def _keep_mask(shape, keep, generator, like):
     drawn whole (shape[0] * world rows) from the generator that every rank
     seeds alike: rank r of a group of equal shards drops what one process
     drops at the global batch, rows [r * B, (r + 1) * B), as JAX's global
-    key does."""
+    key does. Under `spatial` the rows are those of the rank's data index
+    over the mesh's n_data, so the bands of one image share its mask."""
     if generator is None:
         raise ValueError("dropout in training needs a torch.Generator on the tensor's device")
-    dp = _DATA_PARALLEL.get()
+    dp, sg = _DATA_PARALLEL.get(), _SPATIAL.get()
+    index, world = ((sg.data_index, sg.n_data) if sg is not None
+                    else (dp.rank, dp.world) if dp is not None else (0, 1))
     rows = shape[0]
-    if dp is not None:
-        shape = (rows * dp.world, *shape[1:])
+    shape = (rows * world, *shape[1:])
     probs = torch.full(shape, keep, device=like.device, dtype=torch.float32)
     mask = torch.bernoulli(probs, generator=generator)
-    if dp is not None:
-        mask = mask[dp.rank * rows:(dp.rank + 1) * rows]
+    if world > 1:
+        mask = mask[index * rows:(index + 1) * rows]
     return mask.to(like.dtype)
 
 
@@ -515,7 +604,13 @@ def dropout(x, p, generator):
     if not p:
         return x
     keep = 1.0 - p
-    return x / keep * _keep_mask(x.shape, keep, generator, x)
+    sg = _SPATIAL.get()
+    if sg is None:
+        return x / keep * _keep_mask(x.shape, keep, generator, x)
+    # the image's mask, drawn whole, then this band's rows
+    h = x.shape[2]
+    mask = _keep_mask((x.shape[0], x.shape[1], h * sg.n, *x.shape[3:]), keep, generator, x)
+    return x / keep * mask[:, :, sg.index * h:(sg.index + 1) * h]
 
 
 def dropout2d(x, p, generator):
@@ -577,9 +672,24 @@ def resize_bilinear(x, out_hw):
     """Bilinear resize of NCHW: half-pixel centres, edge clamp, no antialias.
     One integer scale in 2-4 on both axes (every upsample of HyperSeg-M and
     -L) runs K6; other sizes, which the JAX package also resizes outside any
-    kernel, take torch's interpolate with align_corners=False."""
+    kernel, take torch's interpolate with align_corners=False. Under
+    `spatial` x and out_hw are the band's: the band and one row of each
+    neighbouring band are resized and the neighbours' output rows cropped
+    (K6.resize_bilinear_band); the row scale must then be an integer."""
     if tuple(x.shape[2:]) == tuple(out_hw):
         return x
+    sg = _SPATIAL.get()
+    if sg is not None:
+        if out_hw[0] % x.shape[2]:
+            raise ValueError(f"resize_bilinear: a band of {x.shape[2]} rows to {out_hw[0]} is "
+                             "not an integer scale")
+        s = out_hw[0] // x.shape[2]
+        xs, t, b = SP.slab(x, 1, 1, sg)
+        if K6.integer_scale(x.shape[2:], out_hw) is not None:
+            return K6.resize_bilinear_band(xs.contiguous(), s, t, b)
+        y = TF.interpolate(xs, size=(xs.shape[2] * s, out_hw[1]), mode="bilinear",
+                           align_corners=False, antialias=False)
+        return SP.crop_rows(y, t * s, b * s)
     if K6.integer_scale(x.shape[2:], out_hw) is not None:
         # the kernel reads dense NCHW planes; a decoder level's output can be
         # a strided view of its patch-blocked result
@@ -589,7 +699,9 @@ def resize_bilinear(x, out_hw):
 
 
 def upsample_nearest(x, out_hw):
-    """Nearest resize with src = floor(dst * in / out) (torch mode='nearest')."""
+    """Nearest resize with src = floor(dst * in / out) (torch mode='nearest').
+    Row-local for an integer row scale: a band's output rows read only the
+    band's rows."""
     h, w = x.shape[2:]
     oh, ow = out_hw
     if (h, w) == (oh, ow):
@@ -599,11 +711,14 @@ def upsample_nearest(x, out_hw):
     return x[:, :, iy][:, :, :, ix]
 
 
-def image_coordinates(b, h, w, dtype=torch.float32, device=None):
+def image_coordinates(b, h, w, dtype=torch.float32, device=None, band=(0, 1)):
     """(B, 2, H, W) grid: channel 0 is x in [-1, 1] along the width, channel
-    1 is y; linspace with endpoints (reference get_image_coordinates)."""
+    1 is y; linspace with endpoints (reference get_image_coordinates). With
+    band = (i, n), H is band i of n of an image of n * H rows: its rows of
+    that image's grid."""
+    i, n = band
     xs = np.linspace(-1.0, 1.0, w, dtype=np.float32)
-    ys = np.linspace(-1.0, 1.0, h, dtype=np.float32)
+    ys = np.linspace(-1.0, 1.0, h * n, dtype=np.float32)[i * h:(i + 1) * h]
     grid = np.stack([np.broadcast_to(xs[None, :], (h, w)),
                      np.broadcast_to(ys[:, None], (h, w))])
     g = torch.from_numpy(grid).to(device=device, dtype=dtype)

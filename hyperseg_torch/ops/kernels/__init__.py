@@ -14,6 +14,11 @@ One module per kernel holds its wrapper and its `*_plain` twin:
 
 Together they replace every Pallas kernel of hyperseg_tpu/ops/pallas/.
 
+Under spatial sharding (parallel/spatial.py) each module's `*_band` form runs
+its kernel on a slab: a band of the map with its neighbours' rows attached
+(whole patch rows for K1/K2), the attached rows' outputs cropped; each has a
+`*_band_plain` version on the twin.
+
 A wrapper given a CPU tensor runs the twin; given a CUDA tensor it launches
 the kernel (built at first use by build.py) or raises. Each launch adds one to
 LAUNCHES[name] (K3's raw conv counts as "stem_conv"), so a run can show that
@@ -33,3 +38,8 @@ def wide(t):
     statistics, or kept in float64: a float64 run on the CPU (the reference
     that the card's float32 step is read against) stays float64 throughout."""
     return t if t.dtype == torch.float64 else t.float()
+
+
+def wide_dtype(dtype):
+    """The dtype `wide` gives a tensor of `dtype`."""
+    return torch.float64 if dtype == torch.float64 else torch.float32

@@ -52,8 +52,9 @@ import torch
 import torch.nn.functional as TF
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.ops.kernels import LAUNCHES
+from hyperseg_torch.ops.kernels import LAUNCHES, wide, wide_dtype
 from hyperseg_torch.ops.kernels import build
+from hyperseg_torch.parallel.spatial import crop_rows
 
 MAX_PROJECT_OUT = 32   # output channels held in registers by mbconv_project
 SMEM_LIMIT = 232448    # bytes of shared memory one block may use
@@ -75,8 +76,8 @@ def _up(n, m):
 
 
 def mbconv_dw_plain(x, weight, bn, eps=1e-3):
-    """Plain twin of K4a in float32 torch ops."""
-    y = TF.conv2d(x.float(), weight.float(), padding=1, groups=x.shape[1])
+    """Plain twin of K4a in float32 torch ops (float64 for a float64 x)."""
+    y = TF.conv2d(wide(x), wide(weight), padding=1, groups=x.shape[1])
     return F.swish(F.batch_norm(y, *bn, eps=eps)).to(x.dtype)
 
 
@@ -130,12 +131,29 @@ def mbconv_dw(x, weight, bn, eps=1e-3):
     return out
 
 
+def mbconv_dw_band(slab, weight, bn, eps=1e-3, top=0, bottom=0):
+    """K4a on a band of a spatially sharded map: `slab` is the band with
+    `top` rows of the band above and `bottom` of the band below attached (1
+    at an interior edge, 0 at the image's border, where the kernel's zero
+    pad is the image's). Its output rows at the attached rows are cropped;
+    the rest read only real rows, so they are the band's rows of the
+    unsharded output."""
+    return crop_rows(mbconv_dw(slab, weight, bn, eps=eps), top, bottom)
+
+
+def mbconv_dw_band_plain(slab, weight, bn, eps=1e-3, top=0, bottom=0):
+    """Plain version of mbconv_dw_band: the twin on the slab, cropped."""
+    return crop_rows(mbconv_dw_plain(slab, weight, bn, eps=eps), top, bottom)
+
+
 def mbconv_project_plain(h, se, weight, bn, residual=None, eps=1e-3):
-    """Plain twin of K4b in float32: W . diag(se), then BN (+ residual)."""
-    wb = weight[None, :, :, 0, 0].float() * se.float()[:, None, :]   # (B, CO, C)
-    y = F.batch_norm(torch.einsum("boc,bchw->bohw", wb, h.float()), *bn, eps=eps)
+    """Plain twin of K4b in float32 (float64 for a float64 h): W . diag(se),
+    then BN (+ residual)."""
+    dt = wide_dtype(h.dtype)
+    wb = weight[None, :, :, 0, 0].to(dt) * se.to(dt)[:, None, :]   # (B, CO, C)
+    y = F.batch_norm(torch.einsum("boc,bchw->bohw", wb, wide(h)), *bn, eps=eps)
     if residual is not None:
-        y = y + residual.float()
+        y = y + wide(residual)
     return y.to(h.dtype)
 
 
@@ -288,11 +306,33 @@ def expand_dw_plan(out_h, out_w, stride, cin, mid, batch=1, itemsize=2):
 
 
 def mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
-    """Plain twin of K5 in float32 torch ops."""
-    e = F.swish(F.batch_norm(TF.conv2d(x.float(), w_expand.float()), *bn0, eps=eps))
-    d = F.conv2d(e, w_dw.float(), stride=stride, padding=EXPAND_PADS[stride],
+    """Plain twin of K5 in float32 torch ops (float64 for a float64 x)."""
+    e = F.swish(F.batch_norm(TF.conv2d(wide(x), wide(w_expand)), *bn0, eps=eps))
+    d = F.conv2d(e, wide(w_dw), stride=stride, padding=EXPAND_PADS[stride],
                  groups=e.shape[1])
     return F.swish(F.batch_norm(d, *bn1, eps=eps)).to(x.dtype)
+
+
+def mbconv_expand_dw_band(slab, w_expand, bn0, w_dw, bn1, stride, eps=1e-3, top=0,
+                          bottom=0):
+    """K5 on a band of a spatially sharded map, `slab` the band with `top` /
+    `bottom` neighbouring rows attached as for mbconv_dw_band. The attached
+    rows are expanded too, and the depthwise zero-pads only the slab's
+    border, which is the image's where nothing is attached. Stride 1 (one
+    row each side) crops the attached rows' outputs; stride 2 (pad (0, 1):
+    the band below's first row alone) needs no crop, since a band of 2n
+    rows, or 2n + 1 with the row, gives n rows."""
+    if stride == 2 and top:
+        raise ValueError("mbconv_expand_dw_band: stride 2 reads no row above its band")
+    y = mbconv_expand_dw(slab, w_expand, bn0, w_dw, bn1, stride, eps=eps)
+    return y if stride == 2 else crop_rows(y, top, bottom)
+
+
+def mbconv_expand_dw_band_plain(slab, w_expand, bn0, w_dw, bn1, stride, eps=1e-3, top=0,
+                                bottom=0):
+    """Plain version of mbconv_expand_dw_band: the twin on the slab."""
+    y = mbconv_expand_dw_plain(slab, w_expand, bn0, w_dw, bn1, stride, eps=eps)
+    return y if stride == 2 else crop_rows(y, top, bottom)
 
 
 def mbconv_expand_dw(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):

@@ -53,9 +53,11 @@ import functools
 import torch
 import torch.nn.functional as TF
 
+from hyperseg_torch.nn import functional as F
 from hyperseg_torch.ops import patch as P
-from hyperseg_torch.ops.kernels import LAUNCHES
+from hyperseg_torch.ops.kernels import LAUNCHES, wide
 from hyperseg_torch.ops.kernels import build
+from hyperseg_torch.parallel.spatial import crop_rows
 
 MAX_OUT = 32                 # output channels a unit block holds per pixel
 MAX_HIDDEN = 512             # hidden channels of the unit: one pair a thread
@@ -268,7 +270,7 @@ def v01_plan(cin, hidden, out_ch, ph, pw, fh, fw, batch, itemsize=2):
 def patch_invres_plain(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
     """Plain twin of K2: the eager unit (ops/patch.py) in float32 on the
     weight map w (B, fh, fw, P)."""
-    out = P.patch_inverted_residual(x.float(), w.float().permute(0, 3, 1, 2),
+    out = P.patch_inverted_residual(wide(x), wide(w).permute(0, 3, 1, 2),
                                     hidden=hidden, out_ch=out_ch, kernel=kernel,
                                     bn1=bn1, bn2=bn2, bn3=bn3, eps=eps)
     return out.to(x.dtype)
@@ -371,7 +373,7 @@ def patch_invres_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
 def s2w_generate_plain(s, w_s2w, *, groups, p):
     """Plain twin of K1's generation: the grouped 1x1 conv in float32,
     clipped to p, as a (B, fh, fw, p) map."""
-    w = TF.conv2d(s.float(), w_s2w.float(), groups=groups)[:, :p]
+    w = TF.conv2d(wide(s), wide(w_s2w), groups=groups)[:, :p]
     return w.permute(0, 2, 3, 1).contiguous()
 
 
@@ -410,7 +412,7 @@ def patch_invres_s2w_plain(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2,
     to P, and run the eager unit (ops/patch.py), all in float32."""
     w = s2w_generate_plain(s, w_s2w, groups=groups,
                            p=hyper_params(x.shape[1], hidden, out_ch, kernel))
-    out = P.patch_inverted_residual(x.float(), w.permute(0, 3, 1, 2), hidden=hidden, out_ch=out_ch,
+    out = P.patch_inverted_residual(wide(x), w.permute(0, 3, 1, 2), hidden=hidden, out_ch=out_ch,
                                     kernel=kernel, bn1=bn1, bn2=bn2, bn3=bn3,
                                     eps=eps)
     return out.to(x.dtype)
@@ -438,3 +440,46 @@ def patch_invres_s2w(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2, bn3,
                      p=hyper_params(x.shape[1], hidden, out_ch, kernel))
     return patch_invres(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2, bn3=bn3,
                         eps=eps, kernel=kernel)
+
+
+
+def _band(run, x, fh, top, bottom):
+    """run() on a slab of fh whole patch rows, the `top` and `bottom`
+    attached patch rows' output rows cropped (into a dense copy, as the
+    next kernel takes it). It runs with no spatial context: the twins'
+    reflect halo is then the slab's border, as the kernel's is."""
+    ph = x.shape[2] // fh
+    with F.spatial(None):
+        y = run()
+    return crop_rows(y, top * ph, bottom * ph)
+
+
+def patch_invres_s2w_band(x, s, w_s2w, *, top=0, bottom=0, **kw):
+    """K1 on a band of a spatially sharded map. x is the band with `top`
+    whole patch rows of the band above and `bottom` of the band below
+    attached (1 at an interior edge, 0 at the image's border, where the
+    kernel's reflect is the image's); s the signal's rows of the same patch
+    rows (the weight mapper's signal is whole on every rank). A patch's
+    reflect halo reads its neighbours' pixels with its own weights, so an
+    attached patch row lets the band's edge patches read the real rows
+    beyond the band; the attached rows' own outputs, whose halo the kernel
+    reflects at the slab's border, are cropped. Costs one patch row of
+    unit work per interior edge. kw: patch_invres_s2w's."""
+    return _band(lambda: patch_invres_s2w(x, s, w_s2w, **kw), x, s.shape[2], top, bottom)
+
+
+def patch_invres_s2w_band_plain(x, s, w_s2w, *, top=0, bottom=0, **kw):
+    """Plain version of patch_invres_s2w_band: the twin on the slab."""
+    return _band(lambda: patch_invres_s2w_plain(x, s, w_s2w, **kw), x, s.shape[2], top,
+                 bottom)
+
+
+def patch_invres_band(x, w, *, top=0, bottom=0, **kw):
+    """K2 on a band, as patch_invres_s2w_band, from the weight map w (B, fh,
+    fw, P) of the slab's patch rows. kw: patch_invres's."""
+    return _band(lambda: patch_invres(x, w, **kw), x, w.shape[1], top, bottom)
+
+
+def patch_invres_band_plain(x, w, *, top=0, bottom=0, **kw):
+    """Plain version of patch_invres_band: the twin on the slab."""
+    return _band(lambda: patch_invres_plain(x, w, **kw), x, w.shape[1], top, bottom)

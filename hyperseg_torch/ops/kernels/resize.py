@@ -28,6 +28,7 @@ import torch
 
 from hyperseg_torch.ops.kernels import LAUNCHES, wide
 from hyperseg_torch.ops.kernels import build
+from hyperseg_torch.parallel.spatial import crop_rows
 
 SCALES = (2, 3, 4)
 THREADS = 256                # threads of a block, one strip of 8 input columns each
@@ -142,6 +143,28 @@ def resize_bilinear(x, out_hw):
     if x.requires_grad and torch.is_grad_enabled():
         return ResizeBilinear.apply(x, out_hw)
     return _resize_kernel(x, out_hw)
+
+
+def _band(slab, scale, top, bottom, resize):
+    h, w = slab.shape[2:]
+    return crop_rows(resize(slab, (h * scale, w * scale)), top * scale, bottom * scale)
+
+
+def resize_bilinear_band(slab, scale, top, bottom):
+    """K6 on a band of a spatially sharded map: `slab` is the band with
+    `top` rows of the band above and `bottom` of the band below attached (1
+    at an interior edge, 0 at the image's border, where the kernel's edge
+    clamp is the image's). Returns the band's rows of the unsharded
+    upsample: half-pixel output row o of the band reads input rows
+    floor((o + 0.5) / s - 0.5) and the next, at most one row beyond the band,
+    so the slab's result is exact once the neighbours' `scale` output rows
+    at each interior edge are cropped. Differentiable as resize_bilinear."""
+    return _band(slab, scale, top, bottom, resize_bilinear)
+
+
+def resize_bilinear_band_plain(slab, scale, top, bottom):
+    """Plain version of resize_bilinear_band: the twin on the slab, cropped."""
+    return _band(slab, scale, top, bottom, resize_bilinear_plain)
 
 
 def _resize_kernel(x, out_hw):

@@ -6,7 +6,12 @@ and the forward of stem.py:173 `stem_conv`, the same kernel with the
 identity BN and no activation (`stem_conv`, or `stem(..., bn=None,
 act=None)`). Source: stem.cu. NCHW in (B, 3, H, W), NCHW out (B, cout, H',
 W') with TF-SAME padding ((0, 1), (0, 1)): zero rows/cols past the
-bottom/right edge only. The BN-folded `stem` is eval-only; `stem_conv` is
+bottom/right edge only. On a band of a spatially sharded image both run
+unchanged on the band with the first row of the band below attached
+(nothing at the image's bottom, where the kernel's zero row is the image's
+pad): output row i reads rows 2i..2i+2, all the band's or the attached
+row, and 2n rows (2n + 1 with the row) give the band's n output rows, with
+nothing to crop. The BN-folded `stem` is eval-only; `stem_conv` is
 differentiable on the card (`StemConv`: the kernel's forward, and the
 backward of stem.py:196 `_stem_conv_bwd`, which is XLA's conv VJP in the
 JAX package and cuDNN's conv backward here, `stem_conv_backward`).

@@ -88,11 +88,13 @@ def extract_patches_with_halo(x, fh, fw, pad_hw, mode="reflect"):
     The map is padded once (`mode`, nn.functional.pad2d's), so the halo of
     an inner patch is its neighbours' pixels and only the image border
     reflects — the reference's pad + overlapping unfold
-    (hyperseg_v1_0.py:336-342)."""
+    (hyperseg_v1_0.py:336-342). Under spatial sharding x is a band of
+    whole patch rows and the rows beyond its interior edges are the
+    neighbouring bands' (nn.functional.pad_band)."""
     b, c, h, w = x.shape
     ph, pw = h // fh, w // fw
     pt, pl = pad_hw
-    xpad = F.pad2d(x, ((pt, pt), (pl, pl)), mode=mode)
+    xpad = F.pad_band(x, ((pt, pt), (pl, pl)), mode=mode)
     xp = xpad.unfold(2, ph + 2 * pt, ph).unfold(3, pw + 2 * pl, pw)
     return xp.permute(0, 2, 3, 1, 4, 5)
 
@@ -211,11 +213,12 @@ def patch_inverted_residual_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5
 
 
 def _reflect_pad(x, pad, mode):
-    """x reflect-padded by `pad` on both spatial axes; the port pads patch
-    halos by reflection only."""
+    """x reflect-padded by `pad` on both spatial axes (under spatial
+    sharding, the neighbouring bands' rows at a band's interior edges:
+    nn.functional.pad_band); the port pads patch halos by reflection only."""
     if mode != "reflect":
         raise ValueError(f"patch halo mode {mode!r}: only 'reflect' is ported")
-    return F.pad2d(x, ((pad, pad), (pad, pad)), mode="reflect")
+    return F.pad_band(x, ((pad, pad), (pad, pad)), mode="reflect")
 
 
 def fullmap_pointwise(x, w, fh, fw, out_channels, groups=1):

@@ -1,21 +1,20 @@
-"""Device meshes for data parallelism: one rank per device, the batch split
-on the 'data' axis.
+"""Device meshes: one rank per device, the batch split on the 'data' axis
+and, optionally, each image's rows on the 'spatial' axis.
 
 Counterpart of hyperseg_tpu/parallel/mesh.py. There a Mesh is the SPMD
 program's devices and a NamedSharding tells XLA where each array lives; here
-a Mesh records the ranks' devices, shaped (n_data, n_spatial), and a
-`Sharding` says what each rank holds: `shard_batch` takes this rank's
-contiguous rows of a global batch, `replicate_params` broadcasts rank 0's
-state. The reductions that GSPMD inserts for a sharded batch are written
-out in the port: the training BN's statistics (nn/functional.py
-`data_parallel`), the gradients (DistributedDataParallel), the loss's
-denominators (train/losses.py) and the confusion matrices
-(utils/seg_utils.py `reduce_across_devices`).
-
-The 'spatial' axis is kept in the mesh's shape, but sharding an image over
-it is not ported: the port would need an explicit halo exchange in every
-convolution and in the patch decoder, which GSPMD inserts for the JAX
-package (ROADMAP Queue 1 item 4, spatial sharding).
+a Mesh records the ranks' devices, shaped (n_data, n_spatial), rank r at
+(r // n_spatial, r % n_spatial), and a `Sharding` says what each rank holds:
+`shard_batch` takes this rank's contiguous rows of a global batch, and its
+band of rows of each tensor whose spec names 'spatial'; `replicate_params`
+broadcasts rank 0's state. The reductions that GSPMD inserts for a sharded
+batch are written out in the port: the training BN's statistics
+(nn/functional.py `data_parallel`), the gradients
+(DistributedDataParallel), the loss's denominators (train/losses.py) and
+the confusion matrices (utils/seg_utils.py `reduce_across_devices`). For a
+spatially sharded image the halo exchanges, the pooled means and the
+weight mapper's gather are written out too (parallel/spatial.py; the model
+runs on its band under `spatial_parallel(mesh)`).
 """
 
 from __future__ import annotations
@@ -94,16 +93,11 @@ def replicated(mesh: Mesh) -> Sharding:
 
 
 def data_sharded(mesh: Mesh, *, spatial_dim: Optional[int] = None) -> Sharding:
-    """The batch axis split on 'data'; `spatial_dim` would also split that
-    dimension (an image's height) on 'spatial', which is not ported: on a
-    mesh with more than one 'spatial' device it raises NotImplementedError."""
+    """The batch axis split on 'data'; `spatial_dim` also splits that
+    dimension (an image's height: 2 for an NCHW image, 1 for a (B, H, W)
+    label) into n_spatial bands on 'spatial' (shard_batch)."""
     if spatial_dim is None:
         return Sharding(mesh, ("data",))
-    if mesh.shape["spatial"] > 1:
-        raise NotImplementedError(
-            "data_sharded: sharding an image over the 'spatial' axis needs a halo exchange "
-            "in every convolution and in the patch decoder (ROADMAP Queue 1 item 4, spatial "
-            "sharding); use a mesh of n_spatial=1")
     spec = [None] * (spatial_dim + 1)
     spec[0], spec[spatial_dim] = "data", "spatial"
     return Sharding(mesh, tuple(spec))
@@ -117,21 +111,46 @@ def _map(fn, tree):
     return fn(tree)
 
 
-def shard_batch(mesh: Mesh, batch, rank: Optional[int] = None):
-    """This rank's rows of a global batch (a tensor, or dicts and lists of
-    them), on its mesh device: rank r of n_data takes rows [r * b, (r + 1) *
-    b), b = B / n_data. `rank` defaults to this process's. A batch that
-    n_data does not divide raises ValueError."""
+def shard_batch(mesh: Mesh, batch, rank: Optional[int] = None, sharding=None):
+    """This rank's part of a global batch (a tensor, or dicts and lists of
+    them), on its mesh device. `sharding` is a Sharding for every tensor, or
+    a dict or list of them laid out as `batch` (default: data_sharded(mesh)).
+    Rank r at (d, i) on the mesh takes rows [d * b, (d + 1) * b), b = B /
+    n_data, and of a tensor whose spec names 'spatial' at dimension k, band
+    i of n_spatial along k, dense. `rank` defaults to this process's. A batch that
+    n_data does not divide, or a dimension that n_spatial does not, raises
+    ValueError."""
     rank = D.get_rank() if rank is None else rank
-    n = mesh.shape["data"]
-    device = mesh.devices[rank, 0]
+    n, n_spatial = mesh.shape["data"], mesh.shape["spatial"]
+    d, i = divmod(rank, n_spatial)
+    device = mesh.devices[d, i]
 
-    def rows(x):
+    def part(x, sh):
         if x.shape[0] % n:
             raise ValueError(f"shard_batch: a batch of {x.shape[0]} over {n} ranks")
         b = x.shape[0] // n
-        return x[rank * b:(rank + 1) * b].to(device)
-    return _map(rows, batch)
+        x = x[d * b:(d + 1) * b]
+        if "spatial" in sh.spec:
+            k = sh.spec.index("spatial")
+            if x.shape[k] % n_spatial:
+                raise ValueError(f"shard_batch: dimension {k} of {x.shape[k]} over "
+                                 f"{n_spatial} bands")
+            h = x.shape[k] // n_spatial
+            x = x.narrow(k, i * h, h)
+        return x.to(device).contiguous()    # the kernels take dense maps
+    return _map2(part, batch, data_sharded(mesh) if sharding is None else sharding)
+
+
+def _map2(fn, tree, shardings):
+    """fn(tensor, its Sharding) over a tree; `shardings` one Sharding or a
+    tree of them laid out as `tree`."""
+    if isinstance(shardings, Sharding):
+        return _map(lambda x: fn(x, shardings), tree)
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, shardings[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, v, sh) for v, sh in zip(tree, shardings))
+    raise ValueError(f"shard_batch: no Sharding for {type(tree).__name__}")
 
 
 @torch.no_grad()
@@ -140,7 +159,7 @@ def replicate_params(mesh: Mesh, params):
     every tensor overwritten with rank 0's (a broadcast over the group; the
     identity without one). Returns it."""
     import torch.distributed as dist
-    device = mesh.devices[D.get_rank(), 0]
+    device = mesh.devices.ravel()[D.get_rank()]
     if isinstance(params, torch.nn.Module):
         params.to(device)
         tensors = list(params.state_dict().values())

@@ -211,3 +211,194 @@ def ddp_rank_step(device, *, key, batch, res, timed):
         step(img, lbl, gen)["loss"].item()      # the step's end, on the device
         out["ms"].append(1e3 * (time.perf_counter() - t0))
     return out
+
+
+@contextlib.contextmanager
+def collective_counter():
+    """Counts what a rank's Python code sends over the group: each halo
+    exchange (parallel/spatial.py `halo`, with the bytes of the neighbours'
+    rows it receives and of the buffer it all-reduces) and each
+    torch.distributed.all_reduce call (the exchanges' own, forward and
+    backward, the BNs', the pooled means', the gather's and the losses';
+    DDP's bucket all-reduces run in its C++ reducer and are not counted).
+    Yields the dict of counts, filled as the context runs."""
+    import torch.distributed as dist
+    from hyperseg_torch.parallel import spatial as SP
+    counts = dict(exchanges=0, halo_bytes=0, wire_bytes=0, all_reduces=0)
+    real_halo, real_reduce = SP.halo, dist.all_reduce
+
+    def halo(x, top, bottom, sg):
+        b, c, h, w = x.shape
+        wire = 4 if x.element_size() < 4 else x.element_size()
+        rows = (0 if sg.first else min(top, h)) + (0 if sg.last else min(bottom, h))
+        counts["exchanges"] += 1
+        counts["halo_bytes"] += rows * b * c * w * x.element_size()
+        counts["wire_bytes"] += sg.n * 2 * max(min(top, h), min(bottom, h)) * b * c * w * wire
+        return real_halo(x, top, bottom, sg)
+
+    def all_reduce(*args, **kwargs):
+        counts["all_reduces"] += 1
+        return real_reduce(*args, **kwargs)
+    SP.halo, dist.all_reduce = halo, all_reduce
+    try:
+        yield counts
+    finally:
+        SP.halo, dist.all_reduce = real_halo, real_reduce
+
+
+def _whole_on_rank0(t, mesh):
+    """The global tensor (on the CPU, float32) of which `t` is this rank's
+    part on `mesh` (data rows, band of dim 2), on rank 0; None elsewhere.
+    One all-reduce of a zeroed CPU buffer over the group."""
+    import torch.distributed as dist
+    from hyperseg_torch.parallel import spatial as SP
+    n_data, n_spatial = mesh.devices.shape
+    d, i = SP.coordinates(mesh, dist.get_rank())
+    b, c, h, w = t.shape
+    full = torch.zeros(b * n_data, c, h * n_spatial, w)
+    full[d * b:(d + 1) * b, :, i * h:(i + 1) * h] = t.float().cpu()
+    dist.all_reduce(full)
+    return full if dist.get_rank() == 0 else None
+
+
+def _compared(got, want, classes=False):
+    """max abs error, the largest magnitude, rel L2 and finiteness of `got`
+    against `want` (and argmax agreement over dim 1 for logits)."""
+    out = dict(max_abs_err=float((got - want).abs().max()), ref_max=float(want.abs().max()),
+               rel_l2=float((got - want).norm() / want.norm()),
+               finite=bool(torch.isfinite(got).all()), shape=tuple(got.shape))
+    if classes:
+        out["agree"] = float((got.argmax(1) == want.argmax(1)).float().mean())
+    return out
+
+
+def spatial_eval_rank(device, *, key, state, x, n_data, n_spatial):
+    """One rank's spatially sharded eval forward of model `key` (built on
+    `device`, weights `state`) on its part of the NCHW batch x (CPU) on an
+    (n_data, n_spatial) mesh of the running group, eager, in float32 then
+    bfloat16. Per dtype: the rank's kernel launches of one forward, its
+    exchanges and all-reduces, the host ms of a synchronised forward. Every
+    rank also runs the one-process forward of the whole batch (the backbone,
+    the mapper, the decoder), so that, stage by stage, rank 0 can hold the
+    gathered bands against it: the logits, the stride-2 and stride-4
+    features, and the sharded decoder on the bands of the one-process
+    features and signal (what the bfloat16 gates read: a calibrated
+    random-weight net amplifies bfloat16 rounding through its depth). The
+    logits' floor: in float32 the one-process forward of the image one
+    float32 ulp away (x * (1 + 2^-22)), in bfloat16 the one-process
+    bfloat16 logits against the float32 ones. Returns rank 0's numbers."""
+    import torch.distributed as dist
+    from hyperseg_torch.nn.modules import cast_weights
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.parallel import mesh as PM
+    from hyperseg_torch.parallel import spatial as SP
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MODELS[key]
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
+    model = factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, **cfg.kw)
+    model.load_state_dict(state)
+    mesh = PM.make_mesh(n_data, n_spatial, devices=[device] * (n_data * n_spatial))
+    sharding = PM.data_sharded(mesh, spatial_dim=2)
+    rank0 = dist.get_rank() == 0
+    out, ref32 = {}, None
+    for dtype in (torch.float32, torch.bfloat16):
+        if dtype == torch.bfloat16:
+            cast_weights(model, dtype)
+        xf = x.to(device, dtype)
+        xb = PM.shard_batch(mesh, xf, sharding=sharding)
+        with torch.no_grad():
+            with SP.spatial_parallel(mesh):
+                model(xb)                                  # plans and caches
+                torch.cuda.synchronize()
+                LAUNCHES.clear()
+                with collective_counter() as counts:
+                    t0 = time.perf_counter()
+                    y = model(xb)
+                    torch.cuda.synchronize()
+                    ms = 1e3 * (time.perf_counter() - t0)
+                launches = {n: c for n, c in LAUNCHES.items() if c}
+            # the one-process forward, its parts kept
+            LAUNCHES.clear()
+            ref_feats = model.backbone(xf)
+            ref_s = model.weight_mapper(ref_feats[-1])
+            ref = model.decoder([xf] + ref_feats[:-1], ref_s)
+            one_launches = {n: c for n, c in LAUNCHES.items() if c}
+            with SP.spatial_parallel(mesh):
+                feats = model.backbone(xb)
+                dec = model.decoder([xb] + [PM.shard_batch(mesh, f, sharding=sharding)
+                                            for f in ref_feats[:-1]],
+                                    PM.shard_batch(mesh, ref_s, sharding=sharding))
+            floor = None
+            if rank0 and dtype == torch.float32:
+                floor = model((x * (1 + 2 ** -22)).to(device, dtype)).float().cpu()
+        got = {name: _whole_on_rank0(t, mesh) for name, t in
+               (("logits", y), ("stride 2", feats[0]), ("stride 4", feats[1]), ("decoder", dec))}
+        numbers = dict(launches=launches, one_launches=one_launches, ms=ms,
+                       band=tuple(xb.shape), **counts)
+        if rank0:
+            want = {"logits": ref, "stride 2": ref_feats[0], "stride 4": ref_feats[1],
+                    "decoder": ref}
+            numbers["stages"] = {name: _compared(got[name], want[name].float().cpu(),
+                                                 classes=name in ("logits", "decoder"))
+                                 for name in got}
+            ref = ref.float().cpu()
+            if dtype == torch.float32:
+                ref32 = ref
+            else:
+                floor = ref32
+            numbers["floor"] = _compared(floor, ref, classes=True)
+        dist.barrier()
+        out[str(dtype).split(".")[1]] = numbers
+    return out
+
+
+def spatial_rank_step(device, *, key, batch, res, n_data, n_spatial, timed):
+    """ddp_rank_step on an (n_data, n_spatial) mesh of the running group:
+    the rank's data rows and band of rows of the synthetic global batch
+    (mesh.py shard_batch), the step under spatial_parallel with the model in
+    DistributedDataParallel over the world. Also returns the rank's peak
+    device memory over the deterministic step, its kernel launches, and its
+    exchanges and all-reduces a step (collective_counter); its ms (host
+    clock) lead `ms`."""
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.parallel import distributed as D
+    from hyperseg_torch.parallel import mesh as PM
+    from hyperseg_torch.parallel import spatial as SP
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    world = D.get_world_size()
+    mesh = PM.make_mesh(n_data, n_spatial, devices=[device] * world)
+    img, lbl = synthetic_batch(batch, res, 2, device, MODELS[key].kw["num_classes"])
+    img, lbl = PM.shard_batch(mesh, [img, lbl], sharding=[PM.data_sharded(mesh, spatial_dim=2),
+                                                          PM.data_sharded(mesh, spatial_dim=1)])
+    model = train_model(key, device, drop=True)
+    step = trainer(D.wrap_model(model, device), key)
+    gen = torch.Generator(device).manual_seed(3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    LAUNCHES.clear()
+    t0 = time.perf_counter()
+    with deterministic(), SP.spatial_parallel(mesh), collective_counter() as counts:
+        loss = step(img, lbl, gen)["loss"].clone()
+    torch.cuda.synchronize()
+    first_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c for n, c in LAUNCHES.items() if c}
+    loss = D.all_reduce_(loss) / world
+    out = dict(loss=loss.item(), generator=gen.get_state(), peak_bytes=peak,
+               launches=launches, band=tuple(img.shape), **counts,
+               state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+               grads={k: p.grad.cpu() for k, p in model.named_parameters()
+                      if p.grad is not None}, ms=[first_ms])
+    with SP.spatial_parallel(mesh):
+        for _ in range(timed):
+            t0 = time.perf_counter()
+            step(img, lbl, gen)["loss"].item()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+    return out
+
+
+def spatial_rank(device, *, eval_kw, step_kw):
+    """spatial_eval_rank, then spatial_rank_step, in one rank."""
+    ev = spatial_eval_rank(device, **eval_kw)
+    torch.cuda.empty_cache()
+    return dict(eval=ev, step=spatial_rank_step(device, **step_kw))

@@ -7,6 +7,15 @@ losses/bootstrapped_ce_loss.py:8-40): every pixel whose loss exceeds
 averages; the result is the mean over images. Ties at the k-th value share
 the remaining top-k weight evenly, as the JAX package's "select" method
 does. `cross_entropy_loss` is the plain masked mean.
+
+Under spatial sharding (nn/functional.py `spatial`) the logits and labels
+are this rank's band of each image. The bootstrapped CE then takes its
+selection from the whole image (the global pixel count, the top kk + 1
+merged from every band's own, the counts above the threshold and at the
+tie all-reduced over the spatial group) and each rank returns n_spatial
+times the mean over its images of its own pixels' share of each image's
+loss: the mean of the world's losses is then the global loss, and each
+rank backpropagates only its own pixels' terms.
 """
 
 from __future__ import annotations
@@ -38,30 +47,63 @@ def bootstrapped_cross_entropy(logits, labels, *, k=4096, thresh=0.3, ignore_ind
     largest loss (the reference's sorted[k]) exceeds `thresh`, the mean of
     the losses above `thresh`; else the top-kk mean, pixels tied at the kk-th
     value sharing the weight left by those above it (the whole row's mean
-    when k >= n)."""
+    when k >= n). Under spatial sharding n is the image's count and the
+    result this band's share (the module's docstring)."""
     b = logits.shape[0]
     loss, _ = softmax_cross_entropy(logits, labels, ignore_index=ignore_index, weight=weight)
     flat = loss.reshape(b, -1)
-    n = flat.shape[1]
+    sg = F.spatial_group()
+    n = flat.shape[1] * (1 if sg is None else sg.n)
     kk = max(1, min(k, n - 1))
-    top = torch.topk(flat.detach(), kk + 1, dim=1).values
+    if sg is None:
+        top = torch.topk(flat.detach(), kk + 1, dim=1).values
+    else:
+        top = _merged_top(flat.detach(), kk + 1, sg)
     t_k, nxt = top[:, kk - 1:kk], top[:, kk]
     take_all = nxt > thresh
 
     zero = torch.zeros_like(flat)
     above = flat > thresh
+    n_above = above.sum(1)
+    if sg is not None:
+        n_above = _spatial_sum(n_above, sg)
     mean_above = (torch.where(above, flat, zero).sum(1)
-                  / above.sum(1).clamp_min(1).to(flat.dtype))
+                  / n_above.clamp_min(1).to(flat.dtype))
     if k >= n:
-        mean_topk = flat.mean(1)
+        mean_topk = flat.mean(1) if sg is None else flat.sum(1) / n
     else:
         strict = flat > t_k
         tied = flat == t_k
-        tie_w = ((kk - strict.sum(1, keepdim=True)).to(flat.dtype)
-                 / tied.sum(1, keepdim=True).clamp_min(1))
+        n_strict, n_tied = strict.sum(1, keepdim=True), tied.sum(1, keepdim=True)
+        if sg is not None:
+            n_strict, n_tied = _spatial_sum(torch.cat([n_strict, n_tied], 1), sg).split(1, 1)
+        tie_w = (kk - n_strict).to(flat.dtype) / n_tied.clamp_min(1)
         w = torch.where(strict, torch.ones_like(flat), torch.where(tied, tie_w, zero))
         mean_topk = (w * flat).sum(1) / kk
-    return torch.where(take_all, mean_above, mean_topk).mean()
+    out = torch.where(take_all, mean_above, mean_topk).mean()
+    return out if sg is None else out * sg.n
+
+
+def _merged_top(flat, m, sg):
+    """The m largest values of each image's row over every band: each band's
+    own m largest (fewer where it holds fewer, the rest -1, below any
+    loss), laid side by side over the spatial group (one all-reduce, each
+    slot one band's), and the m largest of those."""
+    import torch.distributed as dist
+    own = torch.topk(flat, min(m, flat.shape[1]), dim=1).values
+    buf = torch.zeros((sg.n, flat.shape[0], m), dtype=flat.dtype, device=flat.device)
+    buf[sg.index] = -1
+    buf[sg.index, :, :own.shape[1]] = own
+    dist.all_reduce(buf, group=sg.group)
+    return torch.topk(buf.permute(1, 0, 2).reshape(flat.shape[0], -1), m, dim=1).values
+
+
+def _spatial_sum(counts, sg):
+    """Integer counts summed over the spatial group (in float64, exact)."""
+    import torch.distributed as dist
+    buf = counts.double()
+    dist.all_reduce(buf, group=sg.group)
+    return buf.to(counts.dtype)
 
 
 def cross_entropy_loss(logits, labels, *, ignore_index=255, weight=None):
@@ -75,7 +117,8 @@ def cross_entropy_loss(logits, labels, *, ignore_index=255, weight=None):
     the rank's sum over it is scaled by the world size, so that the mean of
     the ranks' losses - what DistributedDataParallel's averaged gradient
     differentiates - is the global masked mean, however unevenly the
-    labelled pixels fall across the ranks."""
+    labelled pixels fall across the ranks. Under spatial sharding the
+    group is the world (every band of every image): the same holds."""
     loss, valid = softmax_cross_entropy(logits, labels, ignore_index=ignore_index,
                                         weight=weight)
     dp = F.data_parallel_group()
@@ -110,7 +153,7 @@ class BootstrappedCrossEntropyLoss:
     is a mean over the images of per-image means, so in a data-parallel step
     of equal shards the mean of the ranks' losses is the global batch's,
     and DistributedDataParallel's averaged gradient is its gradient: it needs
-    no reduction of its own."""
+    no reduction of its own beyond the image's, under spatial sharding."""
 
     def __init__(self, k=4096, thresh=0.3, weight=None, ignore_index=-100):
         self.k = k

@@ -17,6 +17,15 @@ global batch's masks), the loss is the global one (train/losses.py), and
 DistributedDataParallel averages the gradients over the ranks before Adam.
 The step's loss and confusion matrix stay this rank's; the caller reduces
 them when it reads them.
+
+Spatial sharding. Called under parallel/spatial.py `spatial_parallel(mesh)`
+with the model in DistributedDataParallel over the whole world (data x
+spatial), each rank passes its band of its images and of their labels
+(mesh.py `shard_batch`): the training BNs take the statistics of the
+world, the weight mapper's those of the data group, the dropouts the
+image's masks, the loss each band's share of each image's (train/losses.py),
+and DistributedDataParallel's average over the world is then one process's
+gradient.
 """
 
 from __future__ import annotations

@@ -45,7 +45,9 @@ class ConfusionMatrix:
     def reduce_across_devices(mat, group=None):
         """`mat` summed in place over the ranks of `group` (the default group
         when one is initialized; the identity without one), as the JAX
-        package's psum over the mesh's data axis. Returns it."""
+        package's psum over the mesh's data axis (over a spatially sharded
+        mesh the default group holds every band of every image, and the sum
+        is the world's). Returns it."""
         import torch.distributed as dist
         if group is not None or dist.is_initialized():
             dist.all_reduce(mat, group=group)

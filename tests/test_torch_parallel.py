@@ -88,8 +88,19 @@ def test_shardings_and_shard_batch():
     assert PM.replicated(mesh).spec == ()
     assert PM.data_sharded(mesh).spec == ("data",)
     assert PM.data_sharded(mesh, spatial_dim=1).spec == ("data", "spatial")
-    with pytest.raises(NotImplementedError, match="spatial sharding"):
-        PM.data_sharded(PM.make_mesh(n_data=1, n_spatial=2, devices=["cpu"] * 2), spatial_dim=1)
+    # the image's rows on 'spatial': rank r of a 2x2 mesh holds data rows r // 2, band r % 2
+    mesh22 = PM.make_mesh(n_data=2, n_spatial=2, devices=["cpu"] * 4)
+    image = PM.data_sharded(mesh22, spatial_dim=2)
+    assert image.spec == ("data", None, "spatial")
+    assert PM.data_sharded(mesh22, spatial_dim=1).spec == ("data", "spatial")
+    pair = {"image": torch.arange(2 * 3 * 64.0).view(2, 3, 8, 8),
+            "label": torch.arange(128).view(2, 8, 8)}
+    label = PM.data_sharded(mesh22, spatial_dim=1)
+    for rank in range(4):
+        d, i = divmod(rank, 2)
+        got = PM.shard_batch(mesh22, pair, rank=rank, sharding={"image": image, "label": label})
+        assert torch.equal(got["image"], pair["image"][d:d + 1, :, 4 * i:4 * i + 4])
+        assert torch.equal(got["label"], pair["label"][d:d + 1, 4 * i:4 * i + 4])
     batch = {"image": torch.arange(24.0).view(4, 6), "pyramid": [torch.arange(4)]}
     for rank in (0, 1):
         got = PM.shard_batch(mesh, batch, rank=rank)

@@ -1,0 +1,275 @@
+"""What the ranks of tests/test_torch_spatial*.py run: module-level functions
+that `hyperseg_torch.parallel.distributed.run_ranks` spawns, one process a
+rank over gloo on the CPU, on an (n_data, n_spatial) mesh, and that the
+tests also call in their own process (n_data = n_spatial = 1, no group) for
+the unsharded reference. This module imports neither JAX nor the JAX
+package; it is not collected itself.
+
+Each function takes `device`, computes on its rank's part of a global input
+made by the test (its data rows and its band of rows, mesh.py
+`shard_batch`), and returns values that rank 0 hands back; a value spread
+over the ranks comes back whole through `whole` (each rank writes its part
+into zeros, and an all-reduce over the world sums them).
+"""
+
+import torch
+import torch.distributed as dist
+
+from hyperseg_torch.nn import functional as F
+from hyperseg_torch.parallel import distributed as D
+from hyperseg_torch.parallel import mesh as PM
+from hyperseg_torch.parallel import spatial as SP
+
+# tests/test_parallel.py:12-20, the JAX package's sharded-inference model
+TINY_KW = dict(levels=2, kernel_sizes=[1, 3], level_channels=[16, 16], expand_ratio=2,
+               weight_groups=[8, 8], num_classes=5)
+TINY_BATCH, TINY_HW = 4, (64, 128)
+DROP_CONNECT = DROPOUT = 0.3
+
+# the ops with a spatial extent, as (kernel, stride, (top, bottom) pad): the
+# backbone's depthwise and stem shapes (TF-SAME pads from the nominal size)
+CONVS = [(3, 1, (1, 1)), (3, 2, (0, 1)), (5, 1, (2, 2)), (5, 2, (1, 2)), (5, 2, (2, 2))]
+
+
+def mesh_of(n_data, n_spatial):
+    return PM.make_mesh(n_data, n_spatial, devices=["cpu"] * (n_data * n_spatial))
+
+
+def part(mesh, t, dim=2):
+    """This rank's data rows of `t` and, along `dim`, its band."""
+    spec = [None] * (dim + 1)
+    spec[0], spec[dim] = "data", "spatial"
+    return PM.shard_batch(mesh, torch.as_tensor(t), sharding=PM.Sharding(mesh, tuple(spec)))
+
+
+def whole(mesh, t, dim=2):
+    """The global tensor of which `t` is this rank's part (part's inverse)."""
+    t = t.detach()
+    if not dist.is_initialized():
+        return t.clone()
+    n_data, n_spatial = mesh.devices.shape
+    d, i = SP.coordinates(mesh, D.get_rank())
+    shape = list(t.shape)
+    b, h = shape[0], shape[dim]
+    shape[0], shape[dim] = b * n_data, h * n_spatial
+    full = torch.zeros(shape, dtype=t.dtype)
+    full[d * b:(d + 1) * b].narrow(dim, i * h, h).copy_(t)
+    dist.all_reduce(full)
+    return full
+
+
+def summed(t):
+    """`t` summed over the world."""
+    return D.all_reduce_(t.detach().clone())
+
+
+def exchange(device, *, x, y_above, y_below, top, bottom, n_spatial):
+    """The halo exchange on this rank's band of x and its adjoint: the
+    forward's (above, below) whole, <exchange(x), y> and <x, exchange^T(y)>
+    summed over the ranks (y: per band, the cotangents of its halos)."""
+    mesh = mesh_of(1, n_spatial)
+    xb = part(mesh, x).requires_grad_()
+    i = D.get_rank()
+    with SP.spatial_parallel(mesh) as sg:
+        above, below = SP.halo(xb, top, bottom, sg)
+    ya, yb = torch.from_numpy(y_above[i]), torch.from_numpy(y_below[i])
+    inner = (above * ya).sum() + (below * yb).sum()
+    inner.backward()
+    return dict(fwd=summed(inner), adj=summed((xb * xb.grad).sum()),
+                above_rows=_stacked(above, n_spatial), below_rows=_stacked(below, n_spatial),
+                dx=whole(mesh, xb.grad))
+
+
+def _stacked(t, n):
+    """Every rank's `t` stacked by rank."""
+    full = torch.zeros((n,) + tuple(t.shape), dtype=t.dtype)
+    full[D.get_rank()] = t.detach()
+    dist.all_reduce(full)
+    return full
+
+
+def band_ops(device, *, x, dy, w_dw, n_spatial, dy_mean):
+    """Every band form of the slice's ops on this rank's band: the eager
+    convs with their static pads (and their gradients), the image's mean,
+    nearest and bilinear upsamples, the coordinates, the patch halos and
+    the full-map forms' padding. Returns each output whole."""
+    from hyperseg_torch.ops import patch as P
+    mesh = mesh_of(1, n_spatial)
+    out = {}
+    with SP.spatial_parallel(mesh) as sg:
+        for k, s, (pt, pb) in CONVS:
+            xb = part(mesh, x).requires_grad_()
+            w = torch.from_numpy(w_dw[k]).requires_grad_()
+            y = F.conv2d_band(xb, w, stride=s, padding=((pt, pb), (k // 2, k // 2)),
+                              groups=x.shape[1])
+            (y * part(mesh, dy[(k, s, pt)])).sum().backward()
+            out[f"conv{k}s{s}p{pt}{pb}"] = (whole(mesh, y), whole(mesh, xb.grad), summed(w.grad))
+        xb = part(mesh, x).requires_grad_()
+        m = F.mean_hw(xb)
+        pool = F.adaptive_avg_pool_1(xb)
+        # every band holds the whole pooled value: each backpropagates its share
+        ((m + pool[:, :, 0, 0]) * torch.from_numpy(dy_mean)).sum().div(n_spatial).backward()
+        out["mean"] = (m.detach(), pool.detach(), whole(mesh, xb.grad))
+        xb = part(mesh, x)
+        out["nearest"] = whole(mesh, F.upsample_nearest(xb, (xb.shape[2] * 2, xb.shape[3] * 3)))
+        band = (0, 1) if sg is None else (sg.index, sg.n)
+        out["coords"] = whole(mesh, F.image_coordinates(1, xb.shape[2], xb.shape[3], band=band))
+        for scale in (2, 8):
+            xb = part(mesh, x).requires_grad_()
+            y = F.resize_bilinear(xb, (xb.shape[2] * scale, xb.shape[3] * scale))
+            (y * y.detach().sin()).sum().backward()
+            out[f"resize{scale}"] = (whole(mesh, y), whole(mesh, xb.grad))
+        xb = part(mesh, x)
+        fh = xb.shape[2] // 8
+        for pad in (1, 2):
+            out[f"patches{pad}"] = whole(mesh, P.extract_patches_with_halo(xb, fh, 3, (pad, pad)),
+                                         dim=1)
+            out[f"reflect{pad}"] = whole(mesh, P._reflect_pad(xb, pad, "reflect")[:, :, pad:-pad])
+        wk = torch.from_numpy(w_dw["patch"])
+        out["fullmap_dw"] = whole(mesh, P.fullmap_depthwise(xb, part(mesh, wk), fh, 3, 3))
+        top, bot, _, _ = P.halo_bands_pointwise(xb, part(mesh, w_dw["pw"]), fh, 3, 1, 2)
+        out["bands"] = (whole(mesh, top), whole(mesh, bot))
+    return out
+
+
+def kernel_slabs(device, *, inputs, n_spatial):
+    """The plain slab forms of K3, K4a, K5, K6 and K1/K2 on this rank's band
+    (the slab made by nn.functional.band_slab), whole."""
+    from hyperseg_torch.ops.kernels import mbconv as K4
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+    from hyperseg_torch.ops.kernels import resize as K6
+    from hyperseg_torch.ops.kernels import stem as K3
+    mesh = mesh_of(1, n_spatial)
+    out = {}
+    t = lambda a: torch.from_numpy(a)       # noqa: E731
+    with SP.spatial_parallel(mesh):
+        xs, _, _ = F.band_slab(part(mesh, inputs["img"]), 0, 1)
+        out["K3"] = whole(mesh, K3.stem_plain(xs, t(inputs["w_stem"]), inputs["bn_stem"]))
+        x = part(mesh, inputs["x"])
+        xs, a, b = F.band_slab(x, 1, 1)
+        out["K4a"] = whole(mesh, K4.mbconv_dw_band_plain(xs, t(inputs["w_dw"]), inputs["bn"],
+                                                         top=a, bottom=b))
+        for stride in (1, 2):
+            xs, a, b = F.band_slab(x, 2 - stride, 1)
+            out[f"K5s{stride}"] = whole(mesh, K4.mbconv_expand_dw_band_plain(
+                xs, t(inputs["w_exp"]), inputs["bn_mid"], t(inputs["w_dw_mid"]),
+                inputs["bn_mid"], stride, top=a, bottom=b))
+        xs, a, b = F.band_slab(x, 1, 1)
+        out["K6"] = whole(mesh, K6.resize_bilinear_band_plain(xs, 2, a, b))
+        for k in (3, 5):
+            u = inputs[f"unit{k}"]
+            xu = part(mesh, u["x"])
+            ph = xu.shape[2] // (part(mesh, u["s"]).shape[2])
+            xs, a, b = F.band_slab(xu, ph, ph)
+            a, b = a // ph, b // ph
+            ss, _, _ = F.band_slab(part(mesh, u["s"]), 1, 1)
+            kw = dict(hidden=u["hidden"], out_ch=u["out_ch"], bn1=u["bn1"], bn2=u["bn2"],
+                      bn3=u["bn3"], kernel=k)
+            out[f"K1k{k}"] = whole(mesh, PI.patch_invres_s2w_band_plain(
+                xs, ss.contiguous(), t(u["w_s2w"]), groups=u["groups"], top=a, bottom=b, **kw))
+            wm, _, _ = F.band_slab(part(mesh, u["map"].transpose(0, 3, 1, 2)), 1, 1)
+            out[f"K2k{k}"] = whole(mesh, PI.patch_invres_band_plain(
+                xs, wm.permute(0, 2, 3, 1).contiguous(), top=a, bottom=b, **kw))
+    return out
+
+
+def tiny_model(state, dtype, train=False, kw=TINY_KW, backbone="efficientnet-b0"):
+    from hyperseg_torch.models import hyperseg_v1_0
+    model = hyperseg_v1_0.hyperseg_efficientnet(backbone, device="cpu", train=train, **kw)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    return model.to(getattr(torch, dtype))
+
+
+def forward(device, *, state, img, n_data=1, n_spatial=1, dtype="float64",
+            kw=TINY_KW, backbone="efficientnet-b0"):
+    """The eval forward of the model from `state` on this rank's part of the
+    NCHW batch `img`, under spatial_parallel on an (n_data, n_spatial) mesh
+    (no group: the whole batch). Returns the logits whole."""
+    mesh = mesh_of(n_data, n_spatial)
+    model = tiny_model(state, dtype, kw=kw, backbone=backbone)
+    x = part(mesh, img).to(getattr(torch, dtype))
+    with torch.no_grad(), SP.spatial_parallel(mesh):
+        y = model(x)
+    return whole(mesh, y)
+
+
+def step(device, *, state, img, lbl, n_data=1, n_spatial=1, dtype="float64", drop=True,
+         route="gather", lr=1e-3, kw=TINY_KW, backbone="efficientnet-b0", k=64):
+    """One training step of the model from `state` on this rank's part of
+    (img, lbl), in DistributedDataParallel over the world under
+    spatial_parallel (the model alone without a group), the generator seeded
+    5 on every rank, Adam under PolyLR(lr, 100), the bootstrapped CE at k
+    (tests/test_train.py's 64).
+    Returns the global loss (the ranks' mean), the state after the step,
+    the generator's state, the dropout masks' shapes and the confusion
+    matrix summed over the ranks."""
+    from hyperseg_torch.ops import patch as P
+    from hyperseg_torch.train import losses as L
+    from hyperseg_torch.train import schedule as S
+    from hyperseg_torch.train import step as T
+    saved = {name: getattr(P, name) for name in P.ROUTES[route]}
+    for name, value in P.ROUTES[route].items():
+        setattr(P, name, value)
+    mesh = mesh_of(n_data, n_spatial)
+    model = tiny_model(state, dtype, train=True, kw=kw, backbone=backbone)
+    model.backbone.drop_connect_rate = DROP_CONNECT if drop else 0.0
+    model.backbone.dropout_rate = DROPOUT if drop else 0.0
+    net = D.wrap_model(model, device) if dist.is_initialized() else model
+    opt, sched = T.make_optimizer(model.parameters(), S.poly_lr(lr, 100))
+    train_step = T.make_train_step(net, L.BootstrappedCrossEntropyLoss(k=k, ignore_index=255),
+                                   opt, sched, num_classes=kw["num_classes"])
+    masks, keep_mask = [], F._keep_mask
+
+    def spy(shape, keep, generator, like):
+        masks.append(tuple(shape))
+        return keep_mask(shape, keep, generator, like)
+    F._keep_mask = spy
+    try:
+        gen = torch.Generator().manual_seed(5)
+        with SP.spatial_parallel(mesh):
+            out = train_step(part(mesh, img).to(getattr(torch, dtype)),
+                             part(mesh, lbl, dim=1), gen)
+    finally:
+        F._keep_mask = keep_mask
+        for name, value in saved.items():
+            setattr(P, name, value)
+    world = D.get_world_size()
+    return dict(loss=float(summed(out["loss"])) / world,
+                state={k: v.detach().clone() for k, v in model.state_dict().items()},
+                generator=gen.get_state(), masks=masks, confmat=summed(out["confmat"]))
+
+
+def bootstrapped(device, *, logits, labels, k, thresh, n_spatial=1):
+    """The bootstrapped CE on this rank's band of each image: the ranks'
+    mean loss and the gradient of that mean with respect to the logits,
+    whole."""
+    from hyperseg_torch.train import losses as L
+    mesh = mesh_of(1, n_spatial)
+    x = part(mesh, logits).requires_grad_()
+    with SP.spatial_parallel(mesh):
+        loss = L.bootstrapped_cross_entropy(x, part(mesh, labels, dim=1), k=k, thresh=thresh,
+                                            ignore_index=255)
+    (loss / D.get_world_size()).backward()
+    return dict(loss=float(summed(loss)) / D.get_world_size(), dlogits=whole(mesh, x.grad))
+
+
+def ops(device, *, exchange_case, ops_case, slab_case, n_spatial):
+    """exchange, band_ops and kernel_slabs in one rank."""
+    return dict(exchange=exchange(device, n_spatial=n_spatial, **exchange_case),
+                ops=band_ops(device, n_spatial=n_spatial, **ops_case),
+                slabs=kernel_slabs(device, n_spatial=n_spatial, inputs=slab_case))
+
+
+def model_runs(device, *, state, img, lbl, n_data=1, n_spatial=1, routes=("gather",)):
+    """forward, then a step on each training route, in one rank."""
+    out = dict(forward=forward(device, state=state, img=img, n_data=n_data,
+                               n_spatial=n_spatial))
+    for route in routes:
+        out[route] = step(device, state=state, img=img, lbl=lbl, n_data=n_data,
+                          n_spatial=n_spatial, route=route)
+    return out
+
+
+def bootstrapped_cases(device, *, cases, n_spatial=1):
+    """bootstrapped on each case in turn."""
+    return [bootstrapped(device, n_spatial=n_spatial, **c) for c in cases]
