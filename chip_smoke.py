@@ -180,24 +180,30 @@ Phases (any failure exits non-zero before the result lines):
      lines);
   SPATIAL. spatial sharding (hyperseg_torch/parallel/spatial.py: each rank
      holds a band of every image's rows and exchanges halos with its
-     neighbours) on the one card, HyperSeg-M: (a) the eager eval forward at
-     1024x512 on a 1x2 mesh at b1 and a 2x2 mesh at b8 (gloo ranks on
-     cuda:0, float32 then bfloat16), gathered and held against one
-     process's forward of the whole batch stage by stage (the stride-2 and
-     stride-4 features and the decoder on one process's features and
-     signal at KERNEL_TOL, argmax agreement SPATIAL["agree"]; the logits
-     within SPATIAL["floor_margin"] times a floor measured in the same
-     run), each rank launching what one process launches a forward; (b)
-     each kernel's slab form (the kernel on a band with its neighbours'
-     rows attached, the attached rows' outputs cropped) at every call of
-     M's b1 forward, on 2 and 4 bands, in both dtypes: against its plain
-     version on the same slab and against the unsharded kernel's rows,
-     K1/K2 also at k=5; (c) T3 on the 1x2 and
-     2x2 meshes against the ddp phase's plain b16 step, at the ddp phase's
-     (b) gates, with each rank's peak memory, launches, exchanges and
-     all-reduces a step; (d) the step under a 1x1 mesh's spatial sharding
-     over NCCL, bit-equal to the plain step with no exchange (`spatial`
-     lines);
+     neighbours) on the one card: (a) HyperSeg-M, (e) HyperSeg-L VOC (v0_1,
+     K7 on slabs) and (f) HyperSeg-S Cityscapes (unify: K1's generation and
+     K2 on slabs), each's eager eval forward on a 1x2 mesh at b1 and a 2x2
+     mesh at b8 (gloo ranks on cuda:0, float32 then bfloat16), gathered and
+     held against one process's forward of the whole batch stage by stage
+     (the stride-2 and stride-4 features and the decoder on one process's
+     features and signal or weight maps at KERNEL_TOL, argmax agreement
+     SPATIAL["agree"]; the logits within SPATIAL["floor_margin"] times a
+     floor measured in the same run), each rank launching what one process
+     launches a forward, with every rank's peak, exchanges, halo bytes and
+     launches; (b) each kernel's slab form (the kernel on a band with its
+     neighbours' rows attached, the attached rows' outputs cropped) at
+     every call of M's b1 forward, and K7's at V's, on 2 and 4 bands, in
+     both dtypes: against its plain version on the same slab and against
+     the unsharded kernel's rows, K1/K2 also at k=5; (g) forward_pyramid
+     with hflip on the 1x2 mesh, float32: M's two-level pyramid, every
+     level on bands, and SV's, whose second level runs whole on every
+     rank, each against one process's at tta_check's gate; (c) T3 on the
+     1x2 and 2x2 meshes and (c') T5 on the 1x2 mesh against the plain step
+     (the ddp phase's, and T5's own), at the ddp phase's (b) gates, with
+     every rank's peak memory, launches, exchanges and all-reduces a step;
+     each mesh in one spawn; (d) the step under a 1x1 mesh's spatial
+     sharding over NCCL, bit-equal to the plain step with no exchange
+     (`spatial` lines);
   5. print the per-kernel JSON line, the card's name and power limit, and the
      result line.
 
@@ -2766,25 +2772,36 @@ def run_ddp(smi, test_tmp):
 
 
 SPATIAL = dict(key="M",
-               # (a) and (c): (n_data, n_spatial, eval batch); the step takes T3's b16
+               # (a), (e), (f) and (c), (c'): (n_data, n_spatial, eval batch); the steps
+               # take their cells' batches
                meshes=((1, 2, 1), (2, 2, 8)), agree=0.999, timed=0,
-               # (a): the gathered logits against one process's. float32: within the
-               # larger of KERNEL_TOL and twice the floor measured in the same run, one
+               # the eval forwards on every mesh, by phase: (a) M, (e) V, (f) SC
+               evals={"M": "a", "V": "e", "SC": "f"},
+               # (a), (e), (f): the gathered logits against one process's. float32: within
+               # the larger of KERNEL_TOL and twice the floor measured in the same run, one
                # process with its image one float32 ulp away (a calibrated random-weight
                # M amplifies float32 reassociation - the SE means' sums, cuDNN's choice
                # of algorithm by shape - to about 4e-4 at its 13.6 logits). bfloat16
                # stage by stage at KERNEL_TOL (the stride-2 and stride-4 features, the
-               # decoder on the bands of one process's features and signal), since the
-               # net amplifies bfloat16 rounding through its depth: one process's own
-               # bfloat16 logits sit 6.3 from its float32 ones at 0.77 argmax
-               # agreement; the bfloat16 logits are held within that drift
+               # decoder on the bands of one process's features and signal or maps),
+               # since the net amplifies bfloat16 rounding through its depth: one
+               # process's own bfloat16 logits sit 6.3 from its float32 ones at 0.77
+               # argmax agreement; the bfloat16 logits are held within that drift
                floor_margin={"float32": 2.0, "bfloat16": 1.0},
                # (b): the bands each kernel's slab form is checked on
-               bands=(2, 4))
+               bands=(2, 4),
+               # (g), on the first mesh: forward_pyramid with hflip on over a
+               # create_pyramid of these levels, float32, held at tta_check's gate (rel L2,
+               # argmax agreement) against one process's
+               pyramids={"M": 2, "SV": 2}, pyramid_gate=(1e-3, 0.999),
+               # the steps on each mesh: (c) T3 (M), (c') T5 (V) on the first alone
+               steps={(1, 2): ("M", "V"), (2, 2): ("M",)})
 # (b): each kernel's slab form, as (its halo rows above and below, crop in
-# output rows per attached input row); K1/K2 attach whole patch rows
+# output rows per attached input row); K1/K2 and K7 attach whole patch rows
 SLABS = {"stem": (0, 1), "mbconv_dw": (1, 1), "mbconv_expand_dw": None,
-         "resize_bilinear": (1, 1), "patch_invres_s2w": None, "patch_invres": None}
+         "resize_bilinear": (1, 1), "patch_invres_s2w": None, "patch_invres": None,
+         "patch_invres_v01": None}
+STEP_CELLS = {"M": ("T3", "c"), "V": ("T5", "c'")}
 
 
 def band_of(t, i, n, top, bottom, dim=2):
@@ -2834,6 +2851,15 @@ def slab_forms(c, i, n):
                                                  bottom=b // ph),
                 lambda: PI.patch_invres_s2w_band_plain(xs, ss, *a[2:], **kw, top=t // ph,
                                                        bottom=b // ph), rows)
+    if c.name == "patch_invres_v01":
+        # the map's rows as the decoder cuts them from the mapper's map: a view
+        # of its wider rows, which the wrapper copies dense
+        f = fh // n
+        ms = m[:, i * f - t // ph:(i + 1) * f + b // ph]
+        return (lambda: PI.patch_invres_v01_band(xs, ms, *a[2:], **kw, top=t // ph,
+                                                 bottom=b // ph),
+                lambda: PI.patch_invres_v01_band_plain(xs, ms, *a[2:], **kw, top=t // ph,
+                                                       bottom=b // ph), rows)
     ms, _, _ = band_of(m, i, n, 1, 1, dim=1)
     return (lambda: PI.patch_invres_band(xs, ms, *a[2:], **kw, top=t // ph, bottom=b // ph),
             lambda: PI.patch_invres_band_plain(xs, ms, *a[2:], **kw, top=t // ph,
@@ -2860,8 +2886,9 @@ def k5_calls(calls):
             Call("patch_invres", (x, m5), k2, PI.patch_invres(x, m5, **k2))]
 
 
-def spatial_slabs(model, x1, smi):
-    """(b): every slab form at M's b1 calls, float32 then bfloat16."""
+def spatial_slabs(key, model, x1, smi, kernels):
+    """(b): the slab form of each of `kernels` at every call of `key`'s b1
+    forward, float32 then bfloat16 (at M also K1/K2 at k=5)."""
     from hyperseg_torch.nn.modules import cast_weights
     gpu = copy.deepcopy(model).to("cuda")
     worst = {}
@@ -2869,9 +2896,10 @@ def spatial_slabs(model, x1, smi):
         if dtype == torch.bfloat16:
             cast_weights(gpu, dtype)
         with torch.no_grad():
-            with recording({k: KERNELS[k] for k in SLABS}) as calls:
+            with recording({k: KERNELS[k] for k in kernels}) as calls:
                 gpu(x1.to("cuda", dtype))
-            calls = calls + k5_calls(calls)
+            if "patch_invres_s2w" in kernels:
+                calls = calls + k5_calls(calls)
             for c in calls:
                 for n in SPATIAL["bands"]:
                     e_plain = e_rows = 0.0
@@ -2879,8 +2907,8 @@ def spatial_slabs(model, x1, smi):
                         kernel, plain, rows = slab_forms(c, i, n)
                         got, want = kernel(), plain()
                         if got.shape != rows.shape or not torch.isfinite(got).all():
-                            fail(f"spatial (b) {c.name} band {i} of {n}: {tuple(got.shape)} "
-                                 f"against {tuple(rows.shape)}")
+                            fail(f"spatial (b) {key} {c.name} band {i} of {n}: "
+                                 f"{tuple(got.shape)} against {tuple(rows.shape)}")
                         e_plain = max(e_plain, (got.float() - want.float()).abs().max().item())
                         e_rows = max(e_rows, (got.float() - rows.float()).abs().max().item())
                     scale = max(1.0, c.out.float().abs().max().item())
@@ -2888,13 +2916,14 @@ def spatial_slabs(model, x1, smi):
                     k = 5 if c.kw.get("kernel") == 5 else 3
                     tag = f"{c.name}{' k=5' if k == 5 else ''}"
                     ok = e_plain <= tol and e_rows <= tol
-                    print(f"spatial (b) {tag:22s} {str(dtype)[6:]:8s} x {tuple(c.args[0].shape)} "
-                          f"{n} bands: slab vs its plain version {e_plain:.3e}, vs the "
-                          f"unsharded kernel's rows {e_rows:.3e} (tol {tol:.3e}) "
-                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    print(f"spatial (b) {key} {tag:22s} {str(dtype)[6:]:8s} x "
+                          f"{tuple(c.args[0].shape)} {n} bands: slab vs its plain version "
+                          f"{e_plain:.3e}, vs the unsharded kernel's rows {e_rows:.3e} (tol "
+                          f"{tol:.3e}) {'ok' if ok else 'FAIL'}", flush=True)
                     if not ok:
-                        fail(f"spatial (b): {tag}'s slab form on {n} bands disagrees in {dtype}")
-                    w = worst.setdefault(tag, {})
+                        fail(f"spatial (b): {key} {tag}'s slab form on {n} bands disagrees in "
+                             f"{dtype}")
+                    w = worst.setdefault(f"{key} {tag}", {})
                     d = str(dtype)[6:]
                     w[d] = max(w.get(d, 0.0), e_plain, e_rows)
             del calls
@@ -2903,24 +2932,23 @@ def spatial_slabs(model, x1, smi):
     return worst
 
 
-def spatial_ranks(key, state, x8, n_data, n_spatial, b_eval, ref, smi):
-    """(a) and (c) on one (n_data, n_spatial) mesh of gloo ranks on cuda:0."""
-    from hyperseg_torch.parallel import distributed as D
-    from hyperseg_torch.train.harness import spatial_rank
-    from hyperseg_torch.train.recipes import RECIPES
-    world = n_data * n_spatial
-    tag = f"{n_data}x{n_spatial}"
-    b, res = RECIPES[key].batch, RECIPES[key].crop
-    t0 = time.perf_counter()
-    got = D.run_ranks(spatial_rank, ["cuda:0"] * world, backend="gloo", kwargs=dict(
-        eval_kw=dict(key=key, state=state, x=x8[:b_eval], n_data=n_data, n_spatial=n_spatial),
-        step_kw=dict(key=key, batch=b, res=res, n_data=n_data, n_spatial=n_spatial,
-                     timed=SPATIAL["timed"])))
-    wall = time.perf_counter() - t0
-    per = MODELS[key].per_forward
-    want = {n: c for n, c in per.items() if c}
-    out, failed = {"wall_s": wall}, []
-    for dtype, e in got["eval"].items():
+def per_rank(got):
+    """Every rank's peak, exchanges, halo bytes received, all-reduces and
+    launches (harness.RANK_NUMBERS), in rank order."""
+    r = got["ranks"]
+    return (f"per rank: peak {[round(v[0] / 2 ** 30, 3) for v in r]} GiB, exchanges "
+            f"{[int(v[1]) for v in r]}, neighbours' rows received "
+            f"{[round(v[2] / 2 ** 20, 2) for v in r]} MiB, all-reduces {[int(v[3]) for v in r]}, "
+            f"kernel launches {[int(v[4]) for v in r]}")
+
+
+def spatial_eval_lines(key, tag, b_eval, got, smi):
+    """(a), (e), (f): one model's sharded eval forward against one
+    process's; returns (numbers, failures, launches)."""
+    phase = SPATIAL["evals"][key]
+    want = {n: c for n, c in MODELS[key].per_forward.items() if c}
+    out, failed, launches = {}, [], {}
+    for dtype, e in got.items():
         kernel_tol = KERNEL_TOL[getattr(torch, dtype)]
         floor = e["floor"]
         ok = e["launches"] == want and e["one_launches"] == want
@@ -2938,63 +2966,161 @@ def spatial_ranks(key, state, x8, n_data, n_spatial, b_eval, ref, smi):
             agree = (f", argmax agreement {st['agree']:.6f}"
                      f"{' (min ' + str(SPATIAL['agree']) + ')' if gated_agree else ''}"
                      if "agree" in st else "")
-            print(f"spatial (a) {key} {tag} b{b_eval} {dtype} {name} {st['shape']}: gathered "
-                  f"bands vs one process: max_abs_err {st['max_abs_err']:.3e} (tol {tol:.3e}, "
-                  f"largest {st['ref_max']:.3f}), rel L2 {st['rel_l2']:.3e}{agree} "
+            print(f"spatial ({phase}) {key} {tag} b{b_eval} {dtype} {name} {st['shape']}: "
+                  f"gathered bands vs one process: max_abs_err {st['max_abs_err']:.3e} (tol "
+                  f"{tol:.3e}, largest {st['ref_max']:.3f}), rel L2 {st['rel_l2']:.3e}{agree} "
                   f"{'ok' if good else 'FAIL'}", flush=True)
         what = ("one process, its image one float32 ulp away" if dtype == "float32"
                 else "one process bfloat16 against float32")
-        print(f"spatial (a) {key} {tag} b{b_eval} {dtype} eager forward, rank 0's band "
+        print(f"spatial ({phase}) {key} {tag} b{b_eval} {dtype} eager forward, rank 0's band "
               f"{e['band']}: logits floor ({what}) max_abs_err {floor['max_abs_err']:.3e}, "
               f"argmax agreement {floor['agree']:.6f}; launches a forward per rank "
               f"{e['launches']}, one process {e['one_launches']}; {e['exchanges']} exchanges "
               f"({e['halo_bytes'] / 2 ** 20:.2f} MiB of neighbours' rows received, "
               f"{e['wire_bytes'] / 2 ** 20:.2f} MiB all-reduced) and {e['all_reduces']} "
-              f"all-reduces a forward; {e['ms']:.1f} ms a forward by host clock (gloo stages "
-              f"every exchange through the host: not a speed) [{smi}] {'ok' if ok else 'FAIL'}",
+              f"all-reduces a forward; peak {e['peak_bytes'] / 2 ** 30:.3f} GiB; {e['ms']:.1f} ms "
+              f"a forward by host clock (gloo stages every exchange through the host: not a "
+              f"speed) [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+        print(f"spatial ({phase}) {key} {tag} b{b_eval} {dtype} forward {per_rank(e)}",
               flush=True)
         if not ok:
-            failed.append(f"spatial (a) {tag} {dtype}: the sharded forward differs from one "
-                          f"process's or launches otherwise")
-        out[f"eval_{dtype}"] = e
-    st = got["step"]
+            failed.append(f"spatial ({phase}) {key} {tag} {dtype}: the sharded forward differs "
+                          "from one process's or launches otherwise")
+        out[dtype] = e
+        launches[f"{key} spatial {tag} eval b{b_eval} {dtype}"] = e["launches"]
+    return out, failed, launches
+
+
+def spatial_pyramid_lines(key, tag, got, smi):
+    """(g): one model's sharded forward_pyramid against one process's;
+    returns (numbers, failures, launches)."""
+    per = MODELS[key].per_forward
+    levels = len(got["bands"])
+    # each level's forward and its mirror's, and each level but the first resized
+    want = {n: 2 * levels * c + (levels - 1 if n == "resize_bilinear" else 0)
+            for n, c in per.items() if c}
+    st = got["vs_one_process"]
+    rel_max, agree_min = SPATIAL["pyramid_gate"]
+    ok = (st["finite"] and st["rel_l2"] <= rel_max and st["agree"] >= agree_min
+          and got["launches"] == want)
+    print(f"spatial (g) {key} {tag} b1 float32 forward_pyramid ({levels} levels, hflip, bands "
+          f"{[b[2] for b in got['bands']]} rows), levels run whole on every rank "
+          f"{got['whole_levels']}: gathered bands vs one process: max_abs_err "
+          f"{st['max_abs_err']:.3e} (largest {st['ref_max']:.3f}), rel L2 {st['rel_l2']:.3e} "
+          f"(max {rel_max}), argmax agreement {st['agree']:.6f} (min {agree_min}); launches a "
+          f"call per rank {got['launches']} (want {want}); {got['exchanges']} exchanges "
+          f"({got['halo_bytes'] / 2 ** 20:.2f} MiB of neighbours' rows received) and "
+          f"{got['all_reduces']} all-reduces a call; {got['ms']:.1f} ms a call by host clock "
+          f"[{smi}] {'ok' if ok else 'FAIL'}", flush=True)
+    print(f"spatial (g) {key} {tag} forward_pyramid {per_rank(got)}", flush=True)
+    failed = [] if ok else [f"spatial (g) {key} {tag}: the sharded forward_pyramid differs "
+                            "from one process's or launches otherwise"]
+    return got, failed, {f"{key} spatial {tag} forward_pyramid": got["launches"]}
+
+
+def spatial_step_lines(key, tag, st, ref, smi):
+    """(c), (c'): one cell's sharded step against its plain step; returns
+    (numbers, failures, launches)."""
+    from hyperseg_torch.train.recipes import RECIPES
+    cell, phase = STEP_CELLS[key]
+    b = RECIPES[key].batch
     (err_g, err_p, err_s, loss_rel), floor, (lim_g, lim_p) = step_errors(ref, st)
     same_gen = torch.equal(st["generator"], ref[2])
     want = TRAIN_PER_STEP
     ok = (loss_rel <= DDP["loss_rtol"] and err_g <= lim_g and err_p <= lim_p
           and err_s <= DDP["stats_rel_l2"] and same_gen and st["launches"] == want)
-    print(f"spatial (c) T3 {key} {tag}, rank 0's band {st['band']}, one deterministic step "
-          f"against the ddp phase's plain b{b} step: loss {st['loss']!r} (rel {loss_rel:.3e}, "
-          f"limit {DDP['loss_rtol']:.0e}); gradients rel L2 {err_g:.3e} (limit {lim_g:.3e}), "
+    print(f"spatial ({phase}) {cell} {key} {tag}, rank 0's band {st['band']}, one deterministic "
+          f"step against the plain b{b} step: loss {st['loss']!r} (rel {loss_rel:.3e}, limit "
+          f"{DDP['loss_rtol']:.0e}); gradients rel L2 {err_g:.3e} (limit {lim_g:.3e}), "
           f"parameters {err_p:.3e} (limit {lim_p:.3e}), running statistics {err_s:.3e} (limit "
           f"{DDP['stats_rel_l2']:.0e}); floor: gradients {floor[0]:.3e}, parameters "
           f"{floor[1]:.3e}; generator equal {same_gen}; launches per rank {st['launches']} "
           f"(want {want}) [{smi}] {'ok' if ok else 'FAIL'}", flush=True)
-    print(f"spatial (c) T3 {key} {tag} rank 0: peak {st['peak_bytes'] / 2 ** 30:.3f} GiB; "
-          f"{st['exchanges']} exchanges a step in the forward ({st['halo_bytes'] / 2 ** 20:.2f} "
-          f"MiB of neighbours' rows received, {st['wire_bytes'] / 2 ** 20:.2f} MiB all-reduced; "
+    print(f"spatial ({phase}) {cell} {key} {tag} rank 0: peak {st['peak_bytes'] / 2 ** 30:.3f} "
+          f"GiB; {st['exchanges']} exchanges a step in the forward "
+          f"({st['halo_bytes'] / 2 ** 20:.2f} MiB of neighbours' rows received, "
+          f"{st['wire_bytes'] / 2 ** 20:.2f} MiB all-reduced; "
           f"each has a backward all-reduce of the same size), {st['all_reduces']} all-reduces "
           f"a step from Python (exchanges, BNs, pooled means, the gather, the loss; DDP's "
           f"buckets aside); {', '.join(f'{v:.1f}' for v in st['ms'])} ms a step by host clock "
-          f"(not a speed: gloo stages every collective through the host); {wall:.1f} s wall "
-          f"with the ranks' start [{smi}]", flush=True)
-    if not ok:
-        failed.append(f"spatial (c) {tag}: the sharded step differs from one process's: loss "
-                      f"rel {loss_rel:.3e}, gradients {err_g:.3e}, parameters {err_p:.3e}, "
-                      f"statistics {err_s:.3e}, generator equal {same_gen}, launches "
-                      f"{st['launches']}")
+          f"(not a speed: gloo stages every collective through the host) [{smi}]", flush=True)
+    print(f"spatial ({phase}) {cell} {key} {tag} step {per_rank(st)}", flush=True)
+    failed = [] if ok else [
+        f"spatial ({phase}) {cell} {tag}: the sharded step differs from one process's: loss "
+        f"rel {loss_rel:.3e}, gradients {err_g:.3e}, parameters {err_p:.3e}, statistics "
+        f"{err_s:.3e}, generator equal {same_gen}, launches {st['launches']}"]
+    numbers = dict(loss=st["loss"], loss_rel=loss_rel, grads_rel_l2=err_g, params_rel_l2=err_p,
+                   stats_rel_l2=err_s, floor=floor[:2], generator_equal=same_gen,
+                   peak_bytes=st["peak_bytes"], exchanges=st["exchanges"],
+                   halo_bytes=st["halo_bytes"], wire_bytes=st["wire_bytes"],
+                   all_reduces=st["all_reduces"], ms_per_step_gloo=st["ms"],
+                   launches=st["launches"])
+    return numbers, failed, {f"{key} spatial {tag} {cell} step": st["launches"]}
+
+
+def spatial_ranks(n_data, n_spatial, b_eval, inputs, refs, smi):
+    """(a), (e), (f), (g) and (c), (c') on one (n_data, n_spatial) mesh of
+    gloo ranks on cuda:0, one spawn; `inputs` {key: (eval state, pyramid
+    state, x8)}."""
+    from hyperseg_torch.parallel import distributed as D
+    from hyperseg_torch.train.harness import spatial_rank
+    from hyperseg_torch.train.recipes import RECIPES
+    world, tag = n_data * n_spatial, f"{n_data}x{n_spatial}"
+    first = (n_data, n_spatial, b_eval) == SPATIAL["meshes"][0]
+    evals = [dict(key=k, state=inputs[k][0], x=inputs[k][2][:b_eval], n_data=n_data,
+                  n_spatial=n_spatial) for k in SPATIAL["evals"]]
+    pyramids = [dict(key=k, state=inputs[k][1], x=inputs[k][2][:1], n_spatial=n_spatial,
+                     levels=lv) for k, lv in SPATIAL["pyramids"].items()] if first else []
+    steps = [dict(key=k, batch=RECIPES[k].batch, res=RECIPES[k].crop, n_data=n_data,
+                  n_spatial=n_spatial, timed=SPATIAL["timed"])
+             for k in SPATIAL["steps"][(n_data, n_spatial)]]
+    t0 = time.perf_counter()
+    got = D.run_ranks(spatial_rank, ["cuda:0"] * world, backend="gloo",
+                      kwargs=dict(evals=evals, pyramids=pyramids, steps=steps))
+    out, failed, launches = {"wall_s": time.perf_counter() - t0}, [], {}
+    parts = ([(f"eval {kw['key']}", spatial_eval_lines(kw["key"], tag, b_eval, e, smi))
+              for kw, e in zip(evals, got["eval"])]
+             + [(f"pyramid {kw['key']}", spatial_pyramid_lines(kw["key"], tag, e, smi))
+                for kw, e in zip(pyramids, got["pyramid"])]
+             + [(f"step {kw['key']}", spatial_step_lines(kw["key"], tag, st, refs[kw["key"]],
+                                                         smi))
+                for kw, st in zip(steps, got["step"])])
+    for name, (numbers, bad, counts) in parts:
+        out[name] = numbers
+        failed += bad
+        launches.update(counts)
+    print(f"spatial {tag}: {len(evals)} eval forwards, {len(pyramids)} pyramids and "
+          f"{len(steps)} steps on {world} gloo ranks in {out['wall_s']:.1f} s wall with the "
+          f"ranks' start", flush=True)
     if failed:
         fail("; ".join(failed))
-    out["step"] = dict(loss=st["loss"], loss_rel=loss_rel, grads_rel_l2=err_g,
-                       params_rel_l2=err_p, stats_rel_l2=err_s, floor=floor[:2],
-                       generator_equal=same_gen, peak_bytes=st["peak_bytes"],
-                       exchanges=st["exchanges"], halo_bytes=st["halo_bytes"],
-                       wire_bytes=st["wire_bytes"], all_reduces=st["all_reduces"],
-                       ms_per_step_gloo=st["ms"], launches=st["launches"])
-    launches = {f"{key} spatial {tag} eval b{b_eval} {d}": got["eval"][d]["launches"]
-                for d in got["eval"]}
-    launches[f"{key} spatial {tag} T3 step"] = st["launches"]
     return out, launches
+
+
+def plain_reference(key):
+    """The reference of a step's sharded runs, as ddp_world1 returns it for T3:
+    (loss, state, generator state, gradients) of one plain step of `key`'s
+    cell (seed-0 weights, drops on, the synthetic batch) on deterministic
+    algorithms, and (loss, state, gradients) of the same step with its
+    image one float32 ulp away, the floor; each step's model alone on the
+    card."""
+    from hyperseg_torch.train.recipes import RECIPES
+    b, res = RECIPES[key].batch, RECIPES[key].crop
+    img, lbl = synthetic_batch(b, res, 2, "cuda", MODELS[key].kw["num_classes"])
+    runs = []
+    for x in (img, img * (1 + 2 ** -22)):
+        model = train_model(key, "cuda", drop=True)
+        gen = torch.Generator("cuda").manual_seed(3)
+        with deterministic():
+            loss = trainer(model, key)(x, lbl, gen)["loss"].item()
+        runs.append((loss, {k: v.detach().cpu() for k, v in model.state_dict().items()},
+                     gen.get_state(), {k: p.grad.cpu() for k, p in model.named_parameters()
+                                       if p.grad is not None}))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    (l0, s0, g0, grads0), (lf, sf, _, gf) = runs
+    return l0, s0, g0, grads0, (lf, sf, gf)
 
 
 def spatial_world1(key, ref, smi):
@@ -3038,23 +3164,46 @@ def spatial_world1(key, ref, smi):
 
 
 def run_spatial(smi, ref):
-    """The spatial phase. Returns (numbers, {"M spatial ...": launches})."""
+    """The spatial phase: (b) M's slab forms and V's K7, the plain T5 step
+    for (c'), each mesh's spawn, (d). `ref` is the ddp phase's plain T3 step.
+    Returns (numbers, {"<model> spatial ...": launches})."""
     from hyperseg_torch.utils.calibrate import calibrate_bn
     t_phase = time.perf_counter()
-    key = SPATIAL["key"]
-    cfg = MODELS[key]
-    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
-    model = factory.hyperseg_efficientnet(cfg.backbone, device="cpu", seed=0, **cfg.kw)
-    x8 = torch.randn(8, 3, *cfg.res, generator=torch.Generator().manual_seed(1))
-    calibrate_bn(model, x8[:1])
-    out = {"slabs": spatial_slabs(model, x8[:1], smi)}
-    state = {k: v.clone() for k, v in model.state_dict().items()}
+    inputs, out = {}, {}
+    for key in {**SPATIAL["evals"], **SPATIAL["pyramids"]}:
+        cfg = MODELS[key]
+        factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
+        model = factory.hyperseg_efficientnet(cfg.backbone, device="cpu", seed=0, **cfg.kw)
+        x8 = torch.randn(8, 3, *cfg.res, generator=torch.Generator().manual_seed(1))
+        init = {k: v.clone() for k, v in model.state_dict().items()}
+
+        def calibrated(x):
+            model.load_state_dict(init)
+            calibrate_bn(model, x)
+            return {k: v.clone() for k, v in model.state_dict().items()}
+        # the eval forwards calibrated on the image, the pyramids (hflip on) on
+        # the image and its mirror, as run_model calibrates a config with hflip
+        eval_state = calibrated(x8[:1]) if key in SPATIAL["evals"] else None
+        if key in ("M", "V"):
+            out[f"slabs {key}"] = spatial_slabs(key, model, x8[:1], smi, SLABS if key == "M"
+                                                else ("patch_invres_v01",))
+        pyramid_state = (calibrated(torch.cat([x8[:1], x8[:1].flip(3)]))
+                         if key in SPATIAL["pyramids"] else None)
+        inputs[key] = (eval_state, pyramid_state, x8)
+        del model
+    refs = {"M": ref}
+    for key in {k for ks in SPATIAL["steps"].values() for k in ks} - set(refs):
+        t0 = time.perf_counter()
+        refs[key] = plain_reference(key)
+        print(f"spatial ({STEP_CELLS[key][1]}) {STEP_CELLS[key][0]} {key}: the plain step and "
+              f"its floor in {time.perf_counter() - t0:.1f} s", flush=True)
     launches = {}
     for n_data, n_spatial, b_eval in SPATIAL["meshes"]:
-        out[f"{n_data}x{n_spatial}"], got = spatial_ranks(key, state, x8, n_data, n_spatial,
-                                                           b_eval, ref, smi)
+        out[f"{n_data}x{n_spatial}"], got = spatial_ranks(n_data, n_spatial, b_eval, inputs,
+                                                           refs, smi)
         launches.update(got)
-    out["nccl_world1"] = spatial_world1(key, ref, smi)
+    del refs
+    out["nccl_world1"] = spatial_world1(SPATIAL["key"], ref, smi)
     print(f"spatial done in {time.perf_counter() - t_phase:.1f} s wall", flush=True)
     return out, launches
 

@@ -51,15 +51,19 @@ full-map forms, chosen by the levers in ops/patch.py (FULLMAP_INVRES for
 InvResUnit, FULLMAP_MIN_BATCH / FULLMAP_POINTWISE for PatchConvUnit); the
 two compute the same function.
 
-Under spatial sharding (nn/functional.py `spatial`) MultiScaleDecoderV1
-runs on this rank's band of each level: whole patch rows, with the band's
-rows of the signal and of the coordinate grid. The k=1 units are local to
-their patches; the k=3 units' reflect halos read the neighbouring bands'
-rows (ops/patch.py through nn.functional.pad_band in training; in eval K1
-on a slab with a whole patch row of each neighbour attached,
-`patch_invres_s2w_band`), and the upsamples run K6 on a band with one row
-of each neighbour (nn.functional.resize_bilinear). The unify and v0_1
-decoders raise NotImplementedError there (ROADMAP Queue 1 item 5).
+Under spatial sharding (nn/functional.py `spatial`) every decoder runs on
+this rank's band of each level: whole patch rows, with the band's rows of
+the coordinate grid. The k=1 units are local to their patches; the upsamples
+run K6 on a band with one row of each neighbour
+(nn.functional.resize_bilinear). In training the hyper units' halos read the
+neighbouring bands' rows (ops/patch.py through nn.functional.pad_band) and
+their full-map BNs take the statistics of every band. In eval each kernel
+runs on a slab with a whole patch row of each neighbouring band attached,
+and that row's weights, its output cropped: MultiScaleDecoderV1 K1 on the
+signal's slab (`patch_invres_s2w_band`); the unify decoder K1's generation
+on the signal's slab, then K2 (`patch_invres_band`) on its k=3 levels; the
+v0_1 decoder K7 (`patch_invres_v01_band`) on the whole map's rows, which
+its mapper returns whole on every rank.
 """
 
 from __future__ import annotations
@@ -72,7 +76,6 @@ from torch import nn
 
 from hyperseg_torch.models.signal_split import (divide_feature, divide_feature_legacy_v02,
                                                 next_multiply)
-from hyperseg_torch.models.weight_mapper import no_spatial
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 from hyperseg_torch.ops import patch as P
@@ -303,10 +306,22 @@ class InvResUnit(EvalModule):
         eager unit."""
         if self.training:
             return self._apply_eager(x, w.permute(0, 3, 1, 2))
-        return PI.patch_invres(
-            x, w.contiguous(), hidden=self.hidden, out_ch=self.out_ch,
-            kernel=self.kernel, bn1=self.bn1.params, bn2=self.bn2.params,
-            bn3=self.bn3.params, eps=BN_EPS)
+        return PI.patch_invres(x, w.contiguous(), **self._kernel_args())
+
+    def apply_map_band(self, x, w, top, bottom):
+        """Eval under spatial sharding: K2 on a slab of the band x with `top`
+        and `bottom` whole patch rows of the neighbouring bands attached (1
+        at an interior edge, 0 at the image's), from w, the (B, fh, fw,
+        hyper_params) map of the slab's patch rows (`patch_invres_band`, on
+        a contiguous copy)."""
+        ph = x.shape[2] // (w.shape[1] - top - bottom)
+        xs, _, _ = F.band_slab(x, ph, ph)
+        return PI.patch_invres_band(xs, w.contiguous(), top=top, bottom=bottom,
+                                    **self._kernel_args())
+
+    def _kernel_args(self):
+        return dict(hidden=self.hidden, out_ch=self.out_ch, kernel=self.kernel,
+                    bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS)
 
     def forward(self, x, s):
         """Generate-and-apply from the level's signal slice s: K1 in eval;
@@ -314,9 +329,7 @@ class InvResUnit(EvalModule):
         r = self.route
         if self.training:
             return self._apply_eager(x, self.weights(s))
-        kw = dict(groups=r.groups, hidden=self.hidden, out_ch=self.out_ch,
-                  bn1=self.bn1.params, bn2=self.bn2.params, bn3=self.bn3.params, eps=BN_EPS,
-                  kernel=self.kernel)
+        kw = dict(groups=r.groups, **self._kernel_args())
         if F.spatial_group() is None:
             sl = s[:, r.signal_index:r.signal_index + r.signal_ch]
             return PI.patch_invres_s2w(x, sl, self.signal2weights.weight, **kw)
@@ -364,12 +377,24 @@ class V01InvResUnit(EvalModule):
 
     def forward(self, x, w):
         """x: (B, in_ch, H, W); w: (B, fh, fw, hyper_params). K7 in eval; in
-        training the patch convs with train-mode BN."""
+        training the patch convs with train-mode BN. Under spatial sharding
+        x is this rank's band and w the whole image's map: K7 runs on a slab
+        with a whole patch row of each neighbouring band and that row's
+        weights (patch_invres_v01_band), the patch convs on the band's rows
+        of w."""
+        sg = F.spatial_group()
         if self.uses_k7 and not self.training:
             e, d, p = self.conv
-            return PI.patch_invres_v01(
-                x, w, hidden=self.hidden, out_ch=self.out_ch, bn1=e[-1].params,
-                bn2=d[-1].params, bn3=p[-1].params, eps=BN_EPS)
+            kw = dict(hidden=self.hidden, out_ch=self.out_ch, bn1=e[-1].params,
+                      bn2=d[-1].params, bn3=p[-1].params, eps=BN_EPS)
+            if sg is None:
+                return PI.patch_invres_v01(x, w, **kw)
+            ph = x.shape[2] * sg.n // w.shape[1]
+            xs, top, bottom = F.band_slab(x, ph, ph)
+            return PI.patch_invres_v01_band(xs, band_map(w, sg, top // ph, bottom // ph),
+                                            top=top // ph, bottom=bottom // ph, **kw)
+        if sg is not None:
+            w = band_map(w, sg)
         # any other shape: its patch convs in turn, as the JAX unit runs them
         out, ofs = x, 0
         for u in self.conv:
@@ -379,6 +404,13 @@ class V01InvResUnit(EvalModule):
 
 
 Unit = Union[PatchConvUnit, InvResUnit, V01InvResUnit]
+
+
+def band_map(w, sg, top=0, bottom=0):
+    """This band's patch rows of the whole image's (B, fh, fw, P) map w,
+    with `top` patch rows above and `bottom` below."""
+    fh = w.shape[1] // sg.n
+    return w[:, sg.index * fh - top:(sg.index + 1) * fh + bottom]
 
 
 def apply_unit(u: Unit, x, w, *, remat=False):
@@ -600,9 +632,17 @@ class MultiScaleDecoderUnify(_Decoder):
     def forward(self, xs, s, generator=None):
         """xs: [input image, feat_s2, ..., feat_s32] (finest -> coarsest,
         head excluded), NCHW; s: the signal (B, C, fh, fw) at stride 32.
-        `generator` is unused: the decoder has no dropout."""
+        `generator` is unused: the decoder has no dropout. Under spatial
+        sharding in eval the block maps are made from the signal's slab, a
+        patch row of each neighbouring band attached: the 1x1 levels read
+        the band's rows of them, the k=3 levels run K2 on a slab
+        (InvResUnit.apply_map_band)."""
         del generator
-        no_spatial("MultiScaleDecoderUnify")
+        slab = F.spatial_group() is not None and not self.training
+        top = bottom = 0
+        if slab:
+            s, top, bottom = F.band_slab(s, 1, 1)
+            s = s.contiguous()      # K1's generation reads a channel slice of it
         p, shared = None, None
         for lv, units in enumerate(self.level_blocks):
             p = self._level_input(p, xs[-lv - 1])
@@ -615,7 +655,11 @@ class MultiScaleDecoderUnify(_Decoder):
                 w = shared[..., self._ranges[i]:self._ranges[i + 1]]
             base = 0
             for u in units:
-                p = apply_unit(u, p, w[..., base:base + u.hyper_params], remat=self.remat)
+                wu = w[..., base:base + u.hyper_params]
+                if slab and isinstance(u, InvResUnit):
+                    p = u.apply_map_band(p, wu, top, bottom)
+                else:
+                    p = apply_unit(u, p, wu[:, top:wu.shape[1] - bottom], remat=self.remat)
                 base += u.hyper_params
         return F.resize_bilinear(p, xs[0].shape[2:])
 
@@ -669,18 +713,24 @@ class MultiScaleDecoderV0(_Decoder):
         """xs: [input image, feat_s2, ..., feat_s32] (finest -> coarsest,
         head excluded), NCHW; weights: one (B, fh, fw, P_level) map per level
         (and one for out_fc); `generator` feeds the out_fc dropout in
-        training."""
-        no_spatial("MultiScaleDecoderV0")
+        training. Under spatial sharding each map is the whole image's: the
+        V01InvResUnits take it whole (their K7 slab reads the neighbouring
+        bands' patch rows), the patch convs its band's rows."""
+        sg = F.spatial_group()
+
+        def unit_map(u, w):
+            return w if sg is None or isinstance(u, V01InvResUnit) else band_map(w, sg)
         p = None
         for lv in range(self.levels):
             p = self._level_input(p, xs[-lv - 1])
             base = 0
             for u in getattr(self, f"level_{lv}"):
-                p = apply_unit(u, p, weights[lv][..., base:base + u.hyper_params],
+                p = apply_unit(u, p, unit_map(u, weights[lv][..., base:base + u.hyper_params]),
                                remat=self.remat)
                 base += u.hyper_params
         if hasattr(self, "out_fc"):
             if self.training:
                 p = F.dropout2d(p, self.dropout, generator)
-            p = self.out_fc.apply_map(p, weights[-1][..., :self.out_fc.hyper_params])
+            p = self.out_fc.apply_map(p, unit_map(self.out_fc,
+                                                  weights[-1][..., :self.out_fc.hyper_params]))
         return p

@@ -6,16 +6,24 @@ reference process_single_tensor, hyperseg_v1_0.py:52-60), in training mode
 augmentation `forward_pyramid` (:140-159; hyperseg_v1_0.py:62-91), and the
 factories' smoke harness `smoke_main` (:163-190). No per-image decoder
 loop; BN running statistics are written in place in training, and dropout
-draws from the generator given to `forward`.
+draws from the generator given to `forward`. Every family's forward, and
+`forward_pyramid`, also runs on this rank's band of each image under
+parallel/spatial.py `spatial_parallel`.
 """
 
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.models.weight_mapper import no_spatial
 from hyperseg_torch.nn.modules import EvalModule
+from hyperseg_torch.parallel import spatial as SP
+
+# forward_pyramid's levels run whole on every rank of a spatial group (their
+# band not a multiple of SP.BAND_MULTIPLE), counted as LAUNCHES counts kernels
+WHOLE_LEVELS: Counter = Counter()
 
 
 class HyperGen(EvalModule):
@@ -50,16 +58,34 @@ class HyperGen(EvalModule):
         level's logits - with `inference_hflip` the maximum of the image's
         and its mirror's, mirrored back - resized to the first level's size,
         then gathered level by level with `inference_gather`, "mean" as
-        (out + p) * 0.5, else the maximum. Not under spatial sharding
-        (ROADMAP Queue 1 item 5)."""
-        no_spatial("forward_pyramid")
+        (out + p) * 0.5, else the maximum.
+
+        Under spatial sharding each level is this rank's band of it
+        (`shard_batch` with data_sharded(mesh, spatial_dim=2)) and so is
+        the result, level 0's band. A level whose band is a multiple of
+        SP.BAND_MULTIPLE runs on the bands, its logits resized to level 0's
+        band by the band form of resize_bilinear, and must then divide level
+        0's band rows (ValueError otherwise). Any other level runs whole on
+        every rank: gathered from the bands, run and resized to the whole
+        first level with no spatial context, this band's rows kept
+        (counted in WHOLE_LEVELS)."""
+        sg = F.spatial_group()
         out_hw = pyramid[0].shape[2:]
+        whole = [sg is not None and x.shape[2] % SP.BAND_MULTIPLE != 0 for x in pyramid]
+        for level, x in enumerate(pyramid):
+            if sg is not None and not whole[level] and out_hw[0] % x.shape[2]:
+                raise ValueError(f"forward_pyramid: level {level}'s band of {x.shape[2]} rows "
+                                 f"is not a whole part of level 0's band of {out_hw[0]} rows")
         out = None
-        for x in pyramid:
-            p = self(x)
-            if self.inference_hflip:
-                p = torch.maximum(p, self(x.flip(3)).flip(3))
-            p = F.resize_bilinear(p, out_hw)
+        for level, x in enumerate(pyramid):
+            if whole[level]:
+                WHOLE_LEVELS[level] += 1
+                with F.spatial(None):
+                    p = self._pyramid_level(SP.gather_rows(x, sg),
+                                            (out_hw[0] * sg.n, out_hw[1]))
+                p = SP.own_rows(p, sg)
+            else:
+                p = self._pyramid_level(x, out_hw)
             if out is None:
                 out = p
             elif self.inference_gather == "mean":
@@ -67,6 +93,14 @@ class HyperGen(EvalModule):
             else:
                 out = torch.maximum(out, p)
         return out
+
+    def _pyramid_level(self, x, out_hw):
+        """One level's logits (the maximum with its mirror's under
+        `inference_hflip`), resized to out_hw."""
+        p = self(x)
+        if self.inference_hflip:
+            p = torch.maximum(p, self(x.flip(3)).flip(3))
+        return F.resize_bilinear(p, out_hw)
 
 
 def smoke_main(default_model: str, argv=None):

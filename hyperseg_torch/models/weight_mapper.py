@@ -13,14 +13,15 @@ the coarsest map's global average, nearest upsample + 1x1 flat convs), then
 one grouped 1x1 head per decoder level on its own slice of the channels,
 which emits that level's weight map.
 
-Under spatial sharding (nn/functional.py `spatial`) WeightMapperV1 gathers
-the stride-32 head feature whole from every band (parallel/spatial.py
-`gather_rows`), runs replicated on every rank of the spatial group, and
-returns this band's rows of the signal: exact at any band height, the 1-row
-bands of a 64-row image included. Its training BNs then take the statistics
-of the data group alone (each image's map is whole on every band's rank;
-over the world each pixel would count n_spatial times). WeightMapperV0
-(v0_1) raises: ROADMAP Queue 1 item 5.
+Under spatial sharding (nn/functional.py `spatial`) both gather the
+stride-32 head feature whole from every band (parallel/spatial.py
+`gather_rows`) and run replicated on every rank of the spatial group
+(`replicated`): exact at any band height, the 1-row bands of a 64-row image
+included. Their training BNs then take the statistics of the data group
+alone (each image's map is whole on every band's rank; over the world each
+pixel would count n_spatial times). WeightMapperV1 returns this band's rows
+of the signal; WeightMapperV0 returns each level's whole map, since the
+v0_1 decoder's K7 slab reads the neighbouring bands' patch rows of it.
 """
 
 from __future__ import annotations
@@ -35,16 +36,6 @@ from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import BatchNorm2d, EvalModule, conv
 from hyperseg_torch.parallel import spatial as SP
 
-# what the decoders and mappers not ported to spatial sharding raise
-SPATIAL_TODO = ("spatial sharding for the unify and v0_1 decoders and for forward_pyramid "
-                "is not ported (ROADMAP Queue 1 item 5); use a mesh of n_spatial=1")
-
-
-def no_spatial(what):
-    """Raise NotImplementedError for `what` under spatial sharding."""
-    if F.spatial_group() is not None:
-        raise NotImplementedError(f"{what}: {SPATIAL_TODO}")
-
 BN_EPS = 1e-5
 BN_MOMENTUM = 0.1   # the apply_bn default (hyperseg_tpu/nn/functional.py:215-216)
 
@@ -58,6 +49,22 @@ def _conv_bn_relu(block, x, relu=True):
     cv, bn = block
     x = bn(F.conv2d(x, cv.weight, stride=cv.stride, groups=cv.groups))
     return F.relu(x) if relu else x
+
+
+def replicated(fn, x):
+    """fn(x) for the head feature x; under spatial sharding fn runs on the
+    whole feature, gathered from every band, on every rank of the spatial
+    group, with no spatial context, and its training BNs over the data
+    group (a data-parallel step's BNs, nn/functional.py `data_parallel`,
+    would count each image n_spatial times over the world)."""
+    sg = F.spatial_group()
+    if sg is None:
+        return fn(x)
+    full = SP.gather_rows(x, sg)
+    training = F.data_parallel_group() is not None
+    with F.spatial(None), (F.data_parallel(sg.data_group) if training
+                           else contextlib.nullcontext()):
+        return fn(full)
 
 
 class WeightMapperV1(EvalModule):
@@ -80,14 +87,8 @@ class WeightMapperV1(EvalModule):
 
     def forward(self, x):
         sg = F.spatial_group()
-        if sg is None:
-            return self._forward(x)
-        full = SP.gather_rows(x, sg)
-        training = F.data_parallel_group() is not None
-        with F.spatial(None), (F.data_parallel(sg.data_group) if training
-                               else contextlib.nullcontext()):
-            s = self._forward(full)
-        return SP.own_rows(s, sg)
+        s = replicated(self._forward, x)
+        return s if sg is None else SP.own_rows(s, sg)
 
     def _forward(self, x):
         x = _conv_bn_relu(self.in_conv, x)
@@ -129,7 +130,12 @@ class WeightMapperV0(EvalModule):
                                                        device=device))
 
     def forward(self, x):
-        no_spatial("WeightMapperV0")
+        """x: the head feature (B, C, fh, fw) -> one (B, fh, fw, P_level) map
+        per level; under spatial sharding x is this band's rows and each
+        map is the whole image's (`replicated`)."""
+        return replicated(self._forward, x)
+
+    def _forward(self, x):
         if self.levels > 1:
             feats = [x]
             for i in range(self.levels - 1):

@@ -315,9 +315,9 @@ def patch_invres(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
 
 
 def patch_invres_v01_plain(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
-    """Plain twin of K7: the eager v0_1 unit (ops/patch.py) in float32 on
-    the weight map w (B, fh, fw, P)."""
-    out = P.patch_inverted_residual_v01(x.float(), w.float().permute(0, 3, 1, 2),
+    """Plain twin of K7: the eager v0_1 unit (ops/patch.py) in float32 (a
+    float64 input stays float64) on the weight map w (B, fh, fw, P)."""
+    out = P.patch_inverted_residual_v01(wide(x), wide(w).permute(0, 3, 1, 2),
                                         hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2,
                                         bn3=bn3, eps=eps)
     return out.to(x.dtype)
@@ -442,7 +442,6 @@ def patch_invres_s2w(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2, bn3,
                         eps=eps, kernel=kernel)
 
 
-
 def _band(run, x, fh, top, bottom):
     """run() on a slab of fh whole patch rows, the `top` and `bottom`
     attached patch rows' output rows cropped (into a dense copy, as the
@@ -483,3 +482,22 @@ def patch_invres_band(x, w, *, top=0, bottom=0, **kw):
 def patch_invres_band_plain(x, w, *, top=0, bottom=0, **kw):
     """Plain version of patch_invres_band: the twin on the slab."""
     return _band(lambda: patch_invres_plain(x, w, **kw), x, w.shape[1], top, bottom)
+
+
+def patch_invres_v01_band(x, w, *, top=0, bottom=0, **kw):
+    """K7 on a band, as patch_invres_band: x the slab with `top` and
+    `bottom` whole patch rows of the neighbouring bands attached, w the (B,
+    fh, fw, P) map of the slab's patch rows, taken as a dense copy (K7 reads
+    a map whose patches are evenly spaced; rows cut from a map of several
+    images are not). K7's depthwise halo is the neighbouring patches'
+    expand output, made with their own w1: with the neighbour's patch row
+    and its weights in the slab, the band's edge patches read the real
+    values, and the attached rows' own outputs, whose halo the kernel
+    reflects at the slab's border, are cropped. kw: patch_invres_v01's."""
+    w = w.contiguous()
+    return _band(lambda: patch_invres_v01(x, w, **kw), x, w.shape[1], top, bottom)
+
+
+def patch_invres_v01_band_plain(x, w, *, top=0, bottom=0, **kw):
+    """Plain version of patch_invres_v01_band: the twin on the slab."""
+    return _band(lambda: patch_invres_v01_plain(x, w, **kw), x, w.shape[1], top, bottom)

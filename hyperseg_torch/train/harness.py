@@ -8,7 +8,8 @@ from seed 0 in training mode, `synthetic_batch` makes a seeded training
 batch, `trainer` the config's train step (train/step.py with the recipe's
 Adam, PolyLR and bootstrapped CE), and `timed_steps` times steps of it by
 CUDA events, `deterministic` runs them on deterministic algorithms, and
-`ddp_rank_step` is one rank's data-parallel step. chip_smoke.py (which
+`ddp_rank_step` is one rank's data-parallel step, `spatial_rank` one rank's
+spatially sharded forwards, pyramids and steps. chip_smoke.py (which
 also exposes `MODELS`, as wall_ab.py reads it from each tree it compares),
 train/saved_memory.py and
 train/remat_sweep.py read them from here.
@@ -17,6 +18,7 @@ train/remat_sweep.py read them from here.
 from __future__ import annotations
 
 import contextlib
+import gc
 import importlib
 import time
 from dataclasses import dataclass
@@ -261,6 +263,26 @@ def _whole_on_rank0(t, mesh):
     return full if dist.get_rank() == 0 else None
 
 
+def _each_rank(values):
+    """Every rank's `values` (numbers), a list a rank in rank order, on every
+    rank: one all-reduce of a zeroed float64 buffer."""
+    import torch.distributed as dist
+    buf = torch.zeros(dist.get_world_size(), len(values), dtype=torch.float64)
+    buf[dist.get_rank()] = torch.tensor([float(v) for v in values], dtype=torch.float64)
+    dist.all_reduce(buf)
+    return buf.tolist()
+
+
+RANK_NUMBERS = ("peak_bytes", "exchanges", "halo_bytes", "all_reduces", "launches")
+
+
+def _rank_numbers(out):
+    """out with `ranks`: every rank's RANK_NUMBERS (launches summed over the
+    kernels), in rank order."""
+    mine = [sum(out[k].values()) if k == "launches" else out[k] for k in RANK_NUMBERS]
+    return dict(out, ranks=_each_rank(mine))
+
+
 def _compared(got, want, classes=False):
     """max abs error, the largest magnitude, rel L2 and finiteness of `got`
     against `want` (and argmax agreement over dim 1 for logits)."""
@@ -282,11 +304,14 @@ def spatial_eval_rank(device, *, key, state, x, n_data, n_spatial):
     the mapper, the decoder), so that, stage by stage, rank 0 can hold the
     gathered bands against it: the logits, the stride-2 and stride-4
     features, and the sharded decoder on the bands of the one-process
-    features and signal (what the bfloat16 gates read: a calibrated
-    random-weight net amplifies bfloat16 rounding through its depth). The
+    features and signal, or, for the v0_1 family, weight maps (what the
+    bfloat16 gates read: a calibrated random-weight net amplifies bfloat16
+    rounding through its depth). The
     logits' floor: in float32 the one-process forward of the image one
     float32 ulp away (x * (1 + 2^-22)), in bfloat16 the one-process
-    bfloat16 logits against the float32 ones. Returns rank 0's numbers."""
+    bfloat16 logits against the float32 ones. Returns rank 0's numbers, with
+    every rank's peak, exchanges, halo bytes, all-reduces and launches a
+    forward under `ranks` (RANK_NUMBERS)."""
     import torch.distributed as dist
     from hyperseg_torch.nn.modules import cast_weights
     from hyperseg_torch.ops.kernels import LAUNCHES
@@ -310,6 +335,7 @@ def spatial_eval_rank(device, *, key, state, x, n_data, n_spatial):
             with SP.spatial_parallel(mesh):
                 model(xb)                                  # plans and caches
                 torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
                 LAUNCHES.clear()
                 with collective_counter() as counts:
                     t0 = time.perf_counter()
@@ -317,24 +343,27 @@ def spatial_eval_rank(device, *, key, state, x, n_data, n_spatial):
                     torch.cuda.synchronize()
                     ms = 1e3 * (time.perf_counter() - t0)
                 launches = {n: c for n, c in LAUNCHES.items() if c}
+                peak = torch.cuda.max_memory_allocated()
             # the one-process forward, its parts kept
             LAUNCHES.clear()
             ref_feats = model.backbone(xf)
             ref_s = model.weight_mapper(ref_feats[-1])
             ref = model.decoder([xf] + ref_feats[:-1], ref_s)
             one_launches = {n: c for n, c in LAUNCHES.items() if c}
+            # the v0_1 mapper's maps are whole on every rank of a spatial group
+            s = PM.shard_batch(mesh, ref_s, sharding=PM.data_sharded(mesh) if isinstance(
+                ref_s, list) else sharding)
             with SP.spatial_parallel(mesh):
                 feats = model.backbone(xb)
                 dec = model.decoder([xb] + [PM.shard_batch(mesh, f, sharding=sharding)
-                                            for f in ref_feats[:-1]],
-                                    PM.shard_batch(mesh, ref_s, sharding=sharding))
+                                            for f in ref_feats[:-1]], s)
             floor = None
             if rank0 and dtype == torch.float32:
                 floor = model((x * (1 + 2 ** -22)).to(device, dtype)).float().cpu()
         got = {name: _whole_on_rank0(t, mesh) for name, t in
                (("logits", y), ("stride 2", feats[0]), ("stride 4", feats[1]), ("decoder", dec))}
-        numbers = dict(launches=launches, one_launches=one_launches, ms=ms,
-                       band=tuple(xb.shape), **counts)
+        numbers = _rank_numbers(dict(launches=launches, one_launches=one_launches, ms=ms,
+                                     band=tuple(xb.shape), peak_bytes=peak, **counts))
         if rank0:
             want = {"logits": ref, "stride 2": ref_feats[0], "stride 4": ref_feats[1],
                     "decoder": ref}
@@ -358,8 +387,8 @@ def spatial_rank_step(device, *, key, batch, res, n_data, n_spatial, timed):
     (mesh.py shard_batch), the step under spatial_parallel with the model in
     DistributedDataParallel over the world. Also returns the rank's peak
     device memory over the deterministic step, its kernel launches, and its
-    exchanges and all-reduces a step (collective_counter); its ms (host
-    clock) lead `ms`."""
+    exchanges and all-reduces a step (collective_counter), and every rank's
+    under `ranks` (RANK_NUMBERS); its ms (host clock) lead `ms`."""
     from hyperseg_torch.ops.kernels import LAUNCHES
     from hyperseg_torch.parallel import distributed as D
     from hyperseg_torch.parallel import mesh as PM
@@ -384,9 +413,9 @@ def spatial_rank_step(device, *, key, batch, res, n_data, n_spatial, timed):
     peak = torch.cuda.max_memory_allocated()
     launches = {n: c for n, c in LAUNCHES.items() if c}
     loss = D.all_reduce_(loss) / world
-    out = dict(loss=loss.item(), generator=gen.get_state(), peak_bytes=peak,
-               launches=launches, band=tuple(img.shape), **counts,
-               state={k: v.detach().cpu() for k, v in model.state_dict().items()},
+    out = _rank_numbers(dict(loss=loss.item(), generator=gen.get_state(), peak_bytes=peak,
+                             launches=launches, band=tuple(img.shape), **counts))
+    out.update(state={k: v.detach().cpu() for k, v in model.state_dict().items()},
                grads={k: p.grad.cpu() for k, p in model.named_parameters()
                       if p.grad is not None}, ms=[first_ms])
     with SP.spatial_parallel(mesh):
@@ -397,8 +426,66 @@ def spatial_rank_step(device, *, key, batch, res, n_data, n_spatial, timed):
     return out
 
 
-def spatial_rank(device, *, eval_kw, step_kw):
-    """spatial_eval_rank, then spatial_rank_step, in one rank."""
-    ev = spatial_eval_rank(device, **eval_kw)
-    torch.cuda.empty_cache()
-    return dict(eval=ev, step=spatial_rank_step(device, **step_kw))
+def spatial_pyramid_rank(device, *, key, state, x, n_spatial, levels):
+    """One rank's spatially sharded forward_pyramid of model `key` (built on
+    `device`, weights `state`, inference_hflip on) over a `levels`-level
+    create_pyramid of the NCHW batch x (CPU), float32, eager, each level the
+    rank's band on a 1 x n_spatial mesh of the running group: its launches,
+    exchanges and peak a call (every rank's under `ranks`), the levels that
+    ran whole (hypergen.WHOLE_LEVELS), and on rank 0 the gathered output
+    against one process's forward_pyramid of the whole pyramid (max abs
+    error, rel L2, argmax agreement)."""
+    import torch.distributed as dist
+    from hyperseg_torch.models import hypergen
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.parallel import mesh as PM
+    from hyperseg_torch.parallel import spatial as SP
+    from hyperseg_torch.utils.img_utils import create_pyramid
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = MODELS[key]
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
+    model = factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, **cfg.kw)
+    model.load_state_dict(state)
+    model.inference_hflip = True
+    mesh = PM.make_mesh(1, n_spatial, devices=[device] * n_spatial)
+    pyramid = create_pyramid(x.to(device), levels)
+    bands = PM.shard_batch(mesh, pyramid, sharding=PM.data_sharded(mesh, spatial_dim=2))
+    with torch.no_grad():
+        with SP.spatial_parallel(mesh):
+            model.forward_pyramid(bands)                   # plans and caches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            LAUNCHES.clear()
+            hypergen.WHOLE_LEVELS.clear()
+            with collective_counter() as counts:
+                t0 = time.perf_counter()
+                y = model.forward_pyramid(bands)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+        out = _rank_numbers(dict(launches={n: c for n, c in LAUNCHES.items() if c}, ms=ms,
+                                 whole_levels=sorted(hypergen.WHOLE_LEVELS),
+                                 bands=[tuple(b.shape) for b in bands],
+                                 peak_bytes=torch.cuda.max_memory_allocated(), **counts))
+        got = _whole_on_rank0(y, mesh)
+        if dist.get_rank() == 0:
+            out["vs_one_process"] = _compared(got, model.forward_pyramid(pyramid).float().cpu(),
+                                              classes=True)
+    dist.barrier()
+    return out
+
+
+def spatial_rank(device, *, evals=(), pyramids=(), steps=()):
+    """In one rank: spatial_eval_rank for each of `evals`, then
+    spatial_pyramid_rank for each of `pyramids`, then spatial_rank_step for
+    each of `steps` (each a dict of keywords), the card's cache emptied
+    between them."""
+    out = {}
+    for name, fn, kws in (("eval", spatial_eval_rank, evals),
+                          ("pyramid", spatial_pyramid_rank, pyramids),
+                          ("step", spatial_rank_step, steps)):
+        out[name] = []
+        for kw in kws:
+            out[name].append(fn(device, **kw))
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out

@@ -21,8 +21,10 @@ mesh: the ops on 2 and 4 bands, the model on 1x2 and 2x2. In float64:
     full-map routes;
   * the bootstrapped CE over two bands: ties at the k-th loss, k >= n, kk
     from the image's count, and the branch above the threshold;
-  * the band geometry's ValueErrors, and the unify and v0_1 decoders,
-    forward_pyramid and the graphed predictor refusing a spatial context.
+  * the band geometry's ValueErrors, and what refuses a spatial context:
+    the graphed predictor and a pyramid level whose band does not divide
+    level 0's (the unify and v0_1 families and forward_pyramid on bands:
+    tests/test_torch_spatial_{unify,v01,pyramid}.py).
 """
 
 import os
@@ -59,11 +61,6 @@ def rel(a, b):
     return float((a - b).norm() / b.norm())
 
 
-def rel_l2(got, want, keys):
-    num = sum(float((got[k].double() - want[k].double()).square().sum()) for k in keys)
-    return (num / sum(float(want[k].double().square().sum()) for k in keys)) ** 0.5
-
-
 def fake_group(index=0, n=2):
     """A SpatialGroup without a process group, for what raises before any
     collective."""
@@ -74,11 +71,6 @@ def fake_group(index=0, n=2):
 # the ops, on 2 and 4 bands
 # ---------------------------------------------------------------------------
 
-def _bn(rng, c):
-    return tuple(torch.from_numpy(a) for a in (rng.rand(c) + 0.5, rng.randn(c) * 0.1,
-                                               rng.randn(c) * 0.1, rng.rand(c) + 0.5))
-
-
 def _unit(rng, k, b=2, cin=6, hidden=8, out_ch=6, fh=8, fw=3, ph=8, pw=8, sig=16, groups=2):
     from hyperseg_torch.ops.kernels import patch_invres as PI
     p = PI.hyper_params(cin, hidden, out_ch, k)
@@ -86,7 +78,8 @@ def _unit(rng, k, b=2, cin=6, hidden=8, out_ch=6, fh=8, fw=3, ph=8, pw=8, sig=16
     return dict(x=rng.randn(b, cin, fh * ph, fw * pw), s=rng.randn(b, sig, fh, fw),
                 w_s2w=rng.randn(n_out, sig // groups, 1, 1) * 0.2, groups=groups,
                 map=rng.randn(b, fh, fw, p) * 0.3, hidden=hidden, out_ch=out_ch,
-                bn1=_bn(rng, hidden), bn2=_bn(rng, hidden), bn3=_bn(rng, out_ch))
+                bn1=R.bn_params(rng, hidden), bn2=R.bn_params(rng, hidden),
+                bn3=R.bn_params(rng, out_ch))
 
 
 def _cases(seed=0):
@@ -99,10 +92,11 @@ def _cases(seed=0):
     w_dw["pw"] = rng.randn(2, 2 * 4, 8, 3)
     dy = {(k, s, pt): rng.randn(2, 4, 64 // s, 24 // s) for k, s, (pt, _) in R.CONVS}
     ops_case = dict(x=x, dy=dy, w_dw=w_dw, dy_mean=rng.randn(2, 4))
-    slab_case = dict(img=rng.randn(2, 3, 64, 40), w_stem=rng.randn(8, 3, 3, 3), bn_stem=_bn(rng, 8),
-                     x=rng.randn(2, 6, 64, 20), w_dw=rng.randn(6, 1, 3, 3), bn=_bn(rng, 6),
+    slab_case = dict(img=rng.randn(2, 3, 64, 40), w_stem=rng.randn(8, 3, 3, 3),
+                     bn_stem=R.bn_params(rng, 8), x=rng.randn(2, 6, 64, 20),
+                     w_dw=rng.randn(6, 1, 3, 3), bn=R.bn_params(rng, 6),
                      w_exp=rng.randn(12, 6, 1, 1), w_dw_mid=rng.randn(12, 1, 3, 3),
-                     bn_mid=_bn(rng, 12), unit3=_unit(rng, 3), unit5=_unit(rng, 5))
+                     bn_mid=R.bn_params(rng, 12), unit3=_unit(rng, 3), unit5=_unit(rng, 5))
     return exchange_case, ops_case, slab_case
 
 
@@ -193,21 +187,8 @@ def tiny():
     """The tiny model's seed-0 weights, perturbed (numpy RandomState(0)) so
     that the zero-initialized head does not make the logits 0, and a batch:
     an image in [-1, 1) and labels with rows of 255 across the bands' edge."""
-    from hyperseg_torch.models import hyperseg_v1_0
-    model = hyperseg_v1_0.hyperseg_efficientnet("efficientnet-b0", device="cpu", train=True,
-                                                **R.TINY_KW)
-    rs = np.random.RandomState(0)
-    state = {}
-    for k, v in model.state_dict().items():
-        v = v.numpy()
-        if v.dtype.kind == "f" and not k.endswith("running_var"):
-            v = (v + rs.randn(*v.shape) * 0.05).astype(v.dtype)
-        state[k] = v
-    b, (h, w) = R.TINY_BATCH, R.TINY_HW
-    img = np.random.RandomState(1).rand(b, 3, h, w) * 2 - 1
-    lbl = np.random.RandomState(2).randint(0, R.TINY_KW["num_classes"], (b, h, w))
-    lbl[:, h // 2 - 2:h // 2 + 2] = 255
-    kw = dict(state=state, img=img, lbl=lbl)
+    img, lbl = R.tiny_batch(R.TINY_KW["num_classes"])
+    kw = dict(state=R.tiny_state("v1_0"), img=img, lbl=lbl)
     one = R.model_runs("cpu", routes=("gather", "fullmap"), **kw)
     return kw, one
 
@@ -242,10 +223,10 @@ def test_tiny_step_equals_one_process(tiny_runs, route):
     assert abs(got["loss"] - one["loss"]) <= STEP * abs(one["loss"])
     params = [k for k in one["state"] if not k.endswith(("running_mean", "running_var"))]
     stats = [k for k in one["state"] if k not in params]
-    moved = rel_l2(one["state"], {k: torch.from_numpy(kw["state"][k]) for k in params}, params)
+    moved = R.rel_l2(one["state"], {k: torch.from_numpy(kw["state"][k]) for k in params}, params)
     assert moved > 1e-4, "the step did not move the parameters"
-    assert rel_l2(got["state"], one["state"], params) <= STEP
-    assert rel_l2(got["state"], one["state"], stats) <= STEP
+    assert R.rel_l2(got["state"], one["state"], params) <= STEP
+    assert R.rel_l2(got["state"], one["state"], stats) <= STEP
     assert torch.equal(got["generator"], one["generator"])
     assert torch.equal(got["confmat"], one["confmat"])
 
@@ -329,22 +310,17 @@ def test_band_geometry_errors():
 
 
 def test_unify_v01_pyramid_and_graph_refuse_spatial():
+    """What still refuses a spatial context (the unify and v0_1 families and
+    forward_pyramid run on bands: tests/test_torch_spatial_{unify,v01,
+    pyramid}.py): the graphed predictor, and a pyramid level run on bands
+    whose band is not a whole part of level 0's, before any level runs."""
     from hyperseg_torch.core.predictor import graphed
-    from hyperseg_torch.models import hyperseg_v0_1, hyperseg_v1_0, hyperseg_v1_0_unify
-    unify = hyperseg_v1_0_unify.hyperseg_efficientnet(
-        "efficientnet-b0", device="cpu", levels=2, kernel_sizes=[1, 3], level_channels=[8, 8],
-        expand_ratio=2, weight_groups=[8, 8], unify_level=2, num_classes=3)
-    v01 = hyperseg_v0_1.hyperseg_efficientnet("efficientnet-b0", device="cpu", levels=2,
-                                              kernel_sizes=(1, 1, 1, 1, 3, 3), expand_ratio=2,
-                                              weight_groups=8, num_classes=3)
+    from hyperseg_torch.models import hyperseg_v1_0
     v1 = hyperseg_v1_0.hyperseg_efficientnet("efficientnet-b0", device="cpu", **R.TINY_KW)
     with F.spatial(fake_group()):
-        for what, call in (("MultiScaleDecoderUnify", lambda: unify.decoder(None, None)),
-                           ("MultiScaleDecoderV0", lambda: v01.decoder(None, None)),
-                           ("WeightMapperV0", lambda: v01.weight_mapper(None)),
-                           ("forward_pyramid", lambda: v1.forward_pyramid([None]))):
-            with pytest.raises(NotImplementedError, match=f"{what}: .*ROADMAP Queue 1 item 5"):
-                call()
+        with pytest.raises(ValueError, match="level 1's band of 64 rows is not a whole part "
+                                             "of level 0's band of 96 rows"):
+            v1.forward_pyramid([torch.zeros(1, 3, 96, 64), torch.zeros(1, 3, 64, 64)])
         with pytest.raises(ValueError, match="spatially sharded forward runs eager"):
             graphed(v1, torch.zeros(1, 3, 64, 64))
 

@@ -12,6 +12,9 @@ over the ranks comes back whole through `whole` (each rank writes its part
 into zeros, and an all-reduce over the world sums them).
 """
 
+import importlib
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -24,6 +27,19 @@ from hyperseg_torch.parallel import spatial as SP
 TINY_KW = dict(levels=2, kernel_sizes=[1, 3], level_channels=[16, 16], expand_ratio=2,
                weight_groups=[8, 8], num_classes=5)
 TINY_BATCH, TINY_HW = 4, (64, 128)
+# the unify and v0_1 families at the same size (tests/test_torch_spatial.py's
+# refusal configs until they ran on bands): a k=1 level, then a k=3 level on
+# K1's generation and K2 (unify), or two k=3 levels on K7 (v0_1)
+UNIFY_KW = dict(levels=2, kernel_sizes=[1, 3], level_channels=[8, 8], expand_ratio=2,
+                weight_groups=[8, 8], unify_level=2, num_classes=3)
+V01_KW = dict(levels=2, kernel_sizes=(1, 1, 1, 1, 3, 3), expand_ratio=2, weight_groups=8,
+              num_classes=3)
+FAMILIES = {"v1_0": ("hyperseg_v1_0", TINY_KW), "unify": ("hyperseg_v1_0_unify", UNIFY_KW),
+            "v0_1": ("hyperseg_v0_1", V01_KW)}
+# forward_pyramid's model: TINY_KW with a one-level weight mapper, whose
+# head feature may be 1x1 (a 32-row pyramid level; two levels' 2x2 down conv
+# needs 2x2)
+PYRAMID_KW = dict(TINY_KW, levels=1)
 DROP_CONNECT = DROPOUT = 0.3
 
 # the ops with a spatial extent, as (kernel, stride, (top, bottom) pad): the
@@ -173,20 +189,24 @@ def kernel_slabs(device, *, inputs, n_spatial):
     return out
 
 
-def tiny_model(state, dtype, train=False, kw=TINY_KW, backbone="efficientnet-b0"):
-    from hyperseg_torch.models import hyperseg_v1_0
-    model = hyperseg_v1_0.hyperseg_efficientnet(backbone, device="cpu", train=train, **kw)
+def tiny_model(state, dtype, train=False, kw=None, backbone="efficientnet-b0",
+               family="v1_0"):
+    """The model of `family` (FAMILIES) with `kw` (the family's by default)
+    and the weights `state`."""
+    factory = importlib.import_module(f"hyperseg_torch.models.{FAMILIES[family][0]}")
+    model = factory.hyperseg_efficientnet(backbone, device="cpu", train=train,
+                                          **(kw or FAMILIES[family][1]))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     return model.to(getattr(torch, dtype))
 
 
 def forward(device, *, state, img, n_data=1, n_spatial=1, dtype="float64",
-            kw=TINY_KW, backbone="efficientnet-b0"):
+            kw=None, backbone="efficientnet-b0", family="v1_0"):
     """The eval forward of the model from `state` on this rank's part of the
     NCHW batch `img`, under spatial_parallel on an (n_data, n_spatial) mesh
     (no group: the whole batch). Returns the logits whole."""
     mesh = mesh_of(n_data, n_spatial)
-    model = tiny_model(state, dtype, kw=kw, backbone=backbone)
+    model = tiny_model(state, dtype, kw=kw, backbone=backbone, family=family)
     x = part(mesh, img).to(getattr(torch, dtype))
     with torch.no_grad(), SP.spatial_parallel(mesh):
         y = model(x)
@@ -194,7 +214,8 @@ def forward(device, *, state, img, n_data=1, n_spatial=1, dtype="float64",
 
 
 def step(device, *, state, img, lbl, n_data=1, n_spatial=1, dtype="float64", drop=True,
-         route="gather", lr=1e-3, kw=TINY_KW, backbone="efficientnet-b0", k=64):
+         route="gather", lr=1e-3, kw=None, backbone="efficientnet-b0", k=64,
+         family="v1_0"):
     """One training step of the model from `state` on this rank's part of
     (img, lbl), in DistributedDataParallel over the world under
     spatial_parallel (the model alone without a group), the generator seeded
@@ -211,13 +232,13 @@ def step(device, *, state, img, lbl, n_data=1, n_spatial=1, dtype="float64", dro
     for name, value in P.ROUTES[route].items():
         setattr(P, name, value)
     mesh = mesh_of(n_data, n_spatial)
-    model = tiny_model(state, dtype, train=True, kw=kw, backbone=backbone)
+    model = tiny_model(state, dtype, train=True, kw=kw, backbone=backbone, family=family)
     model.backbone.drop_connect_rate = DROP_CONNECT if drop else 0.0
     model.backbone.dropout_rate = DROPOUT if drop else 0.0
     net = D.wrap_model(model, device) if dist.is_initialized() else model
     opt, sched = T.make_optimizer(model.parameters(), S.poly_lr(lr, 100))
     train_step = T.make_train_step(net, L.BootstrappedCrossEntropyLoss(k=k, ignore_index=255),
-                                   opt, sched, num_classes=kw["num_classes"])
+                                   opt, sched, num_classes=model.decoder.num_classes)
     masks, keep_mask = [], F._keep_mask
 
     def spy(shape, keep, generator, like):
@@ -260,16 +281,147 @@ def ops(device, *, exchange_case, ops_case, slab_case, n_spatial):
                 slabs=kernel_slabs(device, n_spatial=n_spatial, inputs=slab_case))
 
 
-def model_runs(device, *, state, img, lbl, n_data=1, n_spatial=1, routes=("gather",)):
-    """forward, then a step on each training route, in one rank."""
-    out = dict(forward=forward(device, state=state, img=img, n_data=n_data,
-                               n_spatial=n_spatial))
+def model_runs(device, *, state, img, lbl, n_data=1, n_spatial=1, routes=("gather",),
+               family="v1_0"):
+    """forward, then a step on each training route, in one rank, of the
+    tiny model of `family`."""
+    kw = dict(state=state, img=img, n_data=n_data, n_spatial=n_spatial, family=family)
+    out = dict(forward=forward(device, **kw))
     for route in routes:
-        out[route] = step(device, state=state, img=img, lbl=lbl, n_data=n_data,
-                          n_spatial=n_spatial, route=route)
+        out[route] = step(device, lbl=lbl, route=route, **kw)
     return out
 
 
 def bootstrapped_cases(device, *, cases, n_spatial=1):
     """bootstrapped on each case in turn."""
     return [bootstrapped(device, n_spatial=n_spatial, **c) for c in cases]
+
+
+def tiny_state(family, backbone="efficientnet-b0", kw=None):
+    """The seed-0 weights of the tiny model of `family` (numpy), perturbed
+    with numpy's RandomState(0) so that the zero-initialized heads do not
+    make the logits 0."""
+    factory = importlib.import_module(f"hyperseg_torch.models.{FAMILIES[family][0]}")
+    model = factory.hyperseg_efficientnet(backbone, device="cpu", train=True,
+                                          **(kw or FAMILIES[family][1]))
+    rs = np.random.RandomState(0)
+    state = {}
+    for k, v in model.state_dict().items():
+        v = v.numpy()
+        if v.dtype.kind == "f" and not k.endswith("running_var"):
+            v = (v + rs.randn(*v.shape) * 0.05).astype(v.dtype)
+        state[k] = v
+    return state
+
+
+def tiny_batch(num_classes, b=TINY_BATCH, hw=TINY_HW):
+    """An image in [-1, 1) and labels with rows of 255 across the bands' edge."""
+    h, w = hw
+    img = np.random.RandomState(1).rand(b, 3, h, w) * 2 - 1
+    lbl = np.random.RandomState(2).randint(0, num_classes, (b, h, w))
+    lbl[:, h // 2 - 2:h // 2 + 2] = 255
+    return img, lbl
+
+
+def bn_params(rng, c):
+    """A BN's (weight, bias, running mean, running variance) from `rng`."""
+    return tuple(torch.from_numpy(a) for a in (rng.rand(c) + 0.5, rng.randn(c) * 0.1,
+                                               rng.randn(c) * 0.1, rng.rand(c) + 0.5))
+
+
+def unit_kw(u):
+    """The unit keywords of a slab case `u`."""
+    return dict(hidden=u["hidden"], out_ch=u["out_ch"], bn1=u["bn1"], bn2=u["bn2"],
+                bn3=u["bn3"])
+
+
+def v01_slabs(device, *, unit, n_spatial):
+    """K7's plain slab form on this rank's band of unit["x"]: the slab made by
+    nn.functional.band_slab with a whole patch row of each neighbouring
+    band, the map's rows of the slab's patch rows cut from the whole map
+    (decoder.band_map), as V01InvResUnit takes them. Returns the output
+    whole."""
+    from hyperseg_torch.models.decoder import band_map
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+    mesh = mesh_of(1, n_spatial)
+    w = torch.from_numpy(unit["map"])
+    ph = unit["x"].shape[2] // w.shape[1]
+    with SP.spatial_parallel(mesh) as sg:
+        xs, top, bottom = F.band_slab(part(mesh, unit["x"]), ph, ph)
+        y = PI.patch_invres_v01_band_plain(xs, band_map(w, sg, top // ph, bottom // ph),
+                                           top=top // ph, bottom=bottom // ph, **unit_kw(unit))
+    return whole(mesh, y)
+
+
+def unify_slabs(device, *, unit, n_spatial):
+    """The unify decoder's eval path in plain forms on this rank's band: K1's
+    generation on the signal's slab (a patch row of each neighbouring band)
+    from a channel slice of it, the map's band rows (what the 1x1 levels
+    read), and K2's slab form on that map. Returns the unit's output and
+    the band rows of the map, whole."""
+    from hyperseg_torch.ops.kernels import patch_invres as PI
+    mesh = mesh_of(1, n_spatial)
+    ph = unit["x"].shape[2] // unit["s"].shape[2]
+    with SP.spatial_parallel(mesh):
+        ss, top, bottom = F.band_slab(part(mesh, unit["s"]), 1, 1)
+        m = PI.s2w_generate_plain(ss.contiguous()[:, unit["sig_index"]:],
+                                  torch.from_numpy(unit["w_s2w"]),
+                                  groups=unit["groups"], p=unit["p"])
+        xs, _, _ = F.band_slab(part(mesh, unit["x"]), ph, ph)
+        y = PI.patch_invres_band_plain(xs, m, top=top, bottom=bottom, **unit_kw(unit))
+    return dict(unit=whole(mesh, y), map=whole(mesh, m[:, top:m.shape[1] - bottom], dim=1))
+
+
+def family_runs(device, *, model_kw, slabs, unit):
+    """model_runs on its mesh, then `slabs` ("v01_slabs" or "unify_slabs")
+    with the world as one image's bands (a 1 x world mesh), in one rank."""
+    out = model_runs(device, **model_kw)
+    out["slabs"] = globals()[slabs](device, unit=unit, n_spatial=D.get_world_size())
+    return out
+
+
+def rel_l2(got, want, keys):
+    """The relative L2 distance of `got` from `want` over the tensors `keys`."""
+    num = sum(float((got[k].double() - want[k].double()).square().sum()) for k in keys)
+    return (num / sum(float(want[k].double().square().sum()) for k in keys)) ** 0.5
+
+
+def step_errors(one, got, start):
+    """A sharded step `got` against one process's `one`, from the weights
+    `start` (numpy): the loss's relative error, the parameters' and the
+    running statistics' rel L2, and how far one process moved the
+    parameters."""
+    params = [k for k in one["state"] if not k.endswith(("running_mean", "running_var"))]
+    stats = [k for k in one["state"] if k not in params]
+    return dict(loss=abs(got["loss"] - one["loss"]) / abs(one["loss"]),
+                params=rel_l2(got["state"], one["state"], params),
+                stats=rel_l2(got["state"], one["state"], stats),
+                moved=rel_l2(one["state"], {k: torch.from_numpy(start[k]) for k in params},
+                             params))
+
+
+def pyramid(device, *, state, img, n_spatial=1, levels=3, gathers=("mean", "max")):
+    """forward_pyramid of the PYRAMID_KW model from `state` with hflip on, over
+    a `levels`-level create_pyramid of `img`, each level this rank's band,
+    under spatial_parallel on a 1 x n_spatial mesh, once with each
+    `inference_gather`. Returns each output whole, the levels that ran
+    whole (hypergen.WHOLE_LEVELS) and the bands' shapes."""
+    from hyperseg_torch.models import hypergen
+    from hyperseg_torch.utils.img_utils import create_pyramid
+    mesh = mesh_of(1, n_spatial)
+    model = tiny_model(state, "float64", kw=PYRAMID_KW)
+    model.inference_hflip = True
+    bands = [part(mesh, x) for x in create_pyramid(torch.from_numpy(img), levels)]
+    out = dict(bands=[tuple(x.shape) for x in bands])
+    for gather in gathers:
+        model.inference_gather = gather
+        hypergen.WHOLE_LEVELS.clear()
+        with torch.no_grad(), SP.spatial_parallel(mesh):
+            out[gather] = whole(mesh, model.forward_pyramid(bands))
+        out[f"{gather} whole levels"] = dict(hypergen.WHOLE_LEVELS)
+    return out
+
+
+def forwards(device, *, cases):
+    """forward on each case in turn (a dict of its keywords), in one rank."""
+    return [forward(device, **c) for c in cases]
