@@ -1993,26 +1993,40 @@ def kernels_under(roots):
     return out
 
 
+# the names of the port's recorder spans (hyperseg_torch/utils/trace.py) and
+# of step_profile's own layer ranges: profiler ranges, never device kernels
+RANGE_PREFIXES = ("train_step.", "model.", "kernel.", "kernels.", "graph.", "replay.", "layer:")
+
+
 def annotation(e):
     """Whether a profiler event is a profiler range (its span, not a kernel)."""
-    return (getattr(e, "is_user_annotation", False)
-            or e.key.startswith(("train_step.", "layer:")))
+    return getattr(e, "is_user_annotation", False) or e.key.startswith(RANGE_PREFIXES)
 
 
 def step_profile(model, step, img, lbl, gen, tag, level):
     """One more step under torch.profiler: device time per step, split by
-    the step's profiler ranges (forward, optimizer and metrics by the
-    kernels their own ops launch; backward the rest: autograd launches from
-    its own thread) and by layer (`layer_roots`), the kernels that take most
-    of the step, and those that take most of decoder `level`, forward and
-    backward."""
+    the step's spans (forward, optimizer and metrics by the kernels their
+    own ops launch; backward the rest: autograd launches from its own
+    thread) and by layer (`layer_roots`), the kernels that take most of the
+    step, and those that take most of decoder `level`, forward and
+    backward. The step's spans are the port's recorder's, which reach the
+    profiler only while the recorder is on: it is on for this step alone.
+    A step whose spans are missing fails the smoke."""
     from torch.profiler import ProfilerActivity, profile
 
+    from hyperseg_torch.utils import trace
+
     undo = layer_ranges(model)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        step(img, lbl, gen)
-        torch.cuda.synchronize()
-    undo()
+    trace.reset()
+    trace.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(img, lbl, gen)
+            torch.cuda.synchronize()
+    finally:
+        trace.disable()
+        trace.reset()
+        undo()
     events = prof.events()
     cuda = torch.autograd.DeviceType.CUDA
     # device events, the profiler ranges' own spans on the device left out
@@ -2027,10 +2041,10 @@ def step_profile(model, step, img, lbl, gen, tag, level):
         ranges = [e for e in events if e.name == f"train_step.{phase}"
                   and e.device_type == torch.autograd.DeviceType.CPU]
         split[phase] = sum(e.device_time_total for e in ranges) / 1e3 if ranges else None
-    if any(v is None for v in split.values()):
-        print(f"train  {tag} profile: device {total:.3f} ms per step; the step's ranges were "
-              f"not found, split not measured", flush=True)
-        return dict(device_ms=total)
+    missing = [k for k, v in split.items() if v is None]
+    if missing:
+        fail(f"train {tag} profile: no train_step.{'/'.join(missing)} range in the step's "
+             "trace; the recorder's spans did not reach the profiler")
     split["backward"] = total - sum(split.values())
     print(f"train  {tag} profile: device {total:.3f} ms per step ({len(kernels)} device ops): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items()), flush=True)

@@ -20,6 +20,7 @@ import torch
 
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import cast_weights
+from hyperseg_torch.utils import trace
 
 GRAPH_WARMUP = 3   # eager runs on a side stream before the capture
 
@@ -45,30 +46,38 @@ def graphed(fn: Callable, *example_inputs: torch.Tensor):
     H100), and a process group's watchdog, which polls its collectives'
     events (the captured step holds no collective). A capture that fails
     raises; there is no eager fallback. Under spatial sharding it raises
-    ValueError: such a forward runs eager."""
+    ValueError: such a forward runs eager.
+
+    The warm-ups and the capture are the recorder's span "graph.capture"
+    (utils/trace.py), a replay's input copies and its launch the spans
+    "replay.copy_in" and "replay.launch"."""
     if F.spatial_group() is not None:
         raise ValueError("graphed: a spatially sharded forward runs eager (its gloo halo "
                          "exchanges cannot be captured); ROADMAP Queue 2 H3")
     static = [x.clone() for x in example_inputs]
     if any(x.device.type != "cuda" for x in static):
         raise ValueError("graphed: the inputs must be CUDA tensors")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(GRAPH_WARMUP):
-            fn(*static)
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
-        out = fn(*static)
+    with trace.span("graph.capture"):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP):
+                fn(*static)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side, capture_error_mode="thread_local"):
+            out = fn(*static)
 
     def replay(*inputs):
         for buf, x in zip(static, inputs, strict=True):
             if x.shape != buf.shape or x.dtype != buf.dtype:
                 raise ValueError(f"graphed: input {tuple(x.shape)} {x.dtype}, captured "
                                  f"for {tuple(buf.shape)} {buf.dtype}")
-            buf.copy_(x)
-        graph.replay()
+        with trace.span("replay.copy_in"):
+            for buf, x in zip(static, inputs):
+                buf.copy_(x)
+        with trace.span("replay.launch"):
+            graph.replay()
         return out
 
     replay.graph, replay.static_inputs = graph, static

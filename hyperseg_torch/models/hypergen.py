@@ -20,6 +20,7 @@ import torch
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.nn.modules import EvalModule
 from hyperseg_torch.parallel import spatial as SP
+from hyperseg_torch.utils import trace
 
 # forward_pyramid's levels run whole on every rank of a spatial group (their
 # band not a multiple of SP.BAND_MULTIPLE), counted as LAUNCHES counts kernels
@@ -47,10 +48,14 @@ class HyperGen(EvalModule):
         spatial sharding (parallel/spatial.py `spatial_parallel`) x is this
         rank's band of each image and the logits are the band's: the
         backbone and decoder run on the band, the weight mapper on the
-        gathered head feature."""
-        feats = self.backbone(x, generator)
-        s = self.weight_mapper(feats[-1])
-        return self.decoder([x] + feats[:-1], s, generator)
+        gathered head feature. Each of the three is a span of the recorder
+        (utils/trace.py): model.backbone, model.context_head, model.decoder."""
+        with trace.span("model.backbone"):
+            feats = self.backbone(x, generator)
+        with trace.span("model.context_head"):
+            s = self.weight_mapper(feats[-1])
+        with trace.span("model.decoder"):
+            return self.decoder([x] + feats[:-1], s, generator)
 
     def forward_pyramid(self, pyramid):
         """Multi-scale and optional hflip ensembling of a list of (B, 3, H,

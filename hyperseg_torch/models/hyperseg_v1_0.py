@@ -15,6 +15,7 @@ from hyperseg_torch.models.decoder import MultiScaleDecoderV1
 from hyperseg_torch.models.hypergen import HyperGen
 from hyperseg_torch.models.weight_mapper import WeightMapperV1
 from hyperseg_torch.nn.modules import init_params
+from hyperseg_torch.utils import trace
 
 # v1_0 splits the signal with divide_feature; v0_2 passes legacy_divide=True
 LEGACY_DIVIDE = False
@@ -85,16 +86,19 @@ def make_model(build, model_name, pretrained, weights_path, out_feat_scale, leve
     given) or the tensors of `weights_path` that match by key and shape,
     and set the mode: eval without gradients or, with `train`, training
     with gradients. `backbone_remat` checkpoints the backbone's blocks in
-    training."""
-    backbone = EfficientNet(model_name, out_feat_scale=out_feat_scale,
-                            remat=backbone_remat, device=device)
-    model = build(backbone, wm_levels=levels, device=device, **kwargs)
-    init_params(model, torch.Generator().manual_seed(seed))
-    if pretrained and weights_path is None:
-        load_pretrained_backbone(model, model_name, pretrained)
-    if weights_path is not None:
-        load_matching(model, weights_path)
-    return model.train().requires_grad_(True) if train else model.eval().requires_grad_(False)
+    training. All of it is the recorder's span "model.build"
+    (utils/trace.py)."""
+    with trace.span("model.build"):
+        backbone = EfficientNet(model_name, out_feat_scale=out_feat_scale,
+                                remat=backbone_remat, device=device)
+        model = build(backbone, wm_levels=levels, device=device, **kwargs)
+        init_params(model, torch.Generator().manual_seed(seed))
+        if pretrained and weights_path is None:
+            load_pretrained_backbone(model, model_name, pretrained)
+        if weights_path is not None:
+            load_matching(model, weights_path)
+        return (model.train().requires_grad_(True) if train
+                else model.eval().requires_grad_(False))
 
 
 if __name__ == "__main__":

@@ -24,6 +24,12 @@ the kernel (built at first use by build.py) or raises. Each launch adds one to
 LAUNCHES[name] (K3's raw conv counts as "stem_conv"), so a run can show that
 it went through the kernels. The training step runs only the two with a
 backward; the others fold running statistics into eval BN.
+
+Each launch, and each twin's run on the CPU, is also a span of the port's
+recorder (utils/trace.py) named "kernel." + its LAUNCHES key; while the
+recorder is on, `describe` adds the launch's arguments to it (shapes, dtypes,
+the numbers that set its work), from which a reader counts the launch's
+bytes and operations.
 """
 
 from collections import Counter
@@ -31,6 +37,23 @@ from collections import Counter
 import torch
 
 LAUNCHES: Counter = Counter()
+
+
+def describe(attrs, **args):
+    """Stamp a kernel span's attribute dict with the launch's arguments, by
+    name: a tensor as (shape, dtype name), a tuple of tensors (a BN's four)
+    as a list of those, anything else (None, a number) as it is. The port
+    counts no bytes or operations of its own: whoever reads the spans does,
+    so a change to a wrapper cannot move the yardstick it is timed by."""
+    attrs.update((k, _described(v)) for k, v in args.items())
+
+
+def _described(v):
+    if isinstance(v, torch.Tensor):
+        return tuple(v.shape), str(v.dtype).removeprefix("torch.")
+    if isinstance(v, (tuple, list)):
+        return [_described(t) for t in v]
+    return v
 
 
 def wide(t):

@@ -14,25 +14,40 @@ import os
 
 import torch
 
+from hyperseg_torch.utils import trace
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 SOURCES = ("bindings.cpp", "stem.cu", "mbconv.cu", "patch_invres.cu", "resize.cu")
 BUILD_DIR = os.path.join(_DIR, "_build")
 CUDA_FLAGS = ["-O3", "-gencode=arch=compute_90a,code=sm_90a"]
 
 
+def _library_mtime():
+    """The newest modification time of a built library in BUILD_DIR, or None."""
+    times = [e.stat().st_mtime_ns for e in os.scandir(BUILD_DIR) if e.name.endswith(".so")]
+    return max(times, default=None)
+
+
 @functools.cache
 def kernels():
-    """Compile (once per process) and return the torch.ops namespace."""
+    """Compile (once per process) and return the torch.ops namespace, under
+    the recorder's span "kernels.load", whose attribute `built` says whether
+    the compiler ran (the library is newer than before) or the built library
+    was loaded."""
     from torch.utils.cpp_extension import load
 
     os.makedirs(BUILD_DIR, exist_ok=True)
-    load(name="hyperseg_kernels",
-         sources=[os.path.join(_DIR, s) for s in SOURCES],
-         build_directory=BUILD_DIR,
-         extra_cflags=["-O2"],
-         extra_cuda_cflags=CUDA_FLAGS,
-         is_python_module=False,
-         verbose=False)
+    with trace.span("kernels.load") as attrs:
+        before = _library_mtime() if attrs is not None else None
+        load(name="hyperseg_kernels",
+             sources=[os.path.join(_DIR, s) for s in SOURCES],
+             build_directory=BUILD_DIR,
+             extra_cflags=["-O2"],
+             extra_cuda_cflags=CUDA_FLAGS,
+             is_python_module=False,
+             verbose=False)
+        if attrs is not None:
+            attrs["built"] = _library_mtime() != before
     return torch.ops.hyperseg_kernels
 
 

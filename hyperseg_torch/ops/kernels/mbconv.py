@@ -52,9 +52,10 @@ import torch
 import torch.nn.functional as TF
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.ops.kernels import LAUNCHES, wide, wide_dtype
+from hyperseg_torch.ops.kernels import LAUNCHES, describe, wide, wide_dtype
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.parallel.spatial import crop_rows
+from hyperseg_torch.utils import trace
 
 MAX_PROJECT_OUT = 32   # output channels held in registers by mbconv_project
 SMEM_LIMIT = 232448    # bytes of shared memory one block may use
@@ -119,15 +120,21 @@ def dw_plan(batch, channels, height, width):
 def mbconv_dw(x, weight, bn, eps=1e-3):
     """x: (B, C, H, W); weight: (C, 1, 3, 3); bn float32 (C,) x 4."""
     if x.device.type == "cpu":
-        return mbconv_dw_plain(x, weight, bn, eps)
-    build.check_activation("mbconv_dw x", x)
-    b, c, h, w = x.shape
-    build.check("mbconv_dw weight", weight, x.dtype, (c, 1, 3, 3))
-    build.check_bn("mbconv_dw bn", bn, c)
-    rows, _, smem = dw_plan(b, c, h, w)
-    out = torch.empty_like(x)
-    build.kernels().mbconv_dw(x, weight, *bn, float(eps), rows, smem, out)
-    LAUNCHES["mbconv_dw"] += 1
+        with trace.span("kernel.mbconv_dw") as attrs:
+            out = mbconv_dw_plain(x, weight, bn, eps)
+    else:
+        build.check_activation("mbconv_dw x", x)
+        b, c, h, w = x.shape
+        build.check("mbconv_dw weight", weight, x.dtype, (c, 1, 3, 3))
+        build.check_bn("mbconv_dw bn", bn, c)
+        rows, _, smem = dw_plan(b, c, h, w)
+        out = torch.empty_like(x)
+        ops = build.kernels()
+        with trace.span("kernel.mbconv_dw") as attrs:
+            ops.mbconv_dw(x, weight, *bn, float(eps), rows, smem, out)
+        LAUNCHES["mbconv_dw"] += 1
+    if attrs is not None:
+        describe(attrs, x=x, weight=weight, bn=bn, out=out)
     return out
 
 
@@ -187,25 +194,31 @@ def mbconv_project(h, se, weight, bn, residual=None, eps=1e-3):
     """h: (B, C, H, W); se: float32 (B, C) sigmoid scales; weight:
     (CO, C, 1, 1); bn float32 (CO,) x 4; residual: (B, CO, H, W) or None."""
     if h.device.type == "cpu":
-        return mbconv_project_plain(h, se, weight, bn, residual, eps)
-    build.check_activation("mbconv_project h", h)
-    b, c, hh, ww = h.shape
-    co = weight.shape[0]
-    if co > MAX_PROJECT_OUT:
-        raise ValueError(f"mbconv_project: {co} output channels; the kernel takes "
-                         f"at most {MAX_PROJECT_OUT}")
-    build.check("mbconv_project se", se, torch.float32, (b, c))
-    build.check("mbconv_project weight", weight, h.dtype, (co, c, 1, 1))
-    build.check_bn("mbconv_project bn", bn, co)
-    if residual is not None:
-        build.check("mbconv_project residual", residual, h.dtype, (b, co, hh, ww))
-    tile, layout = project_plan(c, hh * ww, b, h.element_size())
-    if layout[-1] > SMEM_LIMIT:
-        raise ValueError(f"mbconv_project: {c} input channels need {layout[-1]} B of "
-                         f"shared memory per block, more than {SMEM_LIMIT}")
-    out = torch.empty((b, co, hh, ww), device=h.device, dtype=h.dtype)
-    build.kernels().mbconv_project(h, se, weight, *bn, residual, float(eps), tile, layout, out)
-    LAUNCHES["mbconv_project"] += 1
+        with trace.span("kernel.mbconv_project") as attrs:
+            out = mbconv_project_plain(h, se, weight, bn, residual, eps)
+    else:
+        build.check_activation("mbconv_project h", h)
+        b, c, hh, ww = h.shape
+        co = weight.shape[0]
+        if co > MAX_PROJECT_OUT:
+            raise ValueError(f"mbconv_project: {co} output channels; the kernel takes "
+                             f"at most {MAX_PROJECT_OUT}")
+        build.check("mbconv_project se", se, torch.float32, (b, c))
+        build.check("mbconv_project weight", weight, h.dtype, (co, c, 1, 1))
+        build.check_bn("mbconv_project bn", bn, co)
+        if residual is not None:
+            build.check("mbconv_project residual", residual, h.dtype, (b, co, hh, ww))
+        tile, layout = project_plan(c, hh * ww, b, h.element_size())
+        if layout[-1] > SMEM_LIMIT:
+            raise ValueError(f"mbconv_project: {c} input channels need {layout[-1]} B of "
+                             f"shared memory per block, more than {SMEM_LIMIT}")
+        out = torch.empty((b, co, hh, ww), device=h.device, dtype=h.dtype)
+        ops = build.kernels()
+        with trace.span("kernel.mbconv_project") as attrs:
+            ops.mbconv_project(h, se, weight, *bn, residual, float(eps), tile, layout, out)
+        LAUNCHES["mbconv_project"] += 1
+    if attrs is not None:
+        describe(attrs, h=h, se=se, weight=weight, bn=bn, residual=residual, out=out)
     return out
 
 
@@ -341,21 +354,28 @@ def mbconv_expand_dw(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
     if stride not in EXPAND_PADS:
         raise ValueError(f"mbconv_expand_dw: stride {stride}; the kernel takes 1 or 2")
     if x.device.type == "cpu":
-        return mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, eps)
-    build.check_activation("mbconv_expand_dw x", x)
-    b, cin, h, w = x.shape
-    mid = w_expand.shape[0]
-    build.check("mbconv_expand_dw w_expand", w_expand, x.dtype, (mid, cin, 1, 1))
-    build.check("mbconv_expand_dw w_dw", w_dw, x.dtype, (mid, 1, 3, 3))
-    build.check_bn("mbconv_expand_dw bn0", bn0, mid)
-    build.check_bn("mbconv_expand_dw bn1", bn1, mid)
-    oh, ow = expand_dw_out_hw(h, w, stride)
-    if oh < 1 or ow < 1:
-        raise ValueError(f"mbconv_expand_dw: input {h}x{w} too small for stride {stride}")
-    th, tw, cc, layout = expand_dw_plan(oh, ow, stride, cin, mid, b, x.element_size())
-    (pt, _), (pl, _) = EXPAND_PADS[stride]
-    out = torch.empty((b, mid, oh, ow), device=x.device, dtype=x.dtype)
-    build.kernels().mbconv_expand_dw(x, w_expand, [*bn0, *bn1], w_dw, float(eps),
-                                     stride, pt, pl, th, tw, cc, layout, out)
-    LAUNCHES["mbconv_expand_dw"] += 1
+        with trace.span("kernel.mbconv_expand_dw") as attrs:
+            out = mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, eps)
+    else:
+        build.check_activation("mbconv_expand_dw x", x)
+        b, cin, h, w = x.shape
+        mid = w_expand.shape[0]
+        build.check("mbconv_expand_dw w_expand", w_expand, x.dtype, (mid, cin, 1, 1))
+        build.check("mbconv_expand_dw w_dw", w_dw, x.dtype, (mid, 1, 3, 3))
+        build.check_bn("mbconv_expand_dw bn0", bn0, mid)
+        build.check_bn("mbconv_expand_dw bn1", bn1, mid)
+        oh, ow = expand_dw_out_hw(h, w, stride)
+        if oh < 1 or ow < 1:
+            raise ValueError(f"mbconv_expand_dw: input {h}x{w} too small for stride {stride}")
+        th, tw, cc, layout = expand_dw_plan(oh, ow, stride, cin, mid, b, x.element_size())
+        (pt, _), (pl, _) = EXPAND_PADS[stride]
+        out = torch.empty((b, mid, oh, ow), device=x.device, dtype=x.dtype)
+        ops = build.kernels()
+        with trace.span("kernel.mbconv_expand_dw") as attrs:
+            ops.mbconv_expand_dw(x, w_expand, [*bn0, *bn1], w_dw, float(eps), stride, pt, pl,
+                                 th, tw, cc, layout, out)
+        LAUNCHES["mbconv_expand_dw"] += 1
+    if attrs is not None:
+        describe(attrs, x=x, w_expand=w_expand, bn0=bn0, w_dw=w_dw, bn1=bn1, stride=stride,
+                 out=out)
     return out

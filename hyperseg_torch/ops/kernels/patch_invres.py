@@ -55,9 +55,10 @@ import torch.nn.functional as TF
 
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.ops import patch as P
-from hyperseg_torch.ops.kernels import LAUNCHES, wide
+from hyperseg_torch.ops.kernels import LAUNCHES, describe, wide
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.parallel.spatial import crop_rows
+from hyperseg_torch.utils import trace
 
 MAX_OUT = 32                 # output channels a unit block holds per pixel
 MAX_HIDDEN = 512             # hidden channels of the unit: one pair a thread
@@ -284,33 +285,41 @@ def patch_invres(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5, kernel=3):
     halo, stride 1, relu6, + x when Cin == out_ch. Returns (B, out_ch, H,
     W)."""
     if x.device.type == "cpu":
-        return patch_invres_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1,
-                                  bn2=bn2, bn3=bn3, eps=eps, kernel=kernel)
-    name = "patch_invres"
-    build.check_activation(f"{name} x", x)
-    b, cin, h, wd = x.shape
-    if kernel not in (3, 5):
-        raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3 or 5")
-    if out_ch > MAX_OUT or hidden > MAX_HIDDEN:
-        raise ValueError(f"{name}: {hidden} hidden, {out_ch} output channels; at most "
-                         f"{MAX_HIDDEN}, {MAX_OUT}")
-    if w.dim() != 4 or w.shape[0] != b:
-        raise ValueError(f"{name}: weight map {tuple(w.shape)} is not (B, fh, fw, P)")
-    _, fh, fw, p = w.shape
-    if w.dtype not in (x.dtype, torch.float32):
-        raise ValueError(f"{name}: weight map {w.dtype}; x's dtype or float32")
-    build.check(f"{name} w", w, w.dtype, (b, fh, fw, hyper_params(cin, hidden, out_ch, kernel)))
-    if h % fh or wd % fw or h // fh < 2 or wd // fw < 2 or min(h, wd) <= kernel // 2:
-        raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches "
-                         f"of at least 2x2, or is too small to reflect a {kernel}x{kernel} halo")
-    for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
-        build.check_bn(f"{name} bn", bn, c)
-    band, layout = unit_plan(cin, hidden, out_ch, h // fh, wd // fw, b * fh * fw,
-                             x.element_size(), kernel)
-    out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
-    build.kernels().patch_invres(x, w, hidden, [*bn1, *bn2, *bn3], float(eps), kernel, band,
-                                 layout, out)
-    LAUNCHES["patch_invres"] += 1
+        with trace.span("kernel.patch_invres") as attrs:
+            out = patch_invres_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2,
+                                     bn3=bn3, eps=eps, kernel=kernel)
+    else:
+        name = "patch_invres"
+        build.check_activation(f"{name} x", x)
+        b, cin, h, wd = x.shape
+        if kernel not in (3, 5):
+            raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3 or 5")
+        if out_ch > MAX_OUT or hidden > MAX_HIDDEN:
+            raise ValueError(f"{name}: {hidden} hidden, {out_ch} output channels; at most "
+                             f"{MAX_HIDDEN}, {MAX_OUT}")
+        if w.dim() != 4 or w.shape[0] != b:
+            raise ValueError(f"{name}: weight map {tuple(w.shape)} is not (B, fh, fw, P)")
+        _, fh, fw, p = w.shape
+        if w.dtype not in (x.dtype, torch.float32):
+            raise ValueError(f"{name}: weight map {w.dtype}; x's dtype or float32")
+        build.check(f"{name} w", w, w.dtype,
+                    (b, fh, fw, hyper_params(cin, hidden, out_ch, kernel)))
+        if h % fh or wd % fw or h // fh < 2 or wd // fw < 2 or min(h, wd) <= kernel // 2:
+            raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches of "
+                             f"at least 2x2, or is too small to reflect a {kernel}x{kernel} "
+                             "halo")
+        for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
+            build.check_bn(f"{name} bn", bn, c)
+        band, layout = unit_plan(cin, hidden, out_ch, h // fh, wd // fw, b * fh * fw,
+                                 x.element_size(), kernel)
+        out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
+        ops = build.kernels()
+        with trace.span("kernel.patch_invres") as attrs:
+            ops.patch_invres(x, w, hidden, [*bn1, *bn2, *bn3], float(eps), kernel, band, layout,
+                             out)
+        LAUNCHES["patch_invres"] += 1
+    if attrs is not None:
+        describe(attrs, x=x, w=w, bn1=bn1, bn2=bn2, bn3=bn3, kernel=kernel, out=out)
     return out
 
 
@@ -343,30 +352,36 @@ def patch_invres_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
     the neighbouring patches' expand outputs, reflect at the image border,
     relu6, + x when Cin == out_ch. Returns (B, out_ch, H, W)."""
     if x.device.type == "cpu":
-        return patch_invres_v01_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1,
-                                      bn2=bn2, bn3=bn3, eps=eps)
-    name = "patch_invres_v01"
-    build.check_activation(f"{name} x", x)
-    b, cin, h, wd = x.shape
-    if out_ch > MAX_OUT:
-        raise ValueError(f"{name}: {out_ch} output channels; at most {MAX_OUT}")
-    p = hyper_params(cin, hidden, out_ch)
-    row = map_row_stride(w)
-    if (w.device != x.device or w.dtype != x.dtype or row is None or w.shape[0] != b
-            or w.shape[3] != p):
-        raise ValueError(f"{name}: weight map {tuple(w.shape)} {w.dtype} is not a "
-                         f"(B, fh, fw, {p}) map of evenly spaced patches like x")
-    _, fh, fw, _ = w.shape
-    if h % fh or wd % fw or h < 2 or wd < 2:
-        raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches")
-    for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
-        build.check_bn(f"{name} bn", bn, c)
-    band, layout = v01_plan(cin, hidden, out_ch, h // fh, wd // fw, fh, fw, b,
-                            x.element_size())
-    out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
-    build.kernels().patch_invres_v01(x, w, row, hidden, [*bn1, *bn2, *bn3], float(eps),
-                                     band, layout, out)
-    LAUNCHES["patch_invres_v01"] += 1
+        with trace.span("kernel.patch_invres_v01") as attrs:
+            out = patch_invres_v01_plain(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2,
+                                         bn3=bn3, eps=eps)
+    else:
+        name = "patch_invres_v01"
+        build.check_activation(f"{name} x", x)
+        b, cin, h, wd = x.shape
+        if out_ch > MAX_OUT:
+            raise ValueError(f"{name}: {out_ch} output channels; at most {MAX_OUT}")
+        p = hyper_params(cin, hidden, out_ch)
+        row = map_row_stride(w)
+        if (w.device != x.device or w.dtype != x.dtype or row is None or w.shape[0] != b
+                or w.shape[3] != p):
+            raise ValueError(f"{name}: weight map {tuple(w.shape)} {w.dtype} is not a "
+                             f"(B, fh, fw, {p}) map of evenly spaced patches like x")
+        _, fh, fw, _ = w.shape
+        if h % fh or wd % fw or h < 2 or wd < 2:
+            raise ValueError(f"{name}: map {h}x{wd} does not split into {fh}x{fw} patches")
+        for bn, c in ((bn1, hidden), (bn2, hidden), (bn3, out_ch)):
+            build.check_bn(f"{name} bn", bn, c)
+        band, layout = v01_plan(cin, hidden, out_ch, h // fh, wd // fw, fh, fw, b,
+                                x.element_size())
+        out = torch.empty((b, out_ch, h, wd), device=x.device, dtype=x.dtype)
+        ops = build.kernels()
+        with trace.span("kernel.patch_invres_v01") as attrs:
+            ops.patch_invres_v01(x, w, row, hidden, [*bn1, *bn2, *bn3], float(eps), band,
+                                 layout, out)
+        LAUNCHES["patch_invres_v01"] += 1
+    if attrs is not None:
+        describe(attrs, x=x, w=w, bn1=bn1, bn2=bn2, bn3=bn3, out=out)
     return out
 
 
@@ -383,26 +398,32 @@ def s2w_generate(s, w_s2w, *, groups, p):
     p and a multiple of groups. Returns the float32 (B, fh, fw, p) map of the
     grouped 1x1 conv, clipped to p."""
     if s.device.type == "cpu":
-        return s2w_generate_plain(s, w_s2w, groups=groups, p=p)
-    name = "patch_invres_s2w"
-    if (s.device.type != "cuda" or s.dim() != 4
-            or s.dtype not in (torch.float32, torch.bfloat16)):
-        raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} is not a float32 or "
-                         "bfloat16 (B, sig, fh, fw) CUDA tensor")
-    if s.requires_grad and torch.is_grad_enabled():
-        raise ValueError(f"{name}: the kernel is eval-only; run under torch.no_grad()")
-    b, sig, fh, fw = s.shape
-    if s.stride()[1:] != (fh * fw, fw, 1):
-        raise ValueError(f"{name}: the signal must be a channel slice of a "
-                         "contiguous NCHW tensor")
-    n_out = w_s2w.shape[0]
-    build.check(f"{name} w_s2w", w_s2w, s.dtype, (n_out, sig // groups, 1, 1))
-    if sig % groups or n_out % groups or n_out < p:
-        raise ValueError(f"{name}: signal2weights weight {tuple(w_s2w.shape)} does not "
-                         f"fit sig={sig}, groups={groups}, P={p}")
-    out = torch.empty((b, fh, fw, p), device=s.device, dtype=torch.float32)
-    build.kernels().s2w_generate(s, s.stride(0), w_s2w, groups, out)
-    LAUNCHES["patch_invres_s2w"] += 1
+        with trace.span("kernel.patch_invres_s2w") as attrs:
+            out = s2w_generate_plain(s, w_s2w, groups=groups, p=p)
+    else:
+        name = "patch_invres_s2w"
+        if (s.device.type != "cuda" or s.dim() != 4
+                or s.dtype not in (torch.float32, torch.bfloat16)):
+            raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} is not a float32 or "
+                             "bfloat16 (B, sig, fh, fw) CUDA tensor")
+        if s.requires_grad and torch.is_grad_enabled():
+            raise ValueError(f"{name}: the kernel is eval-only; run under torch.no_grad()")
+        b, sig, fh, fw = s.shape
+        if s.stride()[1:] != (fh * fw, fw, 1):
+            raise ValueError(f"{name}: the signal must be a channel slice of a "
+                             "contiguous NCHW tensor")
+        n_out = w_s2w.shape[0]
+        build.check(f"{name} w_s2w", w_s2w, s.dtype, (n_out, sig // groups, 1, 1))
+        if sig % groups or n_out % groups or n_out < p:
+            raise ValueError(f"{name}: signal2weights weight {tuple(w_s2w.shape)} does not "
+                             f"fit sig={sig}, groups={groups}, P={p}")
+        out = torch.empty((b, fh, fw, p), device=s.device, dtype=torch.float32)
+        ops = build.kernels()
+        with trace.span("kernel.patch_invres_s2w") as attrs:
+            ops.s2w_generate(s, s.stride(0), w_s2w, groups, out)
+        LAUNCHES["patch_invres_s2w"] += 1
+    if attrs is not None:
+        describe(attrs, s=s, w_s2w=w_s2w, groups=groups, out=out)
     return out
 
 
@@ -425,17 +446,16 @@ def patch_invres_s2w(x, s, w_s2w, *, groups, hidden, out_ch, bn1, bn2, bn3,
     w_s2w: (n_out, sig // groups, 1, 1), n_out >= P and a multiple of groups;
     bnN: float32 (weight, bias, running_mean, running_var). Reflect halo,
     stride 1. Returns (B, out_ch, H, W). On the card: the generation kernel,
-    then K2's unit on its float32 map (the module's `patch_invres`)."""
-    if x.device.type == "cpu":
-        return patch_invres_s2w_plain(x, s, w_s2w, groups=groups, hidden=hidden,
-                                      out_ch=out_ch, bn1=bn1, bn2=bn2, bn3=bn3,
-                                      eps=eps, kernel=kernel)
-    name = "patch_invres_s2w"
-    build.check_activation(f"{name} x", x)
-    if s.device != x.device or s.dtype != x.dtype or s.dim() != 4 or s.shape[0] != x.shape[0]:
-        raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} does not match x")
-    if kernel not in (3, 5):
-        raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3 or 5")
+    then K2's unit on its float32 map (the module's `patch_invres`); on the
+    CPU the twins of both, through the same two wrappers."""
+    if x.device.type != "cpu":
+        name = "patch_invres_s2w"
+        build.check_activation(f"{name} x", x)
+        if (s.device != x.device or s.dtype != x.dtype or s.dim() != 4
+                or s.shape[0] != x.shape[0]):
+            raise ValueError(f"{name}: signal {tuple(s.shape)} {s.dtype} does not match x")
+        if kernel not in (3, 5):
+            raise ValueError(f"{name}: kernel {kernel}; the kernel takes 3 or 5")
     w = s2w_generate(s, w_s2w, groups=groups,
                      p=hyper_params(x.shape[1], hidden, out_ch, kernel))
     return patch_invres(x, w, hidden=hidden, out_ch=out_ch, bn1=bn1, bn2=bn2, bn3=bn3,

@@ -26,9 +26,10 @@ import functools
 import numpy as np
 import torch
 
-from hyperseg_torch.ops.kernels import LAUNCHES, wide
+from hyperseg_torch.ops.kernels import LAUNCHES, describe, wide
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.parallel.spatial import crop_rows
+from hyperseg_torch.utils import trace
 
 SCALES = (2, 3, 4)
 THREADS = 256                # threads of a block, one strip of 8 input columns each
@@ -139,7 +140,11 @@ def resize_bilinear(x, out_hw):
         raise ValueError(f"resize_bilinear: {tuple(x.shape[2:])} -> {tuple(out_hw)} is not "
                          f"one integer scale in {SCALES} on both axes")
     if x.device.type == "cpu":
-        return resize_bilinear_plain(x, out_hw)
+        with trace.span("kernel.resize_bilinear") as attrs:
+            out = resize_bilinear_plain(x, out_hw)
+        if attrs is not None:
+            describe(attrs, x=x, out=out)
+        return out
     if x.requires_grad and torch.is_grad_enabled():
         return ResizeBilinear.apply(x, out_hw)
     return _resize_kernel(x, out_hw)
@@ -174,6 +179,10 @@ def _resize_kernel(x, out_hw):
     b, c, h, w = x.shape
     rows, _ = resize_plan(b * c, h, w)
     out = torch.empty((b, c, h * s, w * s), device=x.device, dtype=x.dtype)
-    build.kernels().resize_bilinear(x, s, rows, out)
+    ops = build.kernels()
+    with trace.span("kernel.resize_bilinear") as attrs:
+        ops.resize_bilinear(x, s, rows, out)
     LAUNCHES["resize_bilinear"] += 1
+    if attrs is not None:
+        describe(attrs, x=x, out=out)
     return out

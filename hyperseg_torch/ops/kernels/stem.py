@@ -36,8 +36,9 @@ import torch
 import torch.nn.functional as TF
 
 from hyperseg_torch.nn import functional as F
-from hyperseg_torch.ops.kernels import LAUNCHES, wide
+from hyperseg_torch.ops.kernels import LAUNCHES, describe, wide
 from hyperseg_torch.ops.kernels import build
+from hyperseg_torch.utils import trace
 
 THREADS = 128                 # four warps a block
 ROWS = (1, 2, 4, 8)           # output rows of a block's tile
@@ -132,23 +133,31 @@ def stem(x, weight, bn, eps=1e-3, act="swish"):
     identity; act "swish" or None."""
     if act not in ACTS:
         raise ValueError(f"stem: act {act!r}; the kernel takes one of {ACTS}")
+    raw = bn is None and act is None
     if x.device.type == "cpu":
-        return stem_plain(x, weight, bn, eps, act)
-    build.check_activation("stem x", x)
-    b, cin, h, w = x.shape
-    cout = weight.shape[0]
-    if cin != 3 or h < 2 or w < 2:
-        raise ValueError(f"stem: input {tuple(x.shape)}; the kernel takes (B, 3, H>=2, W>=2)")
-    if not 1 <= cout <= MAX_OUT:
-        raise ValueError(f"stem: {cout} output channels; the kernel takes 1 to {MAX_OUT}")
-    build.check("stem weight", weight, x.dtype, (cout, 3, 3, 3))
-    if bn is not None:
-        build.check_bn("stem bn", bn, cout)
-    rows, cols, layout = stem_plan(b, h, w, cout, x.element_size())
-    out = torch.empty((b, cout) + stem_out_hw(h, w), device=x.device, dtype=x.dtype)
-    build.kernels().stem(x, weight, list(bn or ()), float(eps), act == "swish", rows, cols,
-                         layout, out)
-    LAUNCHES["stem_conv" if bn is None and act is None else "stem"] += 1
+        with trace.span("kernel.stem_conv" if raw else "kernel.stem") as attrs:
+            out = stem_plain(x, weight, bn, eps, act)
+    else:
+        build.check_activation("stem x", x)
+        b, cin, h, w = x.shape
+        cout = weight.shape[0]
+        if cin != 3 or h < 2 or w < 2:
+            raise ValueError(f"stem: input {tuple(x.shape)}; the kernel takes (B, 3, H>=2, "
+                             "W>=2)")
+        if not 1 <= cout <= MAX_OUT:
+            raise ValueError(f"stem: {cout} output channels; the kernel takes 1 to {MAX_OUT}")
+        build.check("stem weight", weight, x.dtype, (cout, 3, 3, 3))
+        if bn is not None:
+            build.check_bn("stem bn", bn, cout)
+        rows, cols, layout = stem_plan(b, h, w, cout, x.element_size())
+        out = torch.empty((b, cout) + stem_out_hw(h, w), device=x.device, dtype=x.dtype)
+        ops = build.kernels()
+        with trace.span("kernel.stem_conv" if raw else "kernel.stem") as attrs:
+            ops.stem(x, weight, list(bn or ()), float(eps), act == "swish", rows, cols, layout,
+                     out)
+        LAUNCHES["stem_conv" if raw else "stem"] += 1
+    if attrs is not None:
+        describe(attrs, x=x, weight=weight, bn=bn, out=out)
     return out
 
 
@@ -188,7 +197,11 @@ def stem_conv(x, weight):
     autograd needs a gradient; on the CPU its twin, differentiable by
     autograd."""
     if x.device.type == "cpu":
-        return stem_conv_plain(x, weight)
+        with trace.span("kernel.stem_conv") as attrs:
+            out = stem_conv_plain(x, weight)
+        if attrs is not None:
+            describe(attrs, x=x, weight=weight, out=out)
+        return out
     if (x.requires_grad or weight.requires_grad) and torch.is_grad_enabled():
         return StemConv.apply(x, weight)
     return stem(x, weight, None, act=None)

@@ -34,10 +34,10 @@ import contextlib
 
 import torch
 from torch.nn.parallel import DistributedDataParallel
-from torch.profiler import record_function
 
 from hyperseg_torch.nn import functional as F
 from hyperseg_torch.train import metrics as M
+from hyperseg_torch.utils import trace
 
 STATE_SUFFIXES = (".running_mean", ".running_var")
 
@@ -73,8 +73,10 @@ def make_train_step(model, criterion, optimizer, scheduler, *, num_classes: int,
     dropouts. The model must be in training mode (`model.train()`); 'loss'
     is a detached scalar tensor, 'confmat' the step's (C, C) matrix from
     the logits before the update: accumulate it across steps and derive the
-    scores on the host (metrics.scores_from_confmat). The phases run under
-    profiler ranges train_step.{forward,backward,optimizer,metrics}.
+    scores on the host (metrics.scores_from_confmat). The phases are the
+    recorder's spans train_step.{forward,backward,optimizer,metrics}
+    (utils/trace.py), which also appear in a torch.profiler trace while the
+    recorder is on.
 
     A model in DistributedDataParallel makes a data-parallel step (the
     module's docstring): every rank passes its shard of the global batch
@@ -84,18 +86,18 @@ def make_train_step(model, criterion, optimizer, scheduler, *, num_classes: int,
 
     def train_step(image, label, generator=None):
         with F.data_parallel(group) if group is not None else contextlib.nullcontext():
-            with record_function("train_step.forward"):
+            with trace.span("train_step.forward"):
                 logits = model(image, generator)
                 if logits.shape[2:] != label.shape[1:]:
                     logits = F.resize_bilinear(logits, label.shape[1:])
                 loss = criterion(logits, label)
-            with record_function("train_step.backward"):
+            with trace.span("train_step.backward"):
                 optimizer.zero_grad(set_to_none=True)
                 loss.backward()
-        with record_function("train_step.optimizer"):
+        with trace.span("train_step.optimizer"):
             optimizer.step()
             scheduler.step()
-        with record_function("train_step.metrics"):
+        with trace.span("train_step.metrics"):
             confmat = M.confusion_matrix(label, logits.detach().argmax(1), num_classes,
                                          ignore_index=ignore_index)
         return {"loss": loss.detach(), "confmat": confmat}

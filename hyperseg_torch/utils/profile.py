@@ -1,4 +1,4 @@
-"""Profiling: analytic FLOPs/params tables, FLOPs by module, timing, traces.
+"""Profiling: analytic FLOPs/params tables, FLOPs by module, timing.
 
 Counterpart of hyperseg_tpu/utils/profile.py (reference utils/profile.py,
 MACs and params per module, and utils/meta_profile.py, which adds the
@@ -16,13 +16,11 @@ generated hyper-params column of the dynamic layers):
   * `xla_cost`: the JAX package reads XLA's compiled cost analysis; here the
     FlopCounterMode total of one forward (no bytes accessed: nothing here
     models the memory traffic after fusion);
-  * `wall_clock`: seconds per call, by CUDA events on the card;
-  * `trace`: a `torch.profiler` trace for TensorBoard.
+  * `wall_clock`: seconds per call, by CUDA events on the card.
 """
 
 from __future__ import annotations
 
-import contextlib
 import math
 import time
 from dataclasses import dataclass
@@ -269,18 +267,6 @@ def wall_clock(fn, *args, iters=20, warmup=3):
             fn(*args)
             times.append(time.perf_counter() - t0)
     return float(np.median(times))
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """A torch.profiler trace of the block (the card's kernels too, when
-    there is one), written to log_dir for TensorBoard."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as p:
-        yield p
 
 
 def cli():

@@ -354,6 +354,9 @@ NOT_PORTED = {
                                         "block_until_ready may return early",
     "core/torch_import.py:export_state_dict": "the port's state dict is already the "
                                               "reference's layout",
+    "utils/profile.py:trace": "a TensorBoard exporter nothing called: torch.profiler.profile "
+                              "is the trace, and the span recorder's spans (utils/trace.py) "
+                              "show in it",
 }
 
 
