@@ -422,7 +422,7 @@ class Call:
         if self.name == "mbconv_project":
             return 2 * a[0].shape[1] * out.numel()
         if self.name == "mbconv_expand_dw":
-            return 2 * (a[0].numel() * a[1].shape[0] + 9 * out.numel())
+            return 2 * (a[0].numel() * a[1].shape[0] + a[3].shape[-1] ** 2 * out.numel())
         if self.name == "resize_bilinear":
             return 8 * out.numel()
         from hyperseg_torch.ops.kernels import patch_invres as PI
@@ -443,7 +443,6 @@ class Call:
         cuDNN expand + ATen depthwise pair (no swish), as ("pair", fn)."""
         import torch.nn.functional as TF
         from hyperseg_torch.nn import functional as F
-        from hyperseg_torch.ops.kernels import mbconv as K4
 
         a, kw = self.args, self.kw
 
@@ -464,10 +463,9 @@ class Call:
             wf, bf = folded(w * se[0].view(1, -1, 1, 1).to(w.dtype), bn)
             return "conv2d", lambda: TF.conv2d(h, wf, bf)
         if self.name == "mbconv_expand_dw":
-            x, we, bn0, wd, bn1, stride = a
+            x, we, bn0, wd, bn1, stride, ((pt, pb), (pl, pr)) = a
             wef, b0 = folded(we, bn0)
             wdf, b1 = folded(wd, bn1)
-            (pt, pb), (pl, pr) = K4.EXPAND_PADS[stride]
             return "pair", lambda: TF.conv2d(TF.pad(TF.conv2d(x, wef, b0), (pl, pr, pt, pb)),
                                              wdf, b1, stride=stride, groups=wd.shape[0])
         if self.name == "resize_bilinear":
@@ -2845,8 +2843,8 @@ def slab_forms(c, i, n):
         return (lambda: K4.mbconv_dw_band(xs, *a[1:], **kw, top=t, bottom=b),
                 lambda: K4.mbconv_dw_band_plain(xs, *a[1:], **kw, top=t, bottom=b), rows)
     if c.name == "mbconv_expand_dw":
-        stride = a[5]
-        xs, t, b = band_of(a[0], i, n, 2 - stride, 1)
+        k, stride, pt = a[3].shape[-1], a[5], a[6][0][0]
+        xs, t, b = band_of(a[0], i, n, pt, k - stride - pt)
         return (lambda: K4.mbconv_expand_dw_band(xs, *a[1:], **kw, top=t, bottom=b),
                 lambda: K4.mbconv_expand_dw_band_plain(xs, *a[1:], **kw, top=t, bottom=b),
                 rows)

@@ -8,12 +8,12 @@ their `_feat_fc_*` compressors, and TF-SAME pads computed from the *nominal*
 model image size (240 for B1), not the runtime size.
 
 Kernels (ops/kernels/): the stem runs K3; the expand-1, 3x3, stride-1 SE
-blocks (B1's blocks 0-1) run K4a + SE + K4b; the expand-ratio 3x3 SE blocks
-(B1's blocks 2-4, 8-11, 21 and 22) run K5 + SE, then K4b where the
-projection has at most 32 outputs (blocks 2-4) and a torch 1x1 conv + BN
-otherwise. SE pooling and its MLP are torch ops between the kernels, as in
-the JAX package's fused chain (efficientnet.py:390-431). The 5x5 blocks are
-torch convolutions.
+blocks (B1's blocks 0-1) run K4a + SE + K4b; the expand-ratio SE blocks,
+3x3 and 5x5 (B1's blocks 2-22), run K5 + SE, then K4b where the projection
+has at most 32 outputs (blocks 2-4) and a torch 1x1 conv + BN otherwise.
+SE pooling and its MLP are torch ops between the kernels, as in the JAX
+package's fused chain (efficientnet.py:390-431), which fuses the 3x3
+blocks alone.
 
 Training (`module.train()`, as the JAX Ctx(train=True)): K4a, K4b, K5 and
 the BN-folded K3 fold running statistics, so every block runs its eager
@@ -31,10 +31,10 @@ Under spatial sharding (nn/functional.py `spatial`) the input is this
 rank's band of each image, a multiple of 32 rows. Every conv with a spatial
 extent reads the neighbouring bands' rows that its static TF-SAME pads
 cover: the eager convs through `conv2d_band`, the kernels on a slab of the
-band with those rows attached (`band_slab`; K3 and K5 at stride 2 the first
-row below, K4a and K5 at stride 1 one row each side, their rows' outputs
-cropped), and the image's border keeps its zero pad. The SE pools are the
-image's means (`mean_hw`, `adaptive_avg_pool_1`).
+band with those rows attached (`band_slab`; K3 the first row below, K4a one
+row each side, its rows' outputs cropped, K5 the rows its depthwise's pad
+reads, which stand in for that pad), and the image's border keeps its zero
+pad. The SE pools are the image's means (`mean_hw`, `adaptive_avg_pool_1`).
 """
 
 from __future__ import annotations
@@ -130,12 +130,10 @@ class MBConvPlan:
 
     @property
     def expand_fusable(self):
-        """The block shape K5 takes: expand > 1, 3x3, stride 1 with the
-        symmetric SAME pad or stride 2 with the TF-SAME pad (0, 1), SE
-        present."""
-        return (self.expand > 1 and self.kernel == 3 and self.se_ch is not None
-                and self.stride in K4.EXPAND_PADS
-                and self.dw_pad == K4.EXPAND_PADS[self.stride])
+        """The block shape routed to K5: expand > 1, SE present, a 3x3 or 5x5
+        depthwise at one of the stride and pad forms of K4.EXPAND_FORMS."""
+        return (self.expand > 1 and self.se_ch is not None
+                and (self.kernel, self.stride, self.dw_pad) in K4.EXPAND_FORMS)
 
 
 class MBConvBlock(EvalModule):
@@ -187,10 +185,12 @@ class MBConvBlock(EvalModule):
                                      eps=BN_EPS)
         if p.expand_fusable:
             # K5 -> SE (torch) -> K4b or a torch projection
-            xs, top, bottom = F.band_slab(x, 2 - p.stride, 1)
+            pt = p.dw_pad[0][0]
+            xs, top, bottom = F.band_slab(x, pt, p.kernel - p.stride - pt)
             h = K4.mbconv_expand_dw_band(xs, self._expand_conv.weight, self._bn0.params,
                                          self._depthwise_conv.weight, self._bn1.params,
-                                         p.stride, eps=BN_EPS, top=top, bottom=bottom)
+                                         p.stride, p.dw_pad, eps=BN_EPS, top=top,
+                                         bottom=bottom)
             se = self._se_scale(F.mean_hw(h, wide_dtype(h.dtype)))
             residual = x if p.residual else None
             if p.out_ch <= K4.MAX_PROJECT_OUT:

@@ -135,7 +135,7 @@ void mbconv_expand_dw(const Tensor& x, const Tensor& w_expand, at::TensorList bn
       dt, x.data_ptr(), w_expand.data_ptr(), bn_of(bn[0], bn[1], bn[2], bn[3]),
       w_dw.data_ptr(), bn_of(bn[4], bn[5], bn[6], bn[7]), static_cast<float>(eps),
       out.data_ptr(), x.size(0), x.size(1), out.size(1), x.size(2), x.size(3),
-      out.size(2), out.size(3), stride, pad_t, pad_l, tile_h, tile_w, channels,
+      out.size(2), out.size(3), w_dw.size(-1), stride, pad_t, pad_l, tile_h, tile_w, channels,
       smem_of<hyperseg::ExpandSmem, 7>(layout, "mbconv_expand_dw"), stream_of(x)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();
 }

@@ -66,16 +66,17 @@ struct ExpandSmem {
   int x_row, w_row, stage, stages, c_off, t_off, total;
 };
 
-// K5. x (B, cin, H, W); w_expand (mid, cin); w_dw (mid, 3, 3); out (B, mid,
-// out_h, out_w): depthwise stride 1 or 2 with zero pad (pad_t, pad_l) at the
-// top/left (the rest of the TF-SAME pad is implied by out_h, out_w). Tiles
-// of tile_h x tile_w output pixels (tile_w 8, 16 or 32) and `channels` (32
-// or 64) expanded channels a block, as mbconv.py's expand_dw_plan gives them.
+// K5. x (B, cin, H, W); w_expand (mid, cin); w_dw (mid, K, K), K = `kernel`,
+// 3 or 5; out (B, mid, out_h, out_w): depthwise stride 1 or 2 with zero pad
+// (pad_t, pad_l) at the top/left, each under K (the rest of the pad is
+// implied by out_h, out_w). Tiles of tile_h x tile_w output pixels (tile_w
+// 8, 16 or 32) and `channels` (32 or 64) expanded channels a block, as
+// mbconv.py's expand_dw_plan gives them.
 cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expand,
                                     BNParams bn0, const void* w_dw, BNParams bn1,
                                     float eps, void* out, int batch, int cin,
                                     int mid, int height, int width, int out_h,
-                                    int out_w, int stride, int pad_t, int pad_l,
+                                    int out_w, int kernel, int stride, int pad_t, int pad_l,
                                     int tile_h, int tile_w, int channels,
                                     ExpandSmem smem, cudaStream_t stream);
 

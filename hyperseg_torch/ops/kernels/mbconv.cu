@@ -22,10 +22,17 @@
 // folded into W once per block in float32 and rounded once, bn in float32
 // in the epilogue, which stores 16 bytes a thread along pixels.
 //
-// K5 (expand_dw) replaces mbconv.py:231 (expand_dw_phase):
+// K5 (expand_dw) replaces mbconv.py:231 (expand_dw_phase) in its 3x3 form:
 //   e = swish(bn0(W_e . x)), zero outside the image (the depthwise pads the
 //   EXPANDED map with zeros, and the expand of a zero pad is swish(bias0),
-//   not 0), then out = swish(bn1(depthwise 3x3, stride 1 or 2, of e)).
+//   not 0), then out = swish(bn1(depthwise KxK, stride 1 or 2, of e)).
+// Its 5x5 form replaces no TPU kernel (the JAX package runs the 5x5 blocks
+// as XLA convolutions): it takes the place of cuDNN's 1x1 expand, ATen's
+// depthwise and their four BN and swish passes, which moved the expanded
+// map through device memory four times. K is a template parameter, so the
+// 3x3 form compiles as before; the 5x5 form stages a window K - 1 pixels
+// wider and taller than the tile's input, and its plans (mbconv.py's
+// expand_dw_plan) keep two blocks an SM.
 // Bound: bytes in bfloat16 against the tensor cores (cin MACs per expanded
 // element, at most 384 on B3), operations in float32, whose expand runs on
 // the CUDA cores. The expanded map never reaches device memory: a block
@@ -397,7 +404,10 @@ cudaError_t launch_project(const void* h, const float* se, const void* w,
 // by FMAs on the CUDA cores (its gate admits no TF32 rounding), each thread
 // summing the elements an mma fragment would hold, so both share the
 // epilogue. The staged pixels left and right of the window are multiplied
-// and dropped. Shared memory as mbconv.py's expand_dw_layout gives it.
+// and dropped. The depthwise is K x K (3 or 5), zero padded by (pad_t,
+// pad_l) at the top and left, any pad under K (the bottom and right pads are
+// implied by out_h, out_w). Shared memory as mbconv.py's expand_dw_layout
+// gives it.
 constexpr int kExpKC = 32;     // input channels per pipeline stage
 constexpr int kExpStages = 4;  // stages of the cp.async ring, at most
 constexpr int kExpNW = 8;      // n-tiles (8 staged pixels) per warp at most
@@ -414,7 +424,60 @@ __device__ __forceinline__ void cp_async_wait_upto(int n) {  // n < kExpStages p
     cp_async_wait<3>();
 }
 
-template <typename T, int CC>
+// K5's 5x5 depthwise + bn1 + swish on the expanded window `es` ([CC][npix],
+// rows of win_w): a thread takes two neighbouring output columns of one
+// channel's tile and walks their rows, holding the K x (K + S) window they
+// share in registers. Against a column a thread it loads K + S window values
+// a row for two outputs, not 2K, reads the taps once for both, and keeps two
+// independent sums in flight.
+template <typename T, int CC, int K, int S>
+__device__ __forceinline__ void depthwise_pairs(const float* es, const float* wdw,
+                                                const float* b1, T* ob, int npix, int win_w,
+                                                int tile_w_log2, int c0, int mid, int ox0,
+                                                int out_w, int out_h, int rows) {
+  constexpr int W = K + S;  // window columns of two neighbouring outputs
+  const int pairs_log2 = tile_w_log2 - 1;
+  for (int q = threadIdx.x; q < CC << pairs_log2; q += kThreads) {
+    const int c = q >> pairs_log2, px = (q & ((1 << pairs_log2) - 1)) * 2;
+    if (c0 + c >= mid || ox0 + px >= out_w) continue;
+    const bool second = ox0 + px + 1 < out_w;
+    const float* e = es + c * npix + px * S;
+    float wk[K * K];
+#pragma unroll
+    for (int k = 0; k < K * K; ++k) wk[k] = wdw[c * K * K + k];
+    const float bias = b1[c];
+    T* o = ob + (size_t)c * out_h * out_w + px;
+    float win[K][W];
+#pragma unroll
+    for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+      for (int dx = 0; dx < W; ++dx) win[dy][dx] = e[dy * win_w + dx];
+    for (int py = 0;;) {
+      float d0 = bias, d1 = bias;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx) {
+          d0 = fmaf(win[dy][dx], wk[dy * K + dx], d0);
+          d1 = fmaf(win[dy][dx + S], wk[dy * K + dx], d1);
+        }
+      o[(size_t)py * out_w] = from_f<T>(swish_of<T>(d0));
+      if (second) o[(size_t)py * out_w + 1] = from_f<T>(swish_of<T>(d1));
+      if (++py >= rows) break;
+      const float* er = e + (py * S + K - S) * win_w;  // the S new bottom rows
+#pragma unroll
+      for (int dy = 0; dy + S < K; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < W; ++dx) win[dy][dx] = win[dy + S][dx];
+#pragma unroll
+      for (int dy = K - S; dy < K; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < W; ++dx) win[dy][dx] = er[(dy - K + S) * win_w + dx];
+    }
+  }
+}
+
+template <typename T, int CC, int K>
 __global__ void __launch_bounds__(kThreads, 2)
 expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0,
                  const T* __restrict__ wd, BNParams bn1, float eps, T* __restrict__ out,
@@ -427,7 +490,7 @@ expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0
   constexpr int WN = kThreads / 32 / WM;  // warps along staged pixels
   extern __shared__ float4 smem4[];
   const int tile_w = 1 << tile_w_log2;
-  const int win_h = (tile_h - 1) * stride + 3, win_w = (tile_w - 1) * stride + 3;
+  const int win_h = (tile_h - 1) * stride + K, win_w = (tile_w - 1) * stride + K;
   const int npix = win_h * win_w, off = (8 - pad_l % 8) % 8;
   const int rw8 = (off + win_w + 7) / 8, ntot = win_h * rw8;  // staged 8-pixel chunks
   const int nchunks = (cin + kExpKC - 1) / kExpKC, ns = lay.stages;
@@ -437,7 +500,7 @@ expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0
   float* s0 = reinterpret_cast<float*>(base + lay.c_off);
   float* b0 = s0 + CC;
   float* b1 = b0 + CC;
-  float* wdw = b1 + CC;  // [CC][9] depthwise * bn1 scale
+  float* wdw = b1 + CC;  // [CC][K * K] depthwise * bn1 scale
   // per 8-pixel chunk p of the staged window: its image row and column, its
   // row's start in the window (wy * win_w) and its column in the window
   int4* tab = reinterpret_cast<int4*>(base + lay.t_off);
@@ -511,7 +574,8 @@ expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0
     s0[c] = sc0;
     b0[c] = bi0;
     b1[c] = bi1;
-    for (int t = 0; t < 9; ++t) wdw[c * 9 + t] = g < mid ? to_f(wd[g * 9 + t]) * sc1 : 0.f;
+    for (int t = 0; t < K * K; ++t)
+      wdw[c * K * K + t] = g < mid ? to_f(wd[g * K * K + t]) * sc1 : 0.f;
   }
 
   // 1. expand: warp (wm, wn) sums channels [32 wm, 32 wm + 32) for the
@@ -612,50 +676,59 @@ expand_dw_kernel(const T* __restrict__ x, const T* __restrict__ we, BNParams bn0
   }
   __syncthreads();
 
-  // 2. depthwise 3x3 + bn1 + swish: each thread walks the rows of a column
-  // of one channel's tile, keeping the window rows it shares with the next
-  // output row in registers (stride 1: two of three, stride 2: one)
+  // 2. depthwise KxK + bn1 + swish
   T* ob = out + ((size_t)b * mid + c0) * out_h * out_w + (size_t)oy0 * out_w + ox0;
   const int rows = out_h - oy0 < tile_h ? out_h - oy0 : tile_h;
-  for (int q = tid; q < CC * tile_w; q += kThreads) {
-    const int c = q >> tile_w_log2, px = q & (tile_w - 1);
-    if (c0 + c >= mid || ox0 + px >= out_w) continue;
-    const float* e = es + c * npix + px * stride;
-    float wk[9];
+  if constexpr (K == 3) {
+    // each thread walks the rows of a column of one channel's tile, keeping
+    // the window rows it shares with the next output row in registers
+    // (stride 1: two of three, stride 2: one)
+    for (int q = tid; q < CC * tile_w; q += kThreads) {
+      const int c = q >> tile_w_log2, px = q & (tile_w - 1);
+      if (c0 + c >= mid || ox0 + px >= out_w) continue;
+      const float* e = es + c * npix + px * stride;
+      float wk[9];
 #pragma unroll
-    for (int k = 0; k < 9; ++k) wk[k] = wdw[c * 9 + k];
-    const float bias = b1[c];
-    T* o = ob + (size_t)c * out_h * out_w + px;
-    float win[3][3];
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx) win[dy][dx] = e[dy * win_w + dx];
-    for (int py = 0;;) {
-      float d = bias;
+      for (int k = 0; k < 9; ++k) wk[k] = wdw[c * 9 + k];
+      const float bias = b1[c];
+      T* o = ob + (size_t)c * out_h * out_w + px;
+      float win[3][3];
 #pragma unroll
       for (int dy = 0; dy < 3; ++dy)
 #pragma unroll
-        for (int dx = 0; dx < 3; ++dx) d = fmaf(win[dy][dx], wk[dy * 3 + dx], d);
-      o[(size_t)py * out_w] = from_f<T>(swish_of<T>(d));
-      if (++py >= rows) break;
-      const float* er = e + (py * stride + 2) * win_w;  // the new bottom row
+        for (int dx = 0; dx < 3; ++dx) win[dy][dx] = e[dy * win_w + dx];
+      for (int py = 0;;) {
+        float d = bias;
 #pragma unroll
-      for (int dx = 0; dx < 3; ++dx) {
-        if (stride == 1) {
-          win[0][dx] = win[1][dx];
-          win[1][dx] = win[2][dx];
-        } else {
-          win[0][dx] = win[2][dx];
-          win[1][dx] = er[dx - win_w];
+        for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+          for (int dx = 0; dx < 3; ++dx) d = fmaf(win[dy][dx], wk[dy * 3 + dx], d);
+        o[(size_t)py * out_w] = from_f<T>(swish_of<T>(d));
+        if (++py >= rows) break;
+        const float* er = e + (py * stride + 2) * win_w;  // the new bottom row
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx) {
+          if (stride == 1) {
+            win[0][dx] = win[1][dx];
+            win[1][dx] = win[2][dx];
+          } else {
+            win[0][dx] = win[2][dx];
+            win[1][dx] = er[dx - win_w];
+          }
+          win[2][dx] = er[dx];
         }
-        win[2][dx] = er[dx];
       }
     }
+  } else if (stride == 1) {
+    depthwise_pairs<T, CC, K, 1>(es, wdw, b1, ob, npix, win_w, tile_w_log2, c0, mid, ox0, out_w,
+                                 out_h, rows);
+  } else {
+    depthwise_pairs<T, CC, K, 2>(es, wdw, b1, ob, npix, win_w, tile_w_log2, c0, mid, ox0, out_w,
+                                 out_h, rows);
   }
 }
 
-template <typename T, int CC>
+template <typename T, int CC, int K>
 cudaError_t launch_expand_dw(const void* x, const void* we, BNParams bn0, const void* wd,
                              BNParams bn1, float eps, void* out, int batch, int cin, int mid,
                              int height, int width, int out_h, int out_w, int stride,
@@ -664,13 +737,13 @@ cudaError_t launch_expand_dw(const void* x, const void* we, BNParams bn0, const 
   constexpr int WN = kThreads / 32 / (CC / 32);
   int log2w = 3;
   while ((1 << log2w) < tile_w) ++log2w;
-  const int win_w = (tile_w - 1) * stride + 3, off = (8 - pad_l % 8) % 8;
-  const int staged8 = ((tile_h - 1) * stride + 3) * ((off + win_w + 7) / 8);
+  const int win_w = (tile_w - 1) * stride + K, off = (8 - pad_l % 8) % 8;
+  const int staged8 = ((tile_h - 1) * stride + K) * ((off + win_w + 7) / 8);
   if ((1 << log2w) != tile_w || log2w > 5 || staged8 > kExpNW * WN ||
       lay.x_row < 8 * staged8 || lay.stages < 1 || lay.stages > kExpStages ||
-      (size_t)lay.total > kSmemLimit)
+      (size_t)lay.total > kSmemLimit || pad_t < 0 || pad_t >= K || pad_l < 0 || pad_l >= K)
     return cudaErrorInvalidValue;
-  auto kern = expand_dw_kernel<T, CC>;
+  auto kern = expand_dw_kernel<T, CC, K>;
   const cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.total);
   if (err != cudaSuccess) return err;
@@ -686,15 +759,19 @@ cudaError_t launch_expand_dw(const void* x, const void* we, BNParams bn0, const 
 }
 
 template <typename T>
-cudaError_t launch_expand_dw_cc(int channels, const void* x, const void* we, BNParams bn0,
-                                const void* wd, BNParams bn1, float eps, void* out, int batch,
-                                int cin, int mid, int height, int width, int out_h, int out_w,
-                                int stride, int pad_t, int pad_l, int tile_h, int tile_w,
-                                ExpandSmem lay, cudaStream_t stream) {
-  if (channels != 32 && channels != 64) return cudaErrorInvalidValue;
-  return (channels == 64 ? launch_expand_dw<T, 64> : launch_expand_dw<T, 32>)(
-      x, we, bn0, wd, bn1, eps, out, batch, cin, mid, height, width, out_h, out_w, stride,
-      pad_t, pad_l, tile_h, tile_w, lay, stream);
+cudaError_t launch_expand_dw_cc(int kernel, int channels, const void* x, const void* we,
+                                BNParams bn0, const void* wd, BNParams bn1, float eps,
+                                void* out, int batch, int cin, int mid, int height, int width,
+                                int out_h, int out_w, int stride, int pad_t, int pad_l,
+                                int tile_h, int tile_w, ExpandSmem lay, cudaStream_t stream) {
+  if ((channels != 32 && channels != 64) || (kernel != 3 && kernel != 5))
+    return cudaErrorInvalidValue;
+  auto launch = kernel == 3 ? (channels == 64 ? launch_expand_dw<T, 64, 3>
+                                              : launch_expand_dw<T, 32, 3>)
+                            : (channels == 64 ? launch_expand_dw<T, 64, 5>
+                                              : launch_expand_dw<T, 32, 5>);
+  return launch(x, we, bn0, wd, bn1, eps, out, batch, cin, mid, height, width, out_h, out_w,
+                stride, pad_t, pad_l, tile_h, tile_w, lay, stream);
 }
 
 }  // namespace
@@ -703,7 +780,7 @@ cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expan
                                     BNParams bn0, const void* w_dw, BNParams bn1,
                                     float eps, void* out, int batch, int cin,
                                     int mid, int height, int width, int out_h,
-                                    int out_w, int stride, int pad_t, int pad_l,
+                                    int out_w, int kernel, int stride, int pad_t, int pad_l,
                                     int tile_h, int tile_w, int channels,
                                     ExpandSmem smem, cudaStream_t stream) {
   if (stride < 1 || stride > 2 || tile_h < 1 || tile_w < 1 || batch > 65535 ||
@@ -711,8 +788,8 @@ cudaError_t launch_mbconv_expand_dw(DType dt, const void* x, const void* w_expan
     return cudaErrorInvalidValue;
   return (dt == DType::kFloat32 ? launch_expand_dw_cc<float>
                                 : launch_expand_dw_cc<__nv_bfloat16>)(
-      channels, x, w_expand, bn0, w_dw, bn1, eps, out, batch, cin, mid, height, width, out_h,
-      out_w, stride, pad_t, pad_l, tile_h, tile_w, smem, stream);
+      kernel, channels, x, w_expand, bn0, w_dw, bn1, eps, out, batch, cin, mid, height, width,
+      out_h, out_w, stride, pad_t, pad_l, tile_h, tile_w, smem, stream);
 }
 
 cudaError_t launch_mbconv_dw(DType dt, const void* x, const void* w, BNParams bn, float eps,

@@ -6,10 +6,13 @@
                     whose per-image weight is the BN-folded W . diag(se), plus
                     an optional residual. The fold happens inside the kernel.
   mbconv_expand_dw  replaces mbconv.py:231 `expand_dw_phase`: 1x1 expand +
-                    bn0 + swish, then depthwise 3x3 (stride 1 with pad
-                    (1, 1), or stride 2 with TF-SAME pad (0, 1)) + bn1 +
-                    swish, of an expand-ratio block. The expanded map stays
-                    in shared memory, zero in the depthwise's pad region.
+                    bn0 + swish, then depthwise 3x3 or 5x5 (stride 1 or 2,
+                    the block's TF-SAME pad) + bn1 + swish, of an
+                    expand-ratio block. The expanded map stays in shared
+                    memory, zero in the depthwise's pad region. The 5x5
+                    form replaces no TPU kernel (the JAX package runs those
+                    blocks as XLA ops): it replaces cuDNN's 1x1 expand and
+                    ATen's depthwise with their BN and swish passes.
 
 SE's global pooling and its tiny MLP run between the two as torch ops, as
 they run as XLA ops around the TPU kernels. Source: mbconv.cu.
@@ -37,7 +40,10 @@ whole 8-pixel chunks; float32: FMAs on the same tiling), and runs the
 depthwise from the expanded window. Only x, the weights and the (B, mid,
 H/s, W/s) output touch device memory. The plan gives a block more channels
 where cin is large and the map small, so one staged window serves more of
-them, and enough blocks to fill the card.
+them, and enough blocks to fill the card. A 5x5 window is 2 pixels wider
+and taller than a 3x3 one: the expand recomputed over the halo costs
+operations, not bytes, and the 5x5 plans keep two blocks an SM
+(`EXPAND_SMEM`).
 
 The plans also lay out each block's shared memory (`dw_plan`,
 `project_plan`, `expand_dw_layout`) and hand the layout to the launch: the
@@ -64,9 +70,22 @@ MIN_BLOCKS = 2 * SMS   # a grid that fills every SM twice
 PROJECT_TILES = (128, 64)  # pixels per mbconv_project block
 PROJECT_KC, PROJECT_STAGES = 32, 4     # channels per cp.async stage, stages
 EXPAND_CHANNELS = (32, 64)  # expanded channels per mbconv_expand_dw block
-EXPAND_KC, EXPAND_STAGES = 32, 4       # channels per cp.async stage, stages at most
+EXPAND_KC = 32                         # channels per cp.async stage
 EXPAND_WARPS = 8                       # warps of a mbconv_expand_dw block
-EXPAND_PADS = {1: ((1, 1), (1, 1)), 2: ((0, 1), (0, 1))}  # depthwise pad by stride
+EXPAND_KERNELS = (3, 5)                # depthwise sizes mbconv_expand_dw takes
+# (kernel, stride, pad) of the blocks the backbones route to mbconv_expand_dw
+# in eval: B1's five forms, each timed against the eager passes it replaces
+# (mbconv_sweep at HyperSeg-M and -S Cityscapes); a block with another pad
+# (the 3x3 stride-2 pad (1, 1) of B2, B5, B7 and s2) stays eager
+EXPAND_FORMS = frozenset({(3, 1, ((1, 1), (1, 1))), (3, 2, ((0, 1), (0, 1))),
+                          (5, 1, ((2, 2), (2, 2))), (5, 2, ((1, 2), (1, 2))),
+                          (5, 2, ((2, 2), (2, 2)))})
+# by depthwise size: the stages of a mbconv_expand_dw block's cp.async ring
+# at most (the kernel takes 1 to 4), and the shared memory it may take; the
+# 5x5 form's larger window keeps two blocks an SM (228 KB, 1 KB of it
+# reserved a block) with a two-stage ring
+EXPAND_STAGES = {3: 4, 5: 2}
+EXPAND_SMEM = {3: SMEM_LIMIT, 5: (228 * 1024 - 2 * 1024) // 2}
 DW_THREADS = 256                # threads of a mbconv_dw block, one strip of 8 columns each
 DW_ROWS = (32, 16, 8, 4, 2, 1)  # rows a mbconv_dw thread walks down its strip
 DW_RESIDENT = 3                 # mbconv_dw blocks an SM holds at once (68 registers a thread)
@@ -222,22 +241,32 @@ def mbconv_project(h, se, weight, bn, residual=None, eps=1e-3):
     return out
 
 
-def expand_dw_out_hw(h, w, stride):
-    """Output size of the 3x3 depthwise with the pad EXPAND_PADS[stride]."""
-    (pt, pb), (pl, pr) = EXPAND_PADS[stride]
-    return (h + pt + pb - 3) // stride + 1, (w + pl + pr - 3) // stride + 1
+def expand_dw_takes(kernel, stride, pad):
+    """Whether K5 takes a kernel x kernel depthwise at `stride` with the zero
+    pad ((top, bottom), (left, right)): kernel 3 or 5, stride 1 or 2, every
+    side's pad under the kernel."""
+    return (kernel in EXPAND_KERNELS and stride in (1, 2)
+            and all(0 <= p < kernel for side in pad for p in side))
 
 
-def expand_dw_window(stride, tile_h, tile_w):
+def expand_dw_out_hw(h, w, kernel, stride, pad):
+    """Output size of the depthwise with the pad ((top, bottom), (left,
+    right))."""
+    (pt, pb), (pl, pr) = pad
+    return (h + pt + pb - kernel) // stride + 1, (w + pl + pr - kernel) // stride + 1
+
+
+def expand_dw_window(kernel, stride, tile_h, tile_w):
     """(rows, columns) of the input window of a tile of output pixels."""
-    return (tile_h - 1) * stride + 3, (tile_w - 1) * stride + 3
+    return (tile_h - 1) * stride + kernel, (tile_w - 1) * stride + kernel
 
 
-def expand_dw_staged(stride, tile_h, tile_w):
+def expand_dw_staged(kernel, stride, pad, tile_h, tile_w):
     """Input pixels a block stages: each window row as whole 8-pixel chunks,
-    starting at the window's column rounded down to 8."""
-    pad_l = EXPAND_PADS[stride][1][0]
-    win_h, win_w = expand_dw_window(stride, tile_h, tile_w)
+    starting at the window's column rounded down to 8 (the left pad sets
+    where in its chunk the window starts)."""
+    pad_l = pad[1][0]
+    win_h, win_w = expand_dw_window(kernel, stride, tile_h, tile_w)
     return win_h * _up((8 - pad_l % 8) % 8 + win_w, 8)
 
 
@@ -247,67 +276,76 @@ def expand_dw_max_staged(channels):
     return 8 * 8 * (EXPAND_WARPS // (channels // 32))
 
 
-def expand_dw_layout(cin, stride, tile_h, tile_w, channels, itemsize):
+def expand_dw_layout(cin, kernel, stride, pad, tile_h, tile_w, channels, itemsize):
     """Shared memory of one mbconv_expand_dw block as the kernel takes it
     (ExpandSmem in kernels.h): (x_row, w_row, stage, stages, c_off, t_off,
     total), pitches and the stage in elements of x's dtype, offsets and total
     in bytes. From byte 0 a ring of `stages` stages (one per chunk of
-    EXPAND_KC input channels, at most EXPAND_STAGES), each the window chunk
+    EXPAND_KC input channels, at most EXPAND_STAGES[kernel]), each the window chunk
     [EXPAND_KC][x_row] then the W_e chunk [channels][w_row]; rows are an odd
     count of 16 bytes (bfloat16), so the 8 rows of an ldmatrix hit 8 bank
     groups. The float32 expanded window [channels][window pixels] reuses the
     ring after the products. At c_off s0, b0, b1 [channels] and the
-    depthwise taps [channels][9], float32; at t_off one int4 for each 8-pixel
-    chunk of the staged window."""
-    win_h, win_w = expand_dw_window(stride, tile_h, tile_w)
-    staged = expand_dw_staged(stride, tile_h, tile_w)
+    depthwise taps [channels][kernel * kernel], float32; at t_off one int4
+    for each 8-pixel chunk of the staged window."""
+    win_h, win_w = expand_dw_window(kernel, stride, tile_h, tile_w)
+    staged = expand_dw_staged(kernel, stride, pad, tile_h, tile_w)
     x_row = staged + (8 if staged // 8 % 2 == 0 else 0)
     w_row = EXPAND_KC + 16 // itemsize
     stage = EXPAND_KC * x_row + channels * w_row
-    stages = min(EXPAND_STAGES, -(-cin // EXPAND_KC))
+    stages = min(EXPAND_STAGES[kernel], -(-cin // EXPAND_KC))
     c_off = _up(max(itemsize * stages * stage, 4 * channels * win_h * win_w), 16)
-    t_off = c_off + 4 * 12 * channels
+    t_off = c_off + 4 * (3 + kernel * kernel) * channels
     return x_row, w_row, stage, stages, c_off, t_off, t_off + 16 * (staged // 8)
 
 
-def expand_dw_candidates(out_h, out_w, stride, cin, itemsize=2):
+def expand_dw_candidates(out_h, out_w, kernel, stride, pad, cin, itemsize=2):
     """The plans the kernel takes, as (tile_h, tile_w, channels, layout):
     rows of 8, 16 or 32 output pixels (not more than twice the map's width),
     a staged window that fits the block's warps, and shared memory within
-    SMEM_LIMIT."""
+    EXPAND_SMEM[kernel]."""
     for cc in EXPAND_CHANNELS:
         for tw in (32, 16, 8):
             if tw > 8 and tw >= 2 * _up(out_w, 8):
                 continue
             for th in range(1, min(out_h, 64) + 1):
-                if expand_dw_staged(stride, th, tw) > expand_dw_max_staged(cc):
+                if expand_dw_staged(kernel, stride, pad, th, tw) > expand_dw_max_staged(cc):
                     break
-                layout = expand_dw_layout(cin, stride, th, tw, cc, itemsize)
-                if layout[-1] > SMEM_LIMIT:
+                layout = expand_dw_layout(cin, kernel, stride, pad, th, tw, cc, itemsize)
+                if layout[-1] > EXPAND_SMEM[kernel]:
                     break
                 yield th, tw, cc, layout
 
 
 @functools.lru_cache(maxsize=None)
-def expand_dw_plan(out_h, out_w, stride, cin, mid, batch=1, itemsize=2):
+def expand_dw_plan(out_h, out_w, kernel, stride, pad, cin, mid, batch=1, itemsize=2):
     """(tile_h, tile_w, channels, layout) of one mbconv_expand_dw launch,
     cached per shape, by a fixed rule among `expand_dw_candidates`:
 
-    - 64 channels a block where cin >= 192 and the map is at most 32x32 (one
-      staged window then serves more of the many channels), else 32;
-    - rows of 32 output pixels, or 16 or 8 where the map is narrower;
+    - 64 channels a block where the depthwise is 3x3, cin >= 192 and the
+      map is at most 32x32 (one staged window then serves more of the many
+      channels), else 32 (a 5x5 window of 64 channels fits one tile row);
+    - rows of 32 output pixels, or 16 or 8 where the map is narrower; for a
+      5x5 depthwise the width among those that pads the map's width least
+      (ties to the wider: SC's 48-wide maps take 16), at most 16 at stride 2
+      (a row of 32 stages 80 input pixels, 12.5 an output pixel at the one
+      tile row that fits, against 9 at 16 pixels' three tile rows);
     - the tallest tile that fits, unless its grid has fewer than MIN_BLOCKS
       blocks (two a SM, as many as the card holds at once): then the tile
       whose grid comes nearest MIN_BLOCKS without passing it.
 
     `mbconv_sweep --plans` times every candidate against the rule's pick."""
-    cc = EXPAND_CHANNELS[1] if cin >= 192 and out_h * out_w <= 32 * 32 else EXPAND_CHANNELS[0]
+    wide = kernel == 3 and cin >= 192 and out_h * out_w <= 32 * 32
+    cc = EXPAND_CHANNELS[1] if wide else EXPAND_CHANNELS[0]
     tw = next(w for w in (32, 16, 8) if w == 8 or w < 2 * _up(out_w, 8))
-    fits = [(th, lay) for th, w, c, lay in expand_dw_candidates(out_h, out_w, stride, cin,
-                                                                 itemsize) if (w, c) == (tw, cc)]
+    if kernel == 5:
+        widths = [w for w in (32, 16, 8) if w <= (tw if stride == 1 else min(tw, 16))]
+        tw = min(widths, key=lambda w: (-(-out_w // w) * w, -w))
+    fits = [(th, lay) for th, w, c, lay in expand_dw_candidates(
+        out_h, out_w, kernel, stride, pad, cin, itemsize) if (w, c) == (tw, cc)]
     if not fits:
         raise ValueError(f"mbconv_expand_dw: {cin} input channels leave no tile within "
-                         f"{SMEM_LIMIT} B of shared memory")
+                         f"{EXPAND_SMEM[kernel]} B of shared memory")
 
     def blocks(th):
         return -(-out_h // th) * -(-out_w // tw) * -(-mid // cc) * batch
@@ -318,57 +356,76 @@ def expand_dw_plan(out_h, out_w, stride, cin, mid, batch=1, itemsize=2):
     return th, tw, cc, layout
 
 
-def mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
+def mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, pad, eps=1e-3):
     """Plain twin of K5 in float32 torch ops (float64 for a float64 x)."""
     e = F.swish(F.batch_norm(TF.conv2d(wide(x), wide(w_expand)), *bn0, eps=eps))
-    d = F.conv2d(e, wide(w_dw), stride=stride, padding=EXPAND_PADS[stride],
-                 groups=e.shape[1])
+    d = F.conv2d(e, wide(w_dw), stride=stride, padding=pad, groups=e.shape[1])
     return F.swish(F.batch_norm(d, *bn1, eps=eps)).to(x.dtype)
 
 
-def mbconv_expand_dw_band(slab, w_expand, bn0, w_dw, bn1, stride, eps=1e-3, top=0,
+def _band_slab(slab, pad, top, bottom):
+    """(slab, pad) that K5 runs on for a band's slab with `top` / `bottom`
+    neighbouring rows attached: those rows take the place of as many rows of
+    the depthwise's pad. A halo deeper than the neighbouring band (two
+    bands: parallel.spatial.halo) ends in zero rows past the image, which the
+    expand would turn into swish(bias0): they are dropped and stay pad."""
+    rows = slab.shape[2] - top - bottom
+    past_t, past_b = max(top - rows, 0), max(bottom - rows, 0)
+    if past_t or past_b:
+        slab = slab[:, :, past_t:slab.shape[2] - past_b].contiguous()
+    (pt, pb), cols = pad
+    return slab, ((pt - top + past_t, pb - bottom + past_b), cols)
+
+
+def mbconv_expand_dw_band(slab, w_expand, bn0, w_dw, bn1, stride, pad, eps=1e-3, top=0,
                           bottom=0):
     """K5 on a band of a spatially sharded map, `slab` the band with `top` /
-    `bottom` neighbouring rows attached as for mbconv_dw_band. The attached
-    rows are expanded too, and the depthwise zero-pads only the slab's
-    border, which is the image's where nothing is attached. Stride 1 (one
-    row each side) crops the attached rows' outputs; stride 2 (pad (0, 1):
-    the band below's first row alone) needs no crop, since a band of 2n
-    rows, or 2n + 1 with the row, gives n rows."""
-    if stride == 2 and top:
-        raise ValueError("mbconv_expand_dw_band: stride 2 reads no row above its band")
-    y = mbconv_expand_dw(slab, w_expand, bn0, w_dw, bn1, stride, eps=eps)
-    return y if stride == 2 else crop_rows(y, top, bottom)
+    `bottom` neighbouring rows attached as for mbconv_dw_band: at an interior
+    edge the rows the depthwise's pad reads there (above: the top pad;
+    below: k - stride - top pad), at the image's border none. The attached
+    rows are expanded too and stand in for the pad they cover, so the kernel
+    runs with what is left of the pad (0 at an interior edge) and gives
+    exactly the band's rows of the unsharded output, for a band of a
+    multiple of the stride rows."""
+    xs, pad = _band_slab(slab, pad, top, bottom)
+    return mbconv_expand_dw(xs, w_expand, bn0, w_dw, bn1, stride, pad, eps=eps)
 
 
-def mbconv_expand_dw_band_plain(slab, w_expand, bn0, w_dw, bn1, stride, eps=1e-3, top=0,
+def mbconv_expand_dw_band_plain(slab, w_expand, bn0, w_dw, bn1, stride, pad, eps=1e-3, top=0,
                                 bottom=0):
     """Plain version of mbconv_expand_dw_band: the twin on the slab."""
-    y = mbconv_expand_dw_plain(slab, w_expand, bn0, w_dw, bn1, stride, eps=eps)
-    return y if stride == 2 else crop_rows(y, top, bottom)
+    xs, pad = _band_slab(slab, pad, top, bottom)
+    return mbconv_expand_dw_plain(xs, w_expand, bn0, w_dw, bn1, stride, pad, eps=eps)
 
 
-def mbconv_expand_dw(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
-    """x: (B, Cin, H, W); w_expand: (mid, Cin, 1, 1); w_dw: (mid, 1, 3, 3);
-    bn0, bn1 float32 (mid,) x 4; stride 1 or 2. -> (B, mid, H', W')."""
-    if stride not in EXPAND_PADS:
-        raise ValueError(f"mbconv_expand_dw: stride {stride}; the kernel takes 1 or 2")
+def mbconv_expand_dw(x, w_expand, bn0, w_dw, bn1, stride, pad, eps=1e-3):
+    """x: (B, Cin, H, W); w_expand: (mid, Cin, 1, 1); w_dw: (mid, 1, k, k),
+    k 3 or 5; bn0, bn1 float32 (mid,) x 4; stride 1 or 2; pad the
+    depthwise's zero pad ((top, bottom), (left, right)), each side under k.
+    -> (B, mid, H', W')."""
+    k = w_dw.shape[-1]
+    if not expand_dw_takes(k, stride, pad):
+        raise ValueError(f"mbconv_expand_dw: a {k}x{k} depthwise at stride {stride} with "
+                         f"pad {pad}; the kernel takes 3x3 or 5x5 at stride 1 or 2, each "
+                         f"side's pad under the kernel")
     if x.device.type == "cpu":
         with trace.span("kernel.mbconv_expand_dw") as attrs:
-            out = mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, eps)
+            out = mbconv_expand_dw_plain(x, w_expand, bn0, w_dw, bn1, stride, pad, eps)
     else:
         build.check_activation("mbconv_expand_dw x", x)
         b, cin, h, w = x.shape
         mid = w_expand.shape[0]
         build.check("mbconv_expand_dw w_expand", w_expand, x.dtype, (mid, cin, 1, 1))
-        build.check("mbconv_expand_dw w_dw", w_dw, x.dtype, (mid, 1, 3, 3))
+        build.check("mbconv_expand_dw w_dw", w_dw, x.dtype, (mid, 1, k, k))
         build.check_bn("mbconv_expand_dw bn0", bn0, mid)
         build.check_bn("mbconv_expand_dw bn1", bn1, mid)
-        oh, ow = expand_dw_out_hw(h, w, stride)
+        oh, ow = expand_dw_out_hw(h, w, k, stride, pad)
         if oh < 1 or ow < 1:
-            raise ValueError(f"mbconv_expand_dw: input {h}x{w} too small for stride {stride}")
-        th, tw, cc, layout = expand_dw_plan(oh, ow, stride, cin, mid, b, x.element_size())
-        (pt, _), (pl, _) = EXPAND_PADS[stride]
+            raise ValueError(f"mbconv_expand_dw: input {h}x{w} too small for a {k}x{k} "
+                             f"depthwise at stride {stride} with pad {pad}")
+        th, tw, cc, layout = expand_dw_plan(oh, ow, k, stride, pad, cin, mid, b,
+                                            x.element_size())
+        (pt, _), (pl, _) = pad
         out = torch.empty((b, mid, oh, ow), device=x.device, dtype=x.dtype)
         ops = build.kernels()
         with trace.span("kernel.mbconv_expand_dw") as attrs:
@@ -377,5 +434,5 @@ def mbconv_expand_dw(x, w_expand, bn0, w_dw, bn1, stride, eps=1e-3):
         LAUNCHES["mbconv_expand_dw"] += 1
     if attrs is not None:
         describe(attrs, x=x, w_expand=w_expand, bn0=bn0, w_dw=w_dw, bn1=bn1, stride=stride,
-                 out=out)
+                 pad=pad, out=out)
     return out

@@ -2,17 +2,21 @@
 one GPU at every call of the main paths' backbones, one line per block.
 
     python -m hyperseg_torch.ops.kernels.mbconv_sweep [--batch 1] [--plans]
+        [--models M L V SC]
 
 For HyperSeg-M (EfficientNet-B1 at 1024x512), HyperSeg-L CamVid (B1 at
-768x1024) and HyperSeg-L VOC (B3 at 512x512), each block that runs K4a, K4b
-or K5 gets its call's shapes from the backbone's block plans, random
-bfloat16 inputs, and a line with the kernel's mean device time (CUDA events
-over a warm loop), its library yardstick's (K4a: ATen's depthwise conv with
-BN folded in; K4b: cuDNN's 1x1 conv on weights with SE and BN folded in; K5:
-cuDNN's 1x1 expand + ATen's depthwise, without BN and swish), the least time
-the card could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s) and the
-kernel's largest difference from its plain twin. Sums per model close each
-model. With --plans, K4a and K5 instead run at every plan the kernel takes
+768x1024), HyperSeg-L VOC (B3 at 512x512) and HyperSeg-S Cityscapes (B1 at
+1536x768), each block that runs K4a, K4b or K5 gets its call's shapes from
+the backbone's block plans, random bfloat16 inputs, and a line with the
+kernel's mean device time (CUDA events over a warm loop), its library
+yardstick's (K4a: ATen's depthwise conv with BN folded in; K4b: cuDNN's 1x1
+conv on weights with SE and BN folded in; K5: cuDNN's 1x1 expand + ATen's
+depthwise, without BN and swish), for K5 also the eager passes it replaces
+(the block's eval path without the kernel: 1x1 expand, BN, swish,
+depthwise, BN, swish), the least time the card could take (bytes over 3.35
+TB/s or flops over 989 TFLOP/s) and the kernel's largest difference from
+its plain twin. Sums per model close each model. With --plans, K4a and K5
+instead run at every plan the kernel takes
 for each call (K4a: every band of DW_ROWS), two lines per block: the plan
 `dw_plan` or `expand_dw_plan` picks, the fastest and the pick's rank; then
 every plan's time; at the end the sums of the picks' and of the fastest
@@ -26,6 +30,7 @@ import torch
 import torch.nn.functional as TF
 
 from hyperseg_torch.models.backbones.efficientnet import EfficientNet
+from hyperseg_torch.nn import functional as F
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.ops.kernels import mbconv as K4
 from hyperseg_torch.ops.kernels.invres_sweep import cuda_ms
@@ -34,6 +39,7 @@ MODELS = {  # name: backbone, input (H, W)
     "M": ("efficientnet-b1", (512, 1024)),
     "L": ("efficientnet-b1", (768, 1024)),
     "V": ("efficientnet-b3", (512, 512)),
+    "SC": ("efficientnet-b1", (768, 1536)),
 }
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 989e12   # H100 SXM HBM3, dense bf16
 
@@ -55,7 +61,8 @@ def calls(model, hw=None):
         elif p.expand_fusable:
             out.append((i, "expand_dw", p, (h, w)))
             if p.out_ch <= K4.MAX_PROJECT_OUT:
-                out.append((i, "project", p, K4.expand_dw_out_hw(h, w, p.stride)))
+                out.append((i, "project", p,
+                            K4.expand_dw_out_hw(h, w, p.kernel, p.stride, p.dw_pad)))
         h, w = math.ceil(h / p.stride), math.ceil(w / p.stride)
     return out
 
@@ -74,7 +81,8 @@ def _nbytes(obj):
 
 
 def time_call(kind, p, hw, batch, gen):
-    """(input shape, kernel ms, library ms, bound ms, bound by, max abs err)."""
+    """(input shape, kernel ms, library ms, eager ms (K5; else None), bound
+    ms, bound by, max abs err)."""
     dev, dt = "cuda", torch.bfloat16
 
     def rnd(*shape, scale=1.0):
@@ -86,6 +94,7 @@ def time_call(kind, p, hw, batch, gen):
                                          torch.randn(c, generator=gen) * 0.1,
                                          torch.rand(c, generator=gen) + 0.5))
     h, w = hw
+    eager = None
     if kind == "dw":
         x, wd, bnd = rnd(batch, p.mid, h, w), rnd(p.mid, 1, 3, 3, scale=0.3), bn(p.mid)
         args = (x, wd, bnd)
@@ -107,27 +116,35 @@ def time_call(kind, p, hw, batch, gen):
         flops = 2 * p.mid * out_numel
     else:
         x = rnd(batch, p.in_ch, h, w)
-        we, wd = rnd(p.mid, p.in_ch, 1, 1, scale=p.in_ch ** -0.5), rnd(p.mid, 1, 3, 3, scale=0.3)
+        k = p.kernel
+        we, wd = rnd(p.mid, p.in_ch, 1, 1, scale=p.in_ch ** -0.5), rnd(p.mid, 1, k, k, scale=0.3)
         bn0, bn1 = bn(p.mid), bn(p.mid)
-        args = (x, we, bn0, wd, bn1, p.stride)
+        args = (x, we, bn0, wd, bn1, p.stride, p.dw_pad)
         wef, b0 = _folded(we, bn0)
         wdf, b1 = _folded(wd, bn1)
-        (pt, pb), (pl, pr) = K4.EXPAND_PADS[p.stride]
+        (pt, pb), (pl, pr) = p.dw_pad
         fn, twin = K4.mbconv_expand_dw, K4.mbconv_expand_dw_plain
 
         def library():
             e = TF.pad(TF.conv2d(x, wef, b0), (pl, pr, pt, pb))
             return TF.conv2d(e, wdf, b1, stride=p.stride, groups=p.mid)
-        oh, ow = K4.expand_dw_out_hw(h, w, p.stride)
+
+        def eager_passes():
+            e = F.swish(F.batch_norm(F.conv2d(x, we), *bn0, eps=1e-3))
+            d = F.conv2d(e, wd, stride=p.stride, padding=p.dw_pad, groups=p.mid)
+            return F.swish(F.batch_norm(d, *bn1, eps=1e-3))
+        oh, ow = K4.expand_dw_out_hw(h, w, k, p.stride, p.dw_pad)
         out_numel = batch * p.mid * oh * ow
-        flops = 2 * (x.numel() * p.mid + 9 * out_numel)
+        flops = 2 * (x.numel() * p.mid + k * k * out_numel)
     with torch.no_grad():
         err = (fn(*args).float() - twin(*args).float()).abs().max().item()
         ms, lib_ms = cuda_ms(lambda: fn(*args)), cuda_ms(library)
+        if kind == "expand_dw":
+            eager = cuda_ms(eager_passes)
     moved = _nbytes(args) + 2 * out_numel     # each input read once, the output written once
     by_bytes, by_ops = moved / PEAK_BYTES * 1e3, flops / PEAK_FLOPS * 1e3
     bound, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-    return tuple(x.shape), ms, lib_ms, bound, by, err
+    return tuple(x.shape), ms, lib_ms, eager, bound, by, err
 
 
 def dw_plan_table(p, hw, batch, gen):
@@ -156,26 +173,28 @@ def plan_table(p, hw, batch, gen):
     x = (torch.randn(batch, p.in_ch, h, w, generator=gen)).to("cuda", torch.bfloat16)
     we = (torch.randn(p.mid, p.in_ch, 1, 1, generator=gen) * p.in_ch ** -0.5).to(
         "cuda", torch.bfloat16)
-    wd = (torch.randn(p.mid, 1, 3, 3, generator=gen) * 0.3).to("cuda", torch.bfloat16)
+    k = p.kernel
+    wd = (torch.randn(p.mid, 1, k, k, generator=gen) * 0.3).to("cuda", torch.bfloat16)
     bn = [t.to("cuda") for t in (torch.rand(p.mid, generator=gen) + 0.5,
                                  torch.randn(p.mid, generator=gen) * 0.1,
                                  torch.randn(p.mid, generator=gen) * 0.1,
                                  torch.rand(p.mid, generator=gen) + 0.5)] * 2
-    oh, ow = K4.expand_dw_out_hw(h, w, p.stride)
-    (pt, _), (pl, _) = K4.EXPAND_PADS[p.stride]
+    oh, ow = K4.expand_dw_out_hw(h, w, k, p.stride, p.dw_pad)
+    (pt, _), (pl, _) = p.dw_pad
     out = torch.empty(batch, p.mid, oh, ow, device="cuda", dtype=torch.bfloat16)
     table = []
-    for th, tw, cc, layout in K4.expand_dw_candidates(oh, ow, p.stride, p.in_ch):
+    for th, tw, cc, layout in K4.expand_dw_candidates(oh, ow, k, p.stride, p.dw_pad, p.in_ch):
         ms = cuda_ms(lambda: build.kernels().mbconv_expand_dw(
             x, we, bn, wd, 1e-3, p.stride, pt, pl, th, tw, cc, layout, out))
         table.append((ms, th, tw, cc))
-    return sorted(table), K4.expand_dw_plan(oh, ow, p.stride, p.in_ch, p.mid, batch)[:3]
+    return sorted(table), K4.expand_dw_plan(oh, ow, k, p.stride, p.dw_pad, p.in_ch, p.mid,
+                                            batch)[:3]
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--models", default="MLV")
+    ap.add_argument("--models", nargs="+", default=["M", "L", "V", "SC"], choices=sorted(MODELS))
     ap.add_argument("--plans", action="store_true",
                     help="time K4a and K5 at every plan they take, against the plan's pick")
     args = ap.parse_args()
@@ -201,7 +220,8 @@ def main():
                           f"(+{100 * (ms / best - 1):.1f}%), rank {rank + 1} of {len(table)}",
                           flush=True)
                     print(f"mbconv_sweep plans {model} block {i:2d} x {(args.batch, cin, *hw)} "
-                          f"{cin} -> {p.mid} stride {p.stride}, every plan {what} ms: "
+                          f"{cin} -> {p.mid} {p.kernel}x{p.kernel} stride {p.stride}, "
+                          f"every plan {what} ms: "
                           + " ".join(f"{t[1:]} {t[0]:.4f}" for t in table), flush=True)
             print(f"mbconv_sweep plans {kernel} batch {args.batch}: picks sum {picked:.4f} ms, "
                   f"fastest {fastest:.4f} ms (+{100 * (picked / fastest - 1):.1f}%); the pick "
@@ -210,21 +230,26 @@ def main():
     for model in args.models:
         sums = {}
         for i, kind, p, hw in calls(model):
-            shape, ms, lib_ms, bound, by, err = time_call(kind, p, hw, args.batch, gen)
-            s = sums.setdefault(kind, [0.0, 0.0, 0.0, 0])
+            shape, ms, lib_ms, eager, bound, by, err = time_call(kind, p, hw, args.batch, gen)
+            key = kind if kind != "expand_dw" else f"expand_dw {p.kernel}x{p.kernel}"
+            s = sums.setdefault(key, [0.0, 0.0, 0.0, 0.0, 0])
             s[0] += ms
             s[1] += lib_ms
-            s[2] += bound
-            s[3] += 1
+            s[2] += eager or 0.0
+            s[3] += bound
+            s[4] += 1
             cin, cout = {"dw": (p.mid, p.mid), "expand_dw": (p.in_ch, p.mid)}.get(
                 kind, (p.mid, p.out_ch))
+            passes = "" if eager is None else f"eager {eager:.4f} ms  "
             print(f"mbconv_sweep {model} block {i:2d} {kind:9s} x {shape} {cin} -> {cout} "
-                  f"stride {p.stride}: kernel {ms:.4f} ms  "
-                  f"library {lib_ms:.4f} ms  bound {bound:.4f} ms ({by})  max_abs_err {err:.3e}",
+                  f"{p.kernel}x{p.kernel} stride {p.stride} pad {p.dw_pad}: kernel {ms:.4f} ms  "
+                  f"library {lib_ms:.4f} ms  {passes}bound {bound:.4f} ms ({by})  "
+                  f"max_abs_err {err:.3e}", flush=True)
+        for key, (ms, lib_ms, eager, bound, n) in sums.items():
+            passes = f"eager {eager:.4f} ms  " if key.startswith("expand_dw") else ""
+            print(f"mbconv_sweep {model} {key} sum over {n} calls, batch {args.batch}: kernel "
+                  f"{ms:.4f} ms  library {lib_ms:.4f} ms  {passes}bound {bound:.4f} ms",
                   flush=True)
-        for kind, (ms, lib_ms, bound, n) in sums.items():
-            print(f"mbconv_sweep {model} {kind} sum over {n} calls, batch {args.batch}: kernel "
-                  f"{ms:.4f} ms  library {lib_ms:.4f} ms  bound {bound:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

@@ -55,7 +55,7 @@ MODELS = {
              kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
              expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
         (512, 1024), 10378108,    # bench.py:92, total
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
          "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1, 8)),
@@ -67,7 +67,7 @@ MODELS = {
              with_out_fc=False, decoder_dropout=None,
              weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
         (768, 1024), 10036096,    # the JAX count_params (tests/test_torch_hyperseg_l.py)
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
          "patch_invres_s2w": 3, "patch_invres": 3, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1,)),
@@ -78,7 +78,7 @@ MODELS = {
              with_out_fc=False, decoder_dropout=None, weight_groups=16,
              num_classes=21),
         (512, 512), 39781484,     # the JAX count_params (tests/test_torch_hyperseg_voc.py)
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 10,
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 24,
          "patch_invres_s2w": 0, "patch_invres": 0, "resize_bilinear": 5,
          "patch_invres_v01": 4},
         (1,)),
@@ -92,7 +92,7 @@ MODELS = {
              num_classes=19),
         (768, 1536), 10108108,    # the JAX count_params (tests/test_torch_hyperseg_s.py)
         # K1's count is its generation kernel's: one map per weight block
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
          "patch_invres_s2w": 4, "patch_invres": 2, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1,)),
@@ -104,7 +104,7 @@ MODELS = {
              weight_groups=[64, 32, 32, 16, 8], num_classes=12,
              inference_hflip=True),       # as shipped (configs/train/camvid_*_hyperseg-s.py:22)
         (576, 768), 10015856,     # the JAX count_params (tests/test_torch_hyperseg_s.py)
-        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 9,
+        {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
          "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1,)),

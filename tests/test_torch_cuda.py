@@ -38,15 +38,28 @@ K2_CASES = [  # b, fh, fw, ph, pw, cin, hidden, out
     (1, 2, 2, 8, 8, 16, 32, 16),    # residual (cin == out)
     (1, 1, 1, 4, 300, 8, 12, 8),    # a band of more pixels than threads
 ]
-K5_CASES = [  # b, cin, mid, h, w, stride
-    (2, 16, 96, 64, 128, 2),        # B1 block 2 (mid not a multiple of 32 below)
-    (1, 24, 144, 33, 70, 1),        # blocks 3-4, ragged tiles
-    (1, 320, 1920, 16, 32, 1),      # block 22
-    (1, 40, 240, 17, 31, 2),        # block 8 at odd sizes
-    (1, 384, 2304, 16, 16, 1),      # B3 block 25 at 512x512
-    (1, 232, 1392, 16, 16, 1),      # B3 block 24
-    (2, 24, 144, 31, 45, 2),        # B3 block 2's widths, stride 2 at odd sizes
-    (1, 40, 240, 9, 70, 2),         # rows of 70 pixels: not whole 16-byte chunks
+S1, S2 = ((1, 1), (1, 1)), ((0, 1), (0, 1))     # the 3x3 blocks' pads at stride 1, 2
+P2, P12 = ((2, 2), (2, 2)), ((1, 2), (1, 2))   # the 5x5 blocks'
+K5_CASES = [  # b, cin, mid, h, w, kernel, stride, pad
+    (2, 16, 96, 64, 128, 3, 2, S2),         # B1 block 2 (mid not a multiple of 32 below)
+    (1, 24, 144, 33, 70, 3, 1, S1),         # blocks 3-4, ragged tiles
+    (1, 320, 1920, 16, 32, 3, 1, S1),       # block 22
+    (1, 40, 240, 17, 31, 3, 2, S2),         # block 8 at odd sizes
+    (1, 384, 2304, 16, 16, 3, 1, S1),       # B3 block 25 at 512x512
+    (1, 232, 1392, 16, 16, 3, 1, S1),       # B3 block 24
+    (2, 24, 144, 31, 45, 3, 2, S2),         # B3 block 2's widths, stride 2 at odd sizes
+    (1, 40, 240, 9, 70, 3, 2, S2),          # rows of 70 pixels: not whole 16-byte chunks
+    (1, 16, 96, 21, 37, 3, 2, S1),          # B2's stride-2 pad: taken, not routed
+    (2, 24, 144, 128, 256, 5, 2, P12),      # B1 block 5 at M
+    (1, 40, 240, 64, 128, 5, 1, P2),        # blocks 6-7
+    (1, 80, 480, 33, 70, 5, 1, P2),         # block 12, ragged tiles
+    (1, 112, 672, 32, 64, 5, 2, P2),        # block 16
+    (1, 192, 1152, 24, 48, 5, 1, P2),       # blocks 17-20 at SC
+    (1, 48, 288, 19, 19, 5, 2, P2),         # B3's stride-2 5x5 pad at odd sizes
+    (1, 40, 240, 9, 70, 5, 2, P12),         # rows not whole 16-byte chunks
+    # band slabs: attached rows take the place of the top pad
+    (1, 24, 144, 34, 70, 3, 1, ((0, 0), (1, 1))),
+    (1, 40, 240, 35, 64, 5, 2, ((0, 1), (2, 2))),
 ]
 K4B_CASES = [  # b, cin, cout, h, w, residual
     (1, 96, 24, 64, 128, False),    # B1 block 2
@@ -206,11 +219,11 @@ def test_kernels_match_twins_on_card():
             if dt == torch.bfloat16:   # K1's float32 map with a bfloat16 x
                 wf = ws.float()
                 close(K1.patch_invres(xs, wf, **args), K1.patch_invres_plain(xs, wf, **args))
-        for b, cin, mid, h, w, stride in K5_CASES:
+        for b, cin, mid, h, w, k, stride, pad in K5_CASES:
             xs = r(b, cin, h, w)
-            we, wd = r(mid, cin, 1, 1, scale=cin ** -0.5), r(mid, 1, 3, 3, scale=0.3)
-            close(K4.mbconv_expand_dw(xs, we, bn(mid), wd, bn(mid, 1), stride),
-                  K4.mbconv_expand_dw_plain(xs, we, bn(mid), wd, bn(mid, 1), stride))
+            we, wd = r(mid, cin, 1, 1, scale=cin ** -0.5), r(mid, 1, k, k, scale=0.3)
+            close(K4.mbconv_expand_dw(xs, we, bn(mid), wd, bn(mid, 1), stride, pad),
+                  K4.mbconv_expand_dw_plain(xs, we, bn(mid), wd, bn(mid, 1), stride, pad))
         for b, c, h, w, s in K6_CASES:
             xs = r(b, c, h, w)
             want = K6.resize_bilinear_plain(xs, (s * h, s * w))
@@ -252,15 +265,15 @@ def test_expand_dw_negative_tail_on_card():
     for dt, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2 ** -6)):
         x = (torch.randn(b, cin, h, w, generator=g) * 0.1).to("cuda", dt)
         we = (torch.randn(mid, cin, 1, 1, generator=g) * cin ** -0.5).to("cuda", dt)
-        wd = torch.zeros(mid, 1, 3, 3)
-        wd[:, :, 1, 1] = 1.0
-        wd = wd.to("cuda", dt)
-        for stride in (1, 2):
-            got = K4.mbconv_expand_dw(x, we, bn0, wd, bn1, stride).float()
-            want = K4.mbconv_expand_dw_plain(x, we, bn0, wd, bn1, stride).float()
+        for k, stride, pad in ((3, 1, S1), (3, 2, S2), (5, 1, P2), (5, 2, P12)):
+            wd = torch.zeros(mid, 1, k, k)
+            wd[:, :, k // 2, k // 2] = 1.0
+            wd = wd.to("cuda", dt)
+            got = K4.mbconv_expand_dw(x, we, bn0, wd, bn1, stride, pad).float()
+            want = K4.mbconv_expand_dw_plain(x, we, bn0, wd, bn1, stride, pad).float()
             assert (want < 0).all()
             err = ((got - want).abs() / want.abs()).max().item()
-            assert err <= rel, (dt, stride, err)
+            assert err <= rel, (dt, k, stride, err)
 
 
 STEM_GRAD_CASES = [  # b, h, w, cout

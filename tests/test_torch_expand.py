@@ -18,7 +18,8 @@ from hyperseg_torch.ops.kernels import mbconv as K5
 
 from torch_parity import assert_close_rel, bn_params, jax_params, nchw, nhwc, t
 
-B1_K5_BLOCKS = [2, 3, 4, 8, 9, 10, 11, 21, 22]
+B1_K5_BLOCKS = list(range(2, 23))              # every expand-ratio block of B1
+B1_5X5_BLOCKS = [5, 6, 7, 12, 13, 14, 15, 16, 17, 18, 19, 20]
 
 
 @pytest.mark.parametrize("stride", [1, 2])
@@ -37,7 +38,8 @@ def test_k5_plain_matches_pallas_expand_dw(stride):
                               interpret=True)
     LAUNCHES.clear()
     got = K5.mbconv_expand_dw(t(x), t(we), tuple(map(t, bn0)), t(wd), tuple(map(t, bn1)),
-                              stride, eps=1e-3)
+                              stride, ((1, 1), (1, 1)) if stride == 1 else ((0, 1), (0, 1)),
+                              eps=1e-3)
     assert got.shape == (b, mid, h // stride, w // stride)
     assert sum(LAUNCHES.values()) == 0   # the CPU takes the twin
     # f32 on both sides (the JAX package's own tolerance for this kernel);
@@ -55,13 +57,66 @@ def _b1():
 
 
 def test_k5_predicate_selects_b1_expand_blocks():
-    """expand > 1, 3x3, stride 1 with pad (1, 1) or stride 2 with (0, 1), SE:
-    exactly B1's blocks 2-4, 8-11, 21 and 22; K4a/K4b keep blocks 0-1."""
+    """expand > 1, SE, 3x3 or 5x5 at a stride and pad K5 takes: every
+    expand-ratio block of B1, 2-22, the twelve 5x5 ones among them; K4a/K4b
+    keep blocks 0-1."""
     _, tb = _b1()
     assert [i for i, blk in enumerate(tb._blocks) if blk.plan.expand_fusable] == B1_K5_BLOCKS
     assert [i for i, blk in enumerate(tb._blocks) if blk.plan.fusable] == [0, 1]
+    assert [i for i in B1_K5_BLOCKS if tb._blocks[i].plan.kernel == 5] == B1_5X5_BLOCKS
+    assert {(tb._blocks[i].plan.stride, tb._blocks[i].plan.dw_pad[0]) for i in B1_5X5_BLOCKS} \
+        == {(1, (2, 2)), (2, (1, 2)), (2, (2, 2))}
     strides = {tb._blocks[i].plan.stride for i in B1_K5_BLOCKS}
     assert strides == {1, 2}
+
+
+def R(a, b):
+    return list(range(a, b + 1))
+
+
+# by backbone: (the expand-ratio blocks routed to K5, the 5x5 ones among
+# them, the expand-ratio blocks that stay eager), from the block tables and
+# their TF-SAME pads at the nominal size; B2's block 8 and the s2 variant's
+# blocks 2 and 8 are 3x3 at stride 2 with the pad (1, 1), not a routed form
+K5_ROUTES = {
+    "efficientnet-b0": (R(1, 15), [3, 4] + R(8, 14), []),
+    "efficientnet-b1": (R(2, 22), R(5, 7) + R(12, 20), []),
+    "efficientnet-b2": (R(2, 7) + R(9, 22), R(5, 7) + R(12, 20), [8]),
+    "efficientnet-b3": (R(2, 25), R(5, 7) + R(13, 23), []),
+    "efficientnet-c0": (R(1, 19), [3, 4] + R(8, 18), []),
+    "efficientnet-c3": (R(2, 31), R(5, 7) + R(13, 29), []),
+    "efficientnet-s0": (R(1, 15), [3, 4] + R(8, 14), []),
+    "efficientnet-s2": ([3, 4, 5, 6, 7] + R(9, 22), R(5, 7) + R(12, 20), [2, 8]),
+}
+
+
+@pytest.mark.parametrize("name", list(K5_ROUTES))
+def test_k5_routes_by_plan_alone(name):
+    """The expand-ratio SE blocks each backbone routes to K5 (the forms of
+    K5.EXPAND_FORMS) and those that stay eager, against hand-written
+    lists: a wrong pad rule shows as a routing change. Every routed plan,
+    at the nominal size and at a 64x128 input, has a tile plan in both
+    dtypes, at batch 1 and 8."""
+    import math
+    from hyperseg_torch.models.backbones.efficientnet import SCALING
+    net = EfficientNet(name, device="meta")
+    routed, five, eager = K5_ROUTES[name]
+    plans = [blk.plan for blk in net._blocks]
+    assert [i for i, p in enumerate(plans) if p.expand_fusable] == routed
+    assert [i for i in routed if plans[i].kernel == 5] == five
+    assert [i for i, p in enumerate(plans)
+            if p.expand > 1 and not p.expand_fusable] == eager
+    nominal = SCALING["b" + name[-1]][2]
+    for size in ((nominal, nominal), (64, 128)):
+        h, w = (math.ceil(v / 2) for v in size)
+        for p in plans:
+            if p.expand_fusable:
+                oh, ow = K5.expand_dw_out_hw(h, w, p.kernel, p.stride, p.dw_pad)
+                for batch in (1, 8):
+                    for itemsize in (2, 4):
+                        K5.expand_dw_plan(oh, ow, p.kernel, p.stride, p.dw_pad, p.in_ch,
+                                          p.mid, batch, itemsize)
+            h, w = math.ceil(h / p.stride), math.ceil(w / p.stride)
 
 
 def test_k5_blocks_match_jax_blocks():

@@ -1,14 +1,16 @@
 """The tile plans of K4b (mbconv_project) and K5 (mbconv_expand_dw).
 
 For every K4b and K5 call of HyperSeg-M (1024x512), HyperSeg-L CamVid
-(768x1024) and HyperSeg-L VOC (512x512) at batch 1 and 8, taken from the
-port's EfficientNet plans as mbconv_sweep lists them (no forward), the
-plans' tiles cover the output and a block's shared memory, laid out by the
-plan, fits the H100's 232,448 B. A numpy walk through the K5 kernel's index
-arithmetic (the staged window of 8-pixel chunks, the GEMM over it, the
-epilogue's window positions) at the bfloat16 and the float32 plans is held
-against the kernel's plain twin. The kernels themselves run only on the card
-(tests/test_torch_cuda.py)."""
+(768x1024), HyperSeg-L VOC (512x512) and HyperSeg-S Cityscapes (1536x768)
+at batch 1 and 8, taken from the port's EfficientNet plans as mbconv_sweep
+lists them (no forward), the plans' tiles cover the output and a block's
+shared memory, laid out by the plan, fits the H100's 232,448 B (half of an
+SM's, so two blocks fit, for K5's 5x5 form). A numpy walk through the K5
+kernel's index arithmetic (the staged window of 8-pixel chunks, the GEMM
+over it, the epilogue's window positions, the KxK depthwise) at the
+bfloat16 and the float32 plans is held against the kernel's plain twin, at
+3x3 and 5x5 and each stride and pad the backbones' blocks have. The kernels
+themselves run only on the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -19,18 +21,20 @@ from hyperseg_torch.ops.kernels import mbconv_sweep
 
 from torch_parity import bn_params, t
 
-CALLS = {"M": (5, 9), "L": (5, 9), "V": (5, 10)}   # K4b, K5 calls per forward
+# K4b, K5 calls per forward
+CALLS = {"M": (5, 21), "L": (5, 21), "V": (5, 24), "SC": (5, 21)}
 
 
 def _calls(model):
     """(K4b calls, K5 calls) of one forward: (cin, hw) and (cin, mid, out_h,
-    out_w, stride)."""
+    out_w, kernel, stride, pad)."""
     project, expand = [], []
     for _, kind, p, (h, w) in mbconv_sweep.calls(model):
         if kind == "project":
             project.append((p.mid, h * w))
         elif kind == "expand_dw":
-            expand.append((p.in_ch, p.mid, *K4.expand_dw_out_hw(h, w, p.stride), p.stride))
+            oh, ow = K4.expand_dw_out_hw(h, w, p.kernel, p.stride, p.dw_pad)
+            expand.append((p.in_ch, p.mid, oh, ow, p.kernel, p.stride, p.dw_pad))
     return project, expand
 
 
@@ -63,47 +67,52 @@ def test_project_plan_covers_and_fits(model, batch):
 def test_expand_plan_covers_and_fits(model, batch):
     _, expand = _calls(model)
     assert len(expand) == CALLS[model][1]
-    for cin, mid, oh, ow, stride in expand:
+    for cin, mid, oh, ow, k, stride, pad in expand:
+        assert K4.expand_dw_takes(k, stride, pad)
         for itemsize in (2, 4):
-            th, tw, cc, layout = K4.expand_dw_plan(oh, ow, stride, cin, mid, batch, itemsize)
+            th, tw, cc, layout = K4.expand_dw_plan(oh, ow, k, stride, pad, cin, mid, batch,
+                                                   itemsize)
             ty, tx = -(-oh // th), -(-ow // tw)
             assert ty * th >= oh > (ty - 1) * th and tx * tw >= ow > (tx - 1) * tw
             assert -(-mid // cc) * cc >= mid
             assert cc in K4.EXPAND_CHANNELS and tw in (8, 16, 32)
-            staged = K4.expand_dw_staged(stride, th, tw)
+            staged = K4.expand_dw_staged(k, stride, pad, th, tw)
             assert staged <= K4.expand_dw_max_staged(cc)
-            assert layout == K4.expand_dw_layout(cin, stride, th, tw, cc, itemsize)
+            assert layout == K4.expand_dw_layout(cin, k, stride, pad, th, tw, cc, itemsize)
             # the regions follow each other, 16-byte aligned, within the limit
             x_row, w_row, stage, stages, c_off, t_off, total = layout
-            win_h, win_w = K4.expand_dw_window(stride, th, tw)
+            win_h, win_w = K4.expand_dw_window(k, stride, th, tw)
             assert x_row >= staged and w_row >= K4.EXPAND_KC
             assert (x_row * itemsize) % 16 == 0 and (w_row * itemsize) % 16 == 0
             assert stage >= K4.EXPAND_KC * x_row + cc * w_row and (stage * itemsize) % 16 == 0
-            assert 1 <= stages <= min(K4.EXPAND_STAGES, -(-cin // K4.EXPAND_KC))
+            assert 1 <= stages <= min(K4.EXPAND_STAGES[k], -(-cin // K4.EXPAND_KC))
             assert c_off >= max(itemsize * stages * stage, 4 * cc * win_h * win_w)
-            assert c_off % 16 == 0 and t_off >= c_off + 4 * 12 * cc and t_off % 16 == 0
-            assert t_off + 16 * (staged // 8) <= total <= K4.SMEM_LIMIT
+            assert c_off % 16 == 0 and t_off >= c_off + 4 * (3 + k * k) * cc
+            assert t_off % 16 == 0
+            assert t_off + 16 * (staged // 8) <= total <= K4.EXPAND_SMEM[k] <= K4.SMEM_LIMIT
+            if k == 5:   # two blocks an SM: 228 KB, 1 KB reserved a block
+                assert 2 * (total + 1024) <= 233472
 
 
 def _swish(v):
     return v / (1.0 + np.exp(-v))
 
 
-def _expand_dw_walk(x, we, bn0, wd, bn1, stride, itemsize, eps=1e-3):
+def _expand_dw_walk(x, we, bn0, wd, bn1, stride, pad, itemsize, eps=1e-3):
     """The K5 kernel's blocks at its plan for an x of `itemsize` bytes, in
     numpy (float64), index by index: stage each tile's window as whole
     8-pixel chunks of its rows, expand every staged pixel, keep the
-    window's, zero those outside the image, then the depthwise of the
+    window's, zero those outside the image, then the KxK depthwise of the
     tile's outputs."""
     b, cin, h, w = x.shape
-    mid = we.shape[0]
-    oh, ow = K4.expand_dw_out_hw(h, w, stride)
-    th, tw, cc, _ = K4.expand_dw_plan(oh, ow, stride, cin, mid, b, itemsize)
-    (pt, _), (pl, _) = K4.EXPAND_PADS[stride]
-    win_h, win_w = K4.expand_dw_window(stride, th, tw)
+    mid, k = we.shape[0], wd.shape[-1]
+    oh, ow = K4.expand_dw_out_hw(h, w, k, stride, pad)
+    th, tw, cc, _ = K4.expand_dw_plan(oh, ow, k, stride, pad, cin, mid, b, itemsize)
+    (pt, _), (pl, _) = pad
+    win_h, win_w = K4.expand_dw_window(k, stride, th, tw)
     off = (8 - pl % 8) % 8
     rw = -(-(off + win_w) // 8) * 8
-    assert win_h * rw == K4.expand_dw_staged(stride, th, tw)
+    assert win_h * rw == K4.expand_dw_staged(k, stride, pad, th, tw)
     s0 = bn0[0] / np.sqrt(bn0[3] + eps)
     c0 = bn0[1] - bn0[2] * s0
     s1 = bn1[0] / np.sqrt(bn1[3] + eps)
@@ -134,29 +143,35 @@ def _expand_dw_walk(x, we, bn0, wd, bn1, stride, itemsize, eps=1e-3):
                                 e[:, wy, wx] = _swish(v)
                     for py in range(min(th, oh - oy0)):
                         for px in range(min(tw, ow - ox0)):
-                            win = e[:, py * stride:py * stride + 3, px * stride:px * stride + 3]
+                            win = e[:, py * stride:py * stride + k, px * stride:px * stride + k]
                             d = (win * wdf[chans]).sum((1, 2)) + c1[chans]
                             out[bi, chans, oy0 + py, ox0 + px] = _swish(d)
     return out
 
 
 @pytest.mark.parametrize("case", [
-    (1, 24, 40, 9, 21, 1),    # ragged tiles, mid not a multiple of 32
-    (2, 40, 72, 11, 19, 2),   # stride 2 at odd sizes, batch 2
-    (1, 48, 96, 4, 4, 1),     # a map smaller than one tile
+    # (b, cin, mid, h, w, kernel, stride, pad: ((top, bottom), (left, right)))
+    (1, 24, 40, 9, 21, 3, 1, ((1, 1), (1, 1))),   # ragged tiles, mid not a multiple of 32
+    (2, 40, 72, 11, 19, 3, 2, ((0, 1), (0, 1))),  # stride 2 at odd sizes, batch 2
+    (1, 48, 96, 4, 4, 3, 1, ((1, 1), (1, 1))),    # a map smaller than one tile
+    (1, 16, 40, 13, 37, 3, 2, ((1, 1), (1, 1))),  # B2's stride-2 pad: taken, not routed
+    (1, 24, 40, 9, 21, 5, 1, ((2, 2), (2, 2))),   # 5x5: B1's blocks 6-7, 12-15, 17-20
+    (2, 24, 72, 11, 19, 5, 2, ((1, 2), (1, 2))),  # 5x5 stride 2: B1's block 5
+    (1, 40, 40, 13, 23, 5, 2, ((2, 2), (2, 2))),  # 5x5 stride 2: B1's block 16
+    (1, 16, 1152, 5, 7, 5, 1, ((2, 2), (2, 2))),  # B1's widest 5x5 mid: 36 channel chunks
 ])
 def test_expand_dw_walk_matches_twin(case):
-    b, cin, mid, h, w, stride = case
+    b, cin, mid, h, w, k, stride, pad = case
     rng = np.random.RandomState(3)
     x = rng.randn(b, cin, h, w)
     we = rng.randn(mid, cin, 1, 1) * cin ** -0.5
-    wd = rng.randn(mid, 1, 3, 3) * 0.3
+    wd = rng.randn(mid, 1, k, k) * 0.3
     bn0, bn1 = bn_params(rng, mid), bn_params(rng, mid)
     want = K4.mbconv_expand_dw_plain(t(x.astype(np.float32)), t(we.astype(np.float32)),
                                      tuple(map(t, bn0)), t(wd.astype(np.float32)),
-                                     tuple(map(t, bn1)), stride)
+                                     tuple(map(t, bn1)), stride, pad)
     for itemsize in (2, 4):   # the bfloat16 and the float32 plans
-        got = _expand_dw_walk(x, we, bn0, wd, bn1, stride, itemsize)
+        got = _expand_dw_walk(x, we, bn0, wd, bn1, stride, pad, itemsize)
         assert not np.isnan(got).any()
         # float64 walk against the float32 twin
         np.testing.assert_allclose(got, want.numpy(), atol=1e-5)

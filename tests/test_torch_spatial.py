@@ -95,8 +95,9 @@ def _cases(seed=0):
     slab_case = dict(img=rng.randn(2, 3, 64, 40), w_stem=rng.randn(8, 3, 3, 3),
                      bn_stem=R.bn_params(rng, 8), x=rng.randn(2, 6, 64, 20),
                      w_dw=rng.randn(6, 1, 3, 3), bn=R.bn_params(rng, 6),
-                     w_exp=rng.randn(12, 6, 1, 1), w_dw_mid=rng.randn(12, 1, 3, 3),
+                     w_exp=rng.randn(12, 6, 1, 1), w_dw_mid3=rng.randn(12, 1, 3, 3),
                      bn_mid=R.bn_params(rng, 12), unit3=_unit(rng, 3), unit5=_unit(rng, 5))
+    slab_case["w_dw_mid5"] = rng.randn(12, 1, 5, 5)
     return exchange_case, ops_case, slab_case
 
 
@@ -122,9 +123,9 @@ def _unsharded_slabs(c):
     out = dict(K3=K3.stem_plain(t(c["img"]), t(c["w_stem"]), c["bn_stem"]),
                K4a=K4.mbconv_dw_plain(x, t(c["w_dw"]), c["bn"]),
                K6=K6.resize_bilinear_plain(x, (x.shape[2] * 2, x.shape[3] * 2)))
-    for s in (1, 2):
-        out[f"K5s{s}"] = K4.mbconv_expand_dw_plain(x, t(c["w_exp"]), c["bn_mid"],
-                                                   t(c["w_dw_mid"]), c["bn_mid"], s)
+    for name, (k, s, pad) in R.K5_SLABS.items():
+        out[name] = K4.mbconv_expand_dw_plain(x, t(c["w_exp"]), c["bn_mid"],
+                                              t(c[f"w_dw_mid{k}"]), c["bn_mid"], s, pad)
     for k in (3, 5):
         u = c[f"unit{k}"]
         kw = dict(hidden=u["hidden"], out_ch=u["out_ch"], bn1=u["bn1"], bn2=u["bn2"],
@@ -171,7 +172,7 @@ def test_band_form_equals_unsharded(op_runs, name):
 
 
 @pytest.mark.parametrize("name", ["K3", "K4a", "K5s1", "K5s2", "K6", "K1k3", "K1k5", "K2k3",
-                                  "K2k5"])
+                                  "K2k5", "K5k5s1", "K5k5s2t1", "K5k5s2t2"])
 def test_plain_slab_form_equals_unsharded(op_runs, name):
     _, _, one, got = op_runs
     g, w = got["slabs"][name], one["slabs"][name]

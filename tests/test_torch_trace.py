@@ -24,7 +24,7 @@ M_ARGS = dict(levels=2, kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16
 # kernel launches of one HyperSeg-M eval forward on the card (K1's
 # generation and K2's unit, K3, K4a, K4b, K5, K6), by LAUNCHES key
 M_LAUNCHES = {"patch_invres_s2w": 2, "patch_invres": 2, "stem": 1, "mbconv_dw": 2,
-              "mbconv_project": 5, "mbconv_expand_dw": 9, "resize_bilinear": 5}
+              "mbconv_project": 5, "mbconv_expand_dw": 21, "resize_bilinear": 5}
 
 
 @pytest.fixture
@@ -140,7 +140,9 @@ def test_forward_records_model_and_kernel_spans(recorder, two_threads):
     """A CPU forward of HyperSeg-M: the factory's model.build span, the
     three layer spans in order, and one kernel.* span a wrapper call
     through the twins, as many of each as the card launches, each inside
-    a layer span and with arguments that count its bytes and operations."""
+    a layer span and with arguments that count its bytes and operations.
+    Of K5's 21 spans (B1's blocks 2-22) the 12 of its 5x5 blocks carry a
+    5x5 w_dw."""
     model = _m_model()
     (build,) = trace.spans()
     assert build["name"] == "model.build" and build["end"] > build["start"]
@@ -154,6 +156,8 @@ def test_forward_records_model_and_kernel_spans(recorder, two_threads):
     assert all(s["parent"] == -1 for s in layers)
     kernels = [s for s in sp if s["name"].startswith("kernel.")]
     assert Counter(s["name"][7:] for s in kernels) == M_LAUNCHES
+    k5 = Counter(s["attrs"]["w_dw"][0] for s in kernels if s["name"] == "kernel.mbconv_expand_dw")
+    assert sum(n for shape, n in k5.items() if shape[2:] == (5, 5)) == 12
     assert len(sp) == len(layers) + len(kernels)
     for s in kernels:
         assert sp[s["parent"]]["name"] in ("model.backbone", "model.decoder")
@@ -216,9 +220,10 @@ def counted(name, a):
     elif name == "mbconv_project":
         flops = 2 * a["h"][0][1] * out
     elif name == "mbconv_expand_dw":
-        # the expand at every input pixel, the depthwise at every output pixel
+        # the expand at every input pixel, the kxk depthwise at every output pixel
         b, cin, h, w = a["x"][0]
-        flops = 2 * cin * b * a["w_expand"][0][0] * h * w + 18 * out
+        k = a["w_dw"][0][-1]
+        flops = 2 * cin * b * a["w_expand"][0][0] * h * w + 2 * k * k * out
     elif name in ("patch_invres", "patch_invres_v01"):
         # each patch's expand over the patch and its halo, kxk depthwise, projection
         b, cin, h, w = a["x"][0]
@@ -250,7 +255,7 @@ def _cases():
     x, wdw, bn16 = r(2, 16, 8, 12, dtype=bf), r(16, 1, 3, 3, dtype=bf), _bn(16)
     se, wp, bn24, res = r(2, 16), r(24, 16, 1, 1, dtype=bf), _bn(24), r(2, 24, 8, 12, dtype=bf)
     we, bn32 = r(32, 16, 1, 1, dtype=bf), _bn(32)
-    wd32 = r(32, 1, 3, 3, dtype=bf)
+    wd32, wd32k5 = r(32, 1, 3, 3, dtype=bf), r(32, 1, 5, 5, dtype=bf)
     # a k=3 unit: 8 in, 12 hidden, 8 out, on 2x3 patches of 4x4
     xu, hid = r(2, 8, 8, 12, dtype=bf), 12
     p = PI.hyper_params(8, hid, 8, 3)
@@ -278,15 +283,25 @@ def _cases():
                              [x, se, wp, *bn24, res, torch.empty_like(res)],
                              2 * 16 * 24 * 2 * 8 * 12)]),
         "mbconv_expand_dw_s1": (
-            lambda: K4.mbconv_expand_dw(x, we, bn32, wd32, bn32, 1),
+            lambda: K4.mbconv_expand_dw(x, we, bn32, wd32, bn32, 1, ((1, 1), (1, 1))),
             [("kernel.mbconv_expand_dw",
               [x, we, *bn32, wd32, *bn32, torch.empty(2, 32, 8, 12, dtype=bf)],
               2 * 2 * 32 * 16 * 8 * 12 + 2 * 9 * 2 * 32 * 8 * 12)]),
         "mbconv_expand_dw_s2": (
-            lambda: K4.mbconv_expand_dw(x, we, bn32, wd32, bn32, 2),
+            lambda: K4.mbconv_expand_dw(x, we, bn32, wd32, bn32, 2, ((0, 1), (0, 1))),
             [("kernel.mbconv_expand_dw",
               [x, we, *bn32, wd32, *bn32, torch.empty(2, 32, 4, 6, dtype=bf)],
               2 * 2 * 32 * 16 * 8 * 12 + 2 * 9 * 2 * 32 * 4 * 6)]),
+        "mbconv_expand_dw_k5_s1": (
+            lambda: K4.mbconv_expand_dw(x, we, bn32, wd32k5, bn32, 1, ((2, 2), (2, 2))),
+            [("kernel.mbconv_expand_dw",
+              [x, we, *bn32, wd32k5, *bn32, torch.empty(2, 32, 8, 12, dtype=bf)],
+              2 * 2 * 32 * 16 * 8 * 12 + 2 * 25 * 2 * 32 * 8 * 12)]),
+        "mbconv_expand_dw_k5_s2": (
+            lambda: K4.mbconv_expand_dw(x, we, bn32, wd32k5, bn32, 2, ((1, 2), (1, 2))),
+            [("kernel.mbconv_expand_dw",
+              [x, we, *bn32, wd32k5, *bn32, torch.empty(2, 32, 4, 6, dtype=bf)],
+              2 * 2 * 32 * 16 * 8 * 12 + 2 * 25 * 2 * 32 * 4 * 6)]),
         "patch_invres": (
             lambda: PI.patch_invres(xu, wmap, hidden=hid, out_ch=8, bn1=bn12, bn2=bn12,
                                     bn3=bn8u),

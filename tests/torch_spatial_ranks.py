@@ -148,6 +148,12 @@ def band_ops(device, *, x, dy, w_dw, n_spatial, dy_mean):
     return out
 
 
+# K5's slab forms checked: (depthwise size, stride, the block's pad)
+K5_SLABS = {"K5s1": (3, 1, ((1, 1), (1, 1))), "K5s2": (3, 2, ((0, 1), (0, 1))),
+            "K5k5s1": (5, 1, ((2, 2), (2, 2))), "K5k5s2t1": (5, 2, ((1, 2), (1, 2))),
+            "K5k5s2t2": (5, 2, ((2, 2), (2, 2)))}
+
+
 def kernel_slabs(device, *, inputs, n_spatial):
     """The plain slab forms of K3, K4a, K5, K6 and K1/K2 on this rank's band
     (the slab made by nn.functional.band_slab), whole."""
@@ -165,11 +171,12 @@ def kernel_slabs(device, *, inputs, n_spatial):
         xs, a, b = F.band_slab(x, 1, 1)
         out["K4a"] = whole(mesh, K4.mbconv_dw_band_plain(xs, t(inputs["w_dw"]), inputs["bn"],
                                                          top=a, bottom=b))
-        for stride in (1, 2):
-            xs, a, b = F.band_slab(x, 2 - stride, 1)
-            out[f"K5s{stride}"] = whole(mesh, K4.mbconv_expand_dw_band_plain(
-                xs, t(inputs["w_exp"]), inputs["bn_mid"], t(inputs["w_dw_mid"]),
-                inputs["bn_mid"], stride, top=a, bottom=b))
+        for name, (k, stride, pad) in K5_SLABS.items():
+            pt = pad[0][0]
+            xs, a, b = F.band_slab(x, pt, k - stride - pt)
+            out[name] = whole(mesh, K4.mbconv_expand_dw_band_plain(
+                xs, t(inputs["w_exp"]), inputs["bn_mid"], t(inputs[f"w_dw_mid{k}"]),
+                inputs["bn_mid"], stride, pad, top=a, bottom=b))
         xs, a, b = F.band_slab(x, 1, 1)
         out["K6"] = whole(mesh, K6.resize_bilinear_band_plain(xs, 2, a, b))
         for k in (3, 5):
