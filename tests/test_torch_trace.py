@@ -1,8 +1,9 @@
 """The port's span recorder (hyperseg_torch/utils/trace.py): off it is one
 shared no-op; on it nests spans and stamps requests; its clock maps onto a
 torch.profiler trace; and the program's spans (model.*, kernel.*,
-train_step.*) come out of a CPU forward and training step of HyperSeg-M,
-each kernel span with arguments enough to count its bytes and operations."""
+train_step.*) come out of a CPU forward and training step of HyperSeg-M
+and a forward of HyperSeg-L VOC, each kernel span with arguments enough to
+count its bytes and operations."""
 
 import json
 import math
@@ -163,6 +164,39 @@ def test_forward_records_model_and_kernel_spans(recorder, two_threads):
         assert sp[s["parent"]]["name"] in ("model.backbone", "model.decoder")
         nbytes, flops = counted(s["name"][7:], s["attrs"])
         assert nbytes > 0 and flops > 0
+
+
+def test_v01_forward_records_one_k7_span_a_hyper_unit(recorder, two_threads):
+    """A CPU forward of HyperSeg-L VOC at 128x192: the three layer spans,
+    every kernel span inside the backbone's or the decoder's, and one
+    kernel.patch_invres_v01 span for each of the four inverted-residual
+    levels, inside model.decoder, whose arguments name the unit the
+    benchmark's K7 roofline counts: the level's input, its (B, fh, fw, P)
+    weight map, hidden and output widths, at the level's size."""
+    from hyperseg_torch.models import hyperseg_v0_1 as V0
+    model = V0.hyperseg_efficientnet("efficientnet-b3", device="cpu", levels=3,
+                                     kernel_sizes=(1, 1, 3, 3, 3, 3), expand_ratio=2,
+                                     weight_groups=16, num_classes=21)
+    trace.reset()
+    with torch.no_grad():
+        model(torch.randn(1, 3, 128, 192))
+    sp = trace.spans()
+    assert [s["name"] for s in sp if s["name"].startswith("model.")] == [
+        "model.backbone", "model.context_head", "model.decoder"]
+    k7 = [s for s in sp if s["name"] == "kernel.patch_invres_v01"]
+    units = [u for lv in range(6) for u in getattr(model.decoder, f"level_{lv}")
+             if getattr(u, "uses_k7", False)]
+    assert len(k7) == len(units) == 4
+    for s, u, (h, w) in zip(k7, units, [(16, 24), (32, 48), (64, 96), (128, 192)]):
+        assert sp[s["parent"]]["name"] == "model.decoder"
+        a = s["attrs"]
+        assert a["x"] == ((1, u.in_ch, h, w), "float32")
+        assert a["w"] == ((1, 4, 6, u.hyper_params), "float32")
+        assert a["bn1"][0][0] == (u.hidden,) and a["out"] == ((1, u.out_ch, h, w), "float32")
+        nbytes, flops = counted("patch_invres_v01", a)
+        assert nbytes > 0 and flops > 0
+    assert {sp[s["parent"]]["name"] for s in sp if s["name"].startswith("kernel.")} == {
+        "model.backbone", "model.decoder"}
 
 
 def test_train_step_records_its_phases_in_order(recorder, two_threads):
