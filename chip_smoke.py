@@ -22,10 +22,12 @@ Phases (any failure exits non-zero before the result lines):
         K1 call's inputs, and in bfloat16 each K1 call's time is split into
         generation and unit; at HyperSeg-M's stem call, K3's no-activation
         mode (stem_conv, the raw conv) against its twin, and timed in
-        bfloat16 beside `conv2d`; at HyperSeg-S Cityscapes, each direct call
-        of K1's generation kernel (`s2w_generate`, the weight blocks' maps)
-        against s2w_generate_plain and decoder.weight_map, timed in
-        bfloat16 beside a grouped `conv2d`;
+        bfloat16 beside `conv2d`; each direct call of K1's generation
+        kernel (`s2w_generate`: HyperSeg-S Cityscapes' weight blocks, float32
+        maps; the 1x1 units of HyperSeg-M, -L CamVid and -S CamVid, maps in
+        the activation dtype) against s2w_generate_plain and
+        decoder.weight_map, a bfloat16 map also against its float32 map
+        rounded, timed in bfloat16 beside a grouped `conv2d`;
      b. the card's float32 kernel path against the reference (HyperSeg-M at
         batch 1 and 8, the others at batch 1); bfloat16 stage by stage
         (backbone features, decoder on the reference features and signal or
@@ -606,18 +608,26 @@ def k1_generation(model, calls, dtype):
 
 
 def check_generation(model, calls, dtype, rows):
-    """K1's generation kernel where the unify decoder calls it on its own
-    (`s2w_generate`, one map per weight block): each recorded call against
-    s2w_generate_plain and decoder.weight_map on its own inputs within
-    k1_generation's gate, 1e-5 of the largest magnitude, in both dtypes; in
-    bfloat16 also timed beside its twin, one grouped `conv2d` (the same
-    products, NCHW in the signal's dtype, not clipped) and the bound. Kept
-    under rows[(model, "s2w_generate")]."""
+    """K1's generation kernel where a decoder calls it on its own
+    (`s2w_generate`: the unify decoder's weight blocks, the v1_0 decoders'
+    1x1 units; K1's own generation is k1_generation's): each recorded call's
+    float32 map against s2w_generate_plain and decoder.weight_map on its own
+    inputs within k1_generation's gate, 1e-5 of the largest magnitude, in
+    both dtypes. A map in the signal's bfloat16 (the 1x1 units') is the
+    float32 map rounded, bit for bit, and within half a bfloat16 ulp of the
+    largest magnitude (and the gate) of the twin's float32 map. In bfloat16
+    also timed beside its twin, one grouped `conv2d` (the same products,
+    NCHW in the signal's dtype, not clipped) and the bound. Kept under
+    rows[(model, "s2w_generate")]."""
     import torch.nn.functional as TF
     from hyperseg_torch.models.decoder import S2W, weight_map
     from hyperseg_torch.ops.kernels import patch_invres as PI
 
-    for i, c in enumerate(x for x in calls if x.name == "s2w_generate"):
+    in_k1 = {(c.args[1].data_ptr(), c.args[2].data_ptr())
+             for c in calls if c.name == "patch_invres_s2w"}
+    gen = [c for c in calls if c.name == "s2w_generate"
+           and (c.args[0].data_ptr(), c.args[1].data_ptr()) not in in_k1]
+    for i, c in enumerate(gen):
         row = rows.setdefault((model, "s2w_generate"), dict(
             max_abs_err=0.0, f32_max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0,
             bound_ms=0.0, by={}, calls=0, shapes=[]))
@@ -625,35 +635,52 @@ def check_generation(model, calls, dtype, rows):
         route = S2W(signal_ch=sl.shape[1], signal_index=0, groups=groups, out_ch=w.shape[0],
                     hyper_params=p)
         got = c.kernel()
-        for twin, want in (("s2w_generate_plain", c.plain()),
+        f32 = PI.s2w_generate(sl, w, groups=groups, p=p)
+        key = "max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"
+        what = f"{model} map {i} {str(dtype):15s} {str(got.dtype)[6:]} {tuple(got.shape)}"
+        for twin, want in (("s2w_generate_plain",
+                            PI.s2w_generate_plain(sl, w, groups=groups, p=p)),
                            ("weight_map", weight_map(sl.float(), route, w.float()))):
             torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            tol = 1e-5 * max(1.0, want.abs().max().item())
-            ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
-            print(f"k1_generation {model} weight block {i} {str(dtype):15s} map "
-                  f"{tuple(got.shape)} vs {twin} max_abs_err {err:.3e} tol {tol:.3e} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            mx = max(1.0, want.abs().max().item())
+            tol = 1e-5 * mx
+            err = (f32 - want).abs().max().item()
+            ok = f32.shape == want.shape and bool(torch.isfinite(f32).all()) and err <= tol
+            line = f"float32 map vs {twin} max_abs_err {err:.3e} tol {tol:.3e}"
+            if got.dtype != torch.float32:
+                half_ulp = 0.5 * torch.finfo(got.dtype).eps * 2.0 ** math.floor(math.log2(mx))
+                e_got = (got.float() - want).abs().max().item()
+                ok = ok and e_got <= half_ulp + tol
+                line += (f"; {str(got.dtype)[6:]} map max_abs_err {e_got:.3e} tol "
+                         f"{half_ulp + tol:.3e}")
+                err = max(err, e_got)
+            print(f"k1_generation {what}: {line} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 fail(f"K1's generation disagrees with {twin} in {dtype} ({model})")
-            key = "max_abs_err" if dtype == torch.bfloat16 else "f32_max_abs_err"
             row[key] = max(row[key], err)
+        if got.dtype != torch.float32:
+            ok = torch.equal(got, f32.to(got.dtype))
+            print(f"k1_generation {what}: the float32 map rounded, bit for bit "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"K1's {got.dtype} map is not its float32 map rounded ({model})")
         if dtype != torch.bfloat16:
             continue
         b, sig, fh, fw = sl.shape
         b_ms, by = bound_ms(sl.numel() * sl.element_size() + w.numel() * w.element_size()
-                            + got.numel() * 4, 2 * b * fh * fw * p * (sig // groups), dtype)
+                            + got.numel() * got.element_size(),
+                            2 * b * fh * fw * p * (sig // groups), dtype)
         t = dict(ms=cuda_ms(c.kernel), plain_ms=cuda_ms(c.plain),
                  library_ms=cuda_ms(lambda: TF.conv2d(sl, w, groups=groups)))
-        print(f"time   {model} s2w_generate block {i} s {tuple(sl.shape)} P {p} groups {groups} "
-              f"kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms  conv2d "
-              f"{t['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({by})", flush=True)
+        print(f"time   {model} s2w_generate map {i} s {tuple(sl.shape)} P {p} groups {groups} "
+              f"out {str(got.dtype)[6:]} kernel {t['ms']:.4f} ms  plain {t['plain_ms']:.4f} ms"
+              f"  conv2d {t['library_ms']:.4f} ms  bound {b_ms:.4f} ms ({by})", flush=True)
         for k, v in t.items():
             row[k] += v
         row["bound_ms"] += b_ms
         row["by"][by] = row["by"].get(by, 0.0) + b_ms
         row["calls"] += 1
-        row["shapes"].append([list(sl.shape), p, groups])
+        row["shapes"].append([list(sl.shape), p, groups, str(got.dtype)[6:]])
 
 
 def unify_copy(key, gpu, inputs):
@@ -794,7 +821,7 @@ def run_model(key, rows):
             fail(f"{cfg.name}: {what} disagrees with the CPU plain path")
 
     gpu = copy.deepcopy(model).to("cuda")
-    recorded = {**KERNELS, **(GENERATION if cfg.unify else {})}
+    recorded = {**KERNELS, **GENERATION}
     with torch.no_grad():
         with recording(recorded) as calls:
             gpu(x1.cuda())
@@ -3225,8 +3252,9 @@ def kernels_line(rows, launches):
     L, V, SC, SV) that runs it, each model's under `by_model`; launches
     summed over all main paths. K3's entry also holds its no-activation
     mode under `modes` (HyperSeg-M's stem shape, off the main path), K1's
-    its generation kernel's direct calls at HyperSeg-S Cityscapes' weight
-    blocks (on SC's main path, counted in K1's launches)."""
+    its generation kernel's direct calls: HyperSeg-S Cityscapes' weight
+    blocks and the v1_0 decoders' 1x1 units (on the main paths, counted in
+    K1's launches)."""
     kernels = []
     for name, (_, _, source, replaces) in KERNELS.items():
         per_model = {m: r for (m, n), r in rows.items() if n == name}

@@ -14,8 +14,9 @@ vector per patch. Checkpoint-parity quirks reproduced:
   #4 signal2weights output channels round up to the weight-group count and
      the generated map is clipped back to hyper_params.
 
-k=1 units (levels 0-2) run as batched per-patch matmuls, as the JAX package
-runs them outside any kernel. k=3 inverted-residual units run K1
+k=1 units (levels 0-2) run as batched per-patch matmuls, their maps from
+K1's generation in eval (ops/kernels/patch_invres.py `s2w_generate`,
+patch-major, in the activation dtype). k=3 inverted-residual units run K1
 (ops/kernels/patch_invres.py `patch_invres_s2w`) at every level: the weight
 map as one grouped GEMM, then the unit on it. K1 takes a 3x3 or a 5x5
 depthwise (no shipped config has a 5x5). v0_2 is v1_0 with the legacy
@@ -122,6 +123,19 @@ def weight_map(s, route: S2W, weight):
     return torch.matmul(sl.permute(0, 2, 3, 1), dense.to(sl.dtype))
 
 
+def generate_map(s, route: S2W, weight, out_dtype=torch.float32):
+    """A unit's weight map (B, fh, fw, hyper_params) from K1's generation
+    kernel (its twin on the CPU), in eval: summed in float32 and stored in
+    out_dtype, float32 or the signal's dtype. The kernel reads a channel
+    slice of a contiguous signal; a routed slice that is not one (a band's
+    rows of a whole signal) is copied first."""
+    sl = s[:, route.signal_index:route.signal_index + route.signal_ch]
+    if sl.stride()[1:] != (sl.shape[2] * sl.shape[3], sl.shape[3], 1):
+        sl = sl.contiguous()
+    return PI.s2w_generate(sl, weight, groups=route.groups, p=route.hyper_params,
+                           out_dtype=out_dtype)
+
+
 class _HyperConv(nn.Module):
     """Holds a unit's signal2weights conv (the reference HyperPatch* module)."""
 
@@ -194,9 +208,10 @@ class PatchConvUnit(nn.Sequential):
 
     def apply_map(self, x, w):
         """The unit from a (B, fh, fw, hyper_params) weight map, each patch's
-        weights contiguous (v0_1). A dense 1x1 conv is one batched matmul of
-        each patch's (out_ch, in_ch) weights with its pixels, reading the
-        map in place."""
+        weights contiguous (the v0_1 and unify decoders' maps, and in eval
+        the v1_0 unit's own, `forward`). A dense 1x1 conv is one batched
+        matmul of each patch's (out_ch, in_ch) weights with its pixels,
+        reading the map in place."""
         b, fh, fw, _ = w.shape
         if self.kernel > 1 or self.groups > 1 or self.fullmap(x, fh, fw):
             return self.apply_weights(x, w.permute(0, 3, 1, 2))
@@ -212,11 +227,20 @@ class PatchConvUnit(nn.Sequential):
         return F.ACTIVATIONS[self.act](out)
 
     def weights(self, s):
-        """The unit's weight map (B, hyper_params, fh, fw) from its signal slice."""
+        """The unit's weight map (B, hyper_params, fh, fw) from its signal
+        slice, differentiable: the training route's (forward, and the remat
+        region's input in apply_unit_from_signal)."""
         return apply_signal2weights(s, self.route, self.holder.signal2weights.weight)
 
     def forward(self, x, s):
-        return self.apply_weights(x, self.weights(s))
+        """The unit from its level's signal slice s. In eval, K1's generation
+        kernel makes the (B, fh, fw, hyper_params) map in x's dtype
+        (generate_map) and apply_map reads it in place, one batched matmul.
+        In training the grouped conv's map (weights), then apply_weights."""
+        if self.training:
+            return self.apply_weights(x, self.weights(s))
+        return self.apply_map(x, generate_map(s, self.route, self.holder.signal2weights.weight,
+                                              x.dtype))
 
 
 class InvResUnit(EvalModule):
@@ -626,8 +650,7 @@ class MultiScaleDecoderUnify(_Decoder):
         r, w = self.routes[i], self.weight_blocks[i].signal2weights.weight
         if self.training:
             return weight_map(s, r, w)
-        return PI.s2w_generate(s[:, r.signal_index:r.signal_index + r.signal_ch], w,
-                               groups=r.groups, p=r.hyper_params)
+        return generate_map(s, r, w)
 
     def forward(self, xs, s, generator=None):
         """xs: [input image, feat_s2, ..., feat_s32] (finest -> coarsest,
@@ -642,7 +665,6 @@ class MultiScaleDecoderUnify(_Decoder):
         top = bottom = 0
         if slab:
             s, top, bottom = F.band_slab(s, 1, 1)
-            s = s.contiguous()      # K1's generation reads a channel slice of it
         p, shared = None, None
         for lv, units in enumerate(self.level_blocks):
             p = self._level_input(p, xs[-lv - 1])

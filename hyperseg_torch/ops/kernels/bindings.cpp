@@ -207,12 +207,14 @@ void s2w_generate(const Tensor& s, int64_t s_bstride, const Tensor& w_s2w, int64
   const DType dt = dtype_of(s);
   check_like(w_s2w, s, "s2w_generate w_s2w");
   TORCH_CHECK(out.is_cuda() && out.device() == s.device() && out.is_contiguous() &&
-                  out.scalar_type() == at::kFloat && out.dim() == 4,
-              "s2w_generate out: a contiguous float32 (B, fh, fw, P) map on s's device");
+                  (out.scalar_type() == at::kFloat || out.scalar_type() == s.scalar_type()) &&
+                  out.dim() == 4,
+              "s2w_generate out: a contiguous (B, fh, fw, P) map on s's device, float32 or "
+              "s's dtype");
   TORCH_CHECK(groups > 0 && s.size(1) % groups == 0 && w_s2w.size(0) % groups == 0,
               "s2w_generate: groups must divide the signal and the weight");
   C10_CUDA_CHECK(hyperseg::launch_s2w_generate(
-      dt, s.data_ptr(), s_bstride, w_s2w.data_ptr(), out.data_ptr<float>(), s.size(0),
+      dt, dtype_of(out), s.data_ptr(), s_bstride, w_s2w.data_ptr(), out.data_ptr(), s.size(0),
       s.size(2) * s.size(3), groups, s.size(1) / groups, w_s2w.size(0) / groups, out.size(3),
       stream_of(s)));
   C10_CUDA_KERNEL_LAUNCH_CHECK();

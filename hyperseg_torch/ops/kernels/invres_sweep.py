@@ -1,7 +1,7 @@
 """Time K1 (patch_invres_s2w) and K2's unit on one GPU at every k=3 decoder
-unit of HyperSeg-M (1024x512) and HyperSeg-L CamVid (768x1024), and K7
-(patch_invres_v01) at every v0_1 unit of HyperSeg-L VOC (512x512), one line
-per unit.
+unit of HyperSeg-M (1024x512) and HyperSeg-L CamVid (768x1024), K1's
+generation at their 1x1 units, and K7 (patch_invres_v01) at every v0_1 unit
+of HyperSeg-L VOC (512x512), one line per unit.
 
     python -m hyperseg_torch.ops.kernels.invres_sweep [--model M|L|V] [--batch 1] [--plans]
 
@@ -10,10 +10,15 @@ device, no forward) and random bfloat16 inputs. A K1 line has the mean device
 time (CUDA events over a warm loop) of K1's generation kernel alone, of the
 unit alone on the generated float32 map, and of the whole wrapper; a K7 line
 the time of K7 on a weight map laid out as the v0_1 weight mapper leaves it
-(the first P of rows rounded up to the 16 weight groups). Each time stands
-beside the least time the card could take (bytes over 3.35 TB/s or flops
-over 989 TFLOP/s), and each line ends with the wrapper's largest difference
-from its plain twin. With --plans, the unit (K1/K2) or K7 instead runs at
+(the first P of rows rounded up to the 16 weight groups). A 1x1 line (M, L)
+has the time of K1's generation making the unit's bfloat16 map, of cuDNN's
+grouped conv making the same map (decoder.apply_signal2weights, the
+training route's), of the eval unit (the generation, then apply_map on its
+map) and of the grouped-conv unit (the conv, then apply_weights). Each time
+stands beside the least time the card could take (bytes over 3.35 TB/s or
+flops over 989 TFLOP/s); a K1 or K7 line ends with the wrapper's largest
+difference from its plain twin, a 1x1 line with its map's from the grouped
+conv's. With --plans, the unit (K1/K2) or K7 instead runs at
 every band it takes for each call, against the band its plan picks.
 """
 
@@ -23,7 +28,9 @@ import torch
 
 from hyperseg_torch.models import hyperseg_v0_1, hyperseg_v1_0
 from hyperseg_torch.models.backbones.efficientnet import EfficientNet
-from hyperseg_torch.models.decoder import InvResUnit, V01InvResUnit
+from hyperseg_torch.models.decoder import (InvResUnit, PatchConvUnit, V01InvResUnit,
+                                           apply_signal2weights)
+from hyperseg_torch.nn.modules import cast_weights
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.ops.kernels import patch_invres as PI
 
@@ -64,18 +71,71 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def calls(model):
-    """The K1 (M, L) or K7 (V) calls of one forward, in order: (level, unit,
-    (H, W), (fh, fw)), unit the decoder's InvResUnit (route attached) or
-    V01InvResUnit, (H, W) its map."""
+def _units(model, keep):
+    """(level, unit, (H, W), (fh, fw)) of each decoder unit of one forward
+    that `keep` takes, in order, (H, W) its map; the model's decoder is
+    built on the meta device."""
     factory, backbone, kw, (height, width) = MODELS[model]
     kw = dict(kw)
     levels, scale = kw.pop("levels"), kw.pop("out_feat_scale", 0.25)
     backbone = EfficientNet(backbone, out_feat_scale=scale, device="meta")
     dec = factory.build_hypergen(backbone, wm_levels=levels, device="meta", **kw).decoder
     return [(lv, u, (height * 2 ** lv // 32, width * 2 ** lv // 32), (height // 32, width // 32))
-            for lv in range(dec.levels) for u in getattr(dec, f"level_{lv}")
-            if isinstance(u, InvResUnit) or (isinstance(u, V01InvResUnit) and u.uses_k7)]
+            for lv in range(dec.levels) for u in getattr(dec, f"level_{lv}") if keep(u)]
+
+
+def calls(model):
+    """The K1 (M, L) or K7 (V) calls of one forward: the decoder's
+    InvResUnits (route attached) or V01InvResUnits."""
+    return _units(model, lambda u: isinstance(u, InvResUnit)
+                  or (isinstance(u, V01InvResUnit) and u.uses_k7))
+
+
+def pointwise_calls(model):
+    """The 1x1 units of one v1_0 forward (M, L): the PatchConvUnits that
+    own a signal2weights route."""
+    return _units(model, lambda u: isinstance(u, PatchConvUnit) and u.route is not None)
+
+
+def time_pointwise(u, hw, grid, batch, gen):
+    """A 1x1 line's numbers: {part: (ms, bound ms, bound by)} and the
+    largest difference of the generated bfloat16 map from the grouped
+    conv's. The unit is moved to the card with random bfloat16 weights and
+    BN statistics."""
+    r = u.route
+    u = PatchConvUnit(u.in_ch, u.out_ch, kernel=u.kernel, groups=u.groups, pad=u.pad, bn=True,
+                      act=u.act, device="cuda")
+    u.attach(r, device="cuda")
+    with torch.no_grad():
+        u.holder.signal2weights.weight.copy_(
+            torch.randn(u.holder.signal2weights.weight.shape, generator=gen)
+            * (r.groups / r.signal_ch) ** 0.5)
+        for t, v in zip(u[-1].params, _bn(gen, u.out_ch)):
+            t.copy_(v)
+    cast_weights(u, torch.bfloat16)
+    x = _rnd(gen, batch, u.in_ch, *hw)
+    s = _rnd(gen, batch, r.signal_ch, *grid, scale=0.5)
+    ws = u.holder.signal2weights.weight
+    with torch.no_grad():
+        wmap = PI.s2w_generate(s, ws, groups=r.groups, p=r.hyper_params, out_dtype=x.dtype)
+        wconv = apply_signal2weights(s, r, ws)
+        err = (wmap.float() - wconv.permute(0, 2, 3, 1).float()).abs().max().item()
+        out = u(x, s)
+        gen_flops = 2 * wmap.numel() * (r.signal_ch // r.groups)
+        flops = 2 * x.numel() * u.out_ch
+        map_bytes = _nbytes(s, ws, wmap)
+        parts = {
+            "generate": (cuda_ms(lambda: PI.s2w_generate(s, ws, groups=r.groups,
+                                                         p=r.hyper_params, out_dtype=x.dtype)),
+                         *_bound(map_bytes, gen_flops)),
+            "conv": (cuda_ms(lambda: apply_signal2weights(s, r, ws)),
+                     *_bound(map_bytes, gen_flops)),
+            "unit": (cuda_ms(lambda: u(x, s)),
+                     *_bound(_nbytes(x, s, ws, out), flops + gen_flops)),
+            "conv_unit": (cuda_ms(lambda: u.apply_weights(x, u.weights(s))),
+                          *_bound(_nbytes(x, s, ws, out), flops + gen_flops)),
+        }
+    return parts, err
 
 
 def unit_flops(b, cin, hidden, out_ch, hw, grid):
@@ -241,6 +301,19 @@ def main():
                   + "  ".join(f"{k} {ms:.4f} ms (bound {b:.4f}, {by})"
                               for k, (ms, b, by) in parts.items())
                   + f"  max_abs_err {err:.3e}", flush=True)
+        for lv, u, hw, grid in ([] if args.plans else pointwise_calls(model)):
+            parts, err = time_pointwise(u, hw, grid, args.batch, gen)
+            for k, (ms, bound, _) in parts.items():
+                s = sums.setdefault(f"1x1 {k}", [0.0, 0.0])
+                s[0] += ms
+                s[1] += bound
+            r = u.route
+            print(f"invres_sweep {model} level {lv} 1x1 x {(args.batch, u.in_ch, *hw)} -> "
+                  f"{u.out_ch}, patches {grid}, P {r.hyper_params}, groups {r.groups}, fan_in "
+                  f"{r.signal_ch // r.groups}: "
+                  + "  ".join(f"{k} {ms:.4f} ms (bound {b:.4f}, {by})"
+                              for k, (ms, b, by) in parts.items())
+                  + f"  map max_abs_err vs the conv's {err:.3e}", flush=True)
         for k, (ms, bound) in sums.items():
             print(f"invres_sweep {model} {k} sum, batch {args.batch}: {ms:.4f} ms, bound "
                   f"{bound:.4f} ms", flush=True)

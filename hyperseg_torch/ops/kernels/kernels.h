@@ -88,11 +88,12 @@ cudaError_t launch_resize_bilinear(DType dt, const void* x, void* out, int plane
 
 // K1's generation. s: signal slice, element (b, c, patch) at
 // s + b*s_bstride + c*fhw + patch, c < groups*fan_in; w_s2w (groups*opg,
-// fan_in); out float32 (B, fhw, p), out[b, patch, g*opg + j] = sum_c
-// s[b, g*fan_in + c, patch] * w_s2w[g*opg + j, c] for g*opg + j < p.
-cudaError_t launch_s2w_generate(DType dt, const void* s, int64_t s_bstride, const void* w_s2w,
-                                float* out, int batch, int fhw, int groups, int fan_in,
-                                int opg, int p, cudaStream_t stream);
+// fan_in); out (B, fhw, p) of type odt, float32 or dt, out[b, patch, g*opg +
+// j] = sum_c s[b, g*fan_in + c, patch] * w_s2w[g*opg + j, c] for g*opg + j <
+// p, summed in float32 and rounded once to odt.
+cudaError_t launch_s2w_generate(DType dt, DType odt, const void* s, int64_t s_bstride,
+                                const void* w_s2w, void* out, int batch, int fhw, int groups,
+                                int fan_in, int opg, int p, cudaStream_t stream);
 
 // Shared memory of one K1/K2 unit block as patch_invres.py's unit_layout
 // lays it out: pitches in elements, offsets and total in bytes.

@@ -2,13 +2,16 @@
 //
 // Replaces hyperseg_tpu/ops/pallas/patch_invres.py:488
 // (patch_inverted_residual_s2w_fused) as two launches:
-//   1. s2w_generate_kernel: the weight map (B, fh, fw, P), float32, from the
-//      routed signal slice and the grouped signal2weights weight (n_out,
+//   1. s2w_generate_kernel: the weight map (B, fh, fw, P) from the routed
+//      signal slice and the grouped signal2weights weight (n_out,
 //      sig/groups): per weight group g one GEMM, (patches x fan_in) .
 //      (fan_in x n_out/groups), clipped to P. A block takes 64 patches and 64
 //      outputs of one group, so each tile of the weight is read once per 64
 //      patches, not once per patch; bfloat16 by mma.m16n8k16 (float32 sums),
-//      float32 by FMAs. Bound: bytes (the map it writes).
+//      float32 by FMAs. The map is float32, or the signal's dtype for the 1x1
+//      units that read it as a batched matmul (decoder.py PatchConvUnit), each
+//      float32 sum rounded once as it is stored. Bound: bytes (the map it
+//      writes).
 //   2. invres_unit_kernel (K2's, below) on that map. The map stays float32 so
 //      that each weight is rounded once, after the BN scale is folded in.
 //
@@ -166,15 +169,16 @@ __device__ __forceinline__ void tile_product(float (&acc)[NT][4], const T* a, in
 // kGenM patches and kGenN outputs of one group (blockIdx.z), K in chunks of
 // kGenKC whose loads are all in flight at once; four warps, 16 patches each.
 // The sums go through shared memory, so that each warp stores whole rows of
-// the map, 32 consecutive outputs an instruction.
+// the map, 32 consecutive outputs an instruction, each float32 sum rounded
+// once to the map's type TO (float, or T).
 constexpr int kGenThreads = 128;
 constexpr int kGenM = 64, kGenN = 64, kGenKC = 32;
 
-template <typename T>
+template <typename T, typename TO>
 __global__ void __launch_bounds__(kGenThreads)
 s2w_generate_kernel(const T* __restrict__ s, int64_t s_bstride, int fhw, int npatch,
                     const T* __restrict__ w, int fan_in, int opg, int p,
-                    float* __restrict__ out) {
+                    TO* __restrict__ out) {
   constexpr int V = 16 / sizeof(T);  // row pads: 8 rows of an ldmatrix hit 8 bank groups
   constexpr int kPer = kGenKC * kGenM / kGenThreads;  // elements a thread stages per operand
   __shared__ __align__(16) T as[kGenKC][kGenM + V];  // signal chunk [k][patch]
@@ -222,20 +226,20 @@ s2w_generate_kernel(const T* __restrict__ s, int64_t s_bstride, int fhw, int npa
   for (int rr = 0; rr < 16; ++rr) {
     const int mm = m0 + warp * 16 + rr;
     if (mm >= npatch) break;
-    float* orow = out + (int64_t)mm * p + grp * opg + n0;
-    for (int j = lane; j < jmax; j += 32) orow[j] = cs[warp * 16 + rr][j];
+    TO* orow = out + (int64_t)mm * p + grp * opg + n0;
+    for (int j = lane; j < jmax; j += 32) orow[j] = from_f<TO>(cs[warp * 16 + rr][j]);
   }
 }
 
-template <typename T>
-cudaError_t launch_generate(const void* s, int64_t s_bstride, const void* w, float* out,
+template <typename T, typename TO>
+cudaError_t launch_generate(const void* s, int64_t s_bstride, const void* w, void* out,
                             int npatch, int fhw, int groups, int fan_in, int opg, int p,
                             cudaStream_t stream) {
   const dim3 grid((opg + kGenN - 1) / kGenN, (npatch + kGenM - 1) / kGenM, groups);
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
-  s2w_generate_kernel<T><<<grid, kGenThreads, 0, stream>>>(
+  s2w_generate_kernel<T, TO><<<grid, kGenThreads, 0, stream>>>(
       static_cast<const T*>(s), s_bstride, fhw, npatch, static_cast<const T*>(w), fan_in,
-      opg, p, out);
+      opg, p, static_cast<TO*>(out));
   return cudaSuccess;
 }
 
@@ -1003,14 +1007,16 @@ cudaError_t launch_v01(const void* x, const void* wmap, int64_t wstride, BNParam
 
 }  // namespace
 
-cudaError_t launch_s2w_generate(DType dt, const void* s, int64_t s_bstride, const void* w_s2w,
-                                float* out, int batch, int fhw, int groups, int fan_in,
-                                int opg, int p, cudaStream_t stream) {
+cudaError_t launch_s2w_generate(DType dt, DType odt, const void* s, int64_t s_bstride,
+                                const void* w_s2w, void* out, int batch, int fhw, int groups,
+                                int fan_in, int opg, int p, cudaStream_t stream) {
   if (batch < 1 || fhw < 1 || groups < 1 || fan_in < 1 || opg < 1 || p < 1 ||
-      (int64_t)opg * groups < p)
+      (int64_t)opg * groups < p || (odt != DType::kFloat32 && odt != dt))
     return cudaErrorInvalidValue;
-  return (dt == DType::kFloat32 ? launch_generate<float> : launch_generate<__nv_bfloat16>)(
-      s, s_bstride, w_s2w, out, batch * fhw, fhw, groups, fan_in, opg, p, stream);
+  auto launch = dt == DType::kFloat32   ? launch_generate<float, float>
+                : odt == DType::kFloat32 ? launch_generate<__nv_bfloat16, float>
+                                         : launch_generate<__nv_bfloat16, __nv_bfloat16>;
+  return launch(s, s_bstride, w_s2w, out, batch * fhw, fhw, groups, fan_in, opg, p, stream);
 }
 
 cudaError_t launch_patch_invres(DType dt, DType wdt, const void* x, const void* wmap,

@@ -15,7 +15,10 @@ grouped form, not the block-diagonal dense matrix, which would cost
 `groups`x the MACs. A block takes 64 patches, so each tile of the
 signal2weights weight is read once per 64 patches. Then K2's unit runs on
 that map, through the module's `patch_invres`; the map stays float32, so the
-unit folds BN into each weight and rounds it once.
+unit folds BN into each weight and rounds it once. The v1_0 decoder's 1x1
+units (models/decoder.py PatchConvUnit) take their maps from `s2w_generate`
+too, in the signal's dtype: they read the map as it is in a batched matmul,
+so each float32 sum is rounded once, as it is stored.
 
 K2's unit: one block per band of rows of a patch (`unit_plan`). It stages
 the band's haloed window (the neighbours' pixels inside the map, reflected
@@ -385,21 +388,24 @@ def patch_invres_v01(x, w, *, hidden, out_ch, bn1, bn2, bn3, eps=1e-5):
     return out
 
 
-def s2w_generate_plain(s, w_s2w, *, groups, p):
+def s2w_generate_plain(s, w_s2w, *, groups, p, out_dtype=torch.float32):
     """Plain twin of K1's generation: the grouped 1x1 conv in float32,
-    clipped to p, as a (B, fh, fw, p) map."""
+    clipped to p, as a (B, fh, fw, p) map, rounded once to out_dtype; a
+    float32 map of a float64 signal stays float64 (`wide`)."""
     w = TF.conv2d(wide(s), wide(w_s2w), groups=groups)[:, :p]
-    return w.permute(0, 2, 3, 1).contiguous()
+    w = w.permute(0, 2, 3, 1).contiguous()
+    return w if out_dtype == torch.float32 else w.to(out_dtype)
 
 
-def s2w_generate(s, w_s2w, *, groups, p):
+def s2w_generate(s, w_s2w, *, groups, p, out_dtype=torch.float32):
     """K1's weight map: s (B, sig, fh, fw), a channel slice of a contiguous
     NCHW signal taken as it is; w_s2w (n_out, sig // groups, 1, 1), n_out >=
-    p and a multiple of groups. Returns the float32 (B, fh, fw, p) map of the
-    grouped 1x1 conv, clipped to p."""
+    p and a multiple of groups. Returns the (B, fh, fw, p) map of the
+    grouped 1x1 conv, clipped to p, summed in float32 and stored in
+    out_dtype: float32, or the signal's dtype."""
     if s.device.type == "cpu":
         with trace.span("kernel.patch_invres_s2w") as attrs:
-            out = s2w_generate_plain(s, w_s2w, groups=groups, p=p)
+            out = s2w_generate_plain(s, w_s2w, groups=groups, p=p, out_dtype=out_dtype)
     else:
         name = "patch_invres_s2w"
         if (s.device.type != "cuda" or s.dim() != 4
@@ -417,7 +423,9 @@ def s2w_generate(s, w_s2w, *, groups, p):
         if sig % groups or n_out % groups or n_out < p:
             raise ValueError(f"{name}: signal2weights weight {tuple(w_s2w.shape)} does not "
                              f"fit sig={sig}, groups={groups}, P={p}")
-        out = torch.empty((b, fh, fw, p), device=s.device, dtype=torch.float32)
+        if out_dtype not in (torch.float32, s.dtype):
+            raise ValueError(f"{name}: a {out_dtype} map; float32 or the signal's {s.dtype}")
+        out = torch.empty((b, fh, fw, p), device=s.device, dtype=out_dtype)
         ops = build.kernels()
         with trace.span("kernel.patch_invres_s2w") as attrs:
             ops.s2w_generate(s, s.stride(0), w_s2w, groups, out)

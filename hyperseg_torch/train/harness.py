@@ -55,8 +55,10 @@ MODELS = {
              kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
              expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19),
         (512, 1024), 10378108,    # bench.py:92, total
+        # K1's count: its generation kernel's, one map per hyper unit (the
+        # three 1x1 levels' maps and the two k=3 levels' K1)
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
-         "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
+         "patch_invres_s2w": 5, "patch_invres": 2, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1, 8)),
     "L": Model(
@@ -68,7 +70,7 @@ MODELS = {
              weight_groups=[64, 32, 32, 16, 8, 8], num_classes=12),
         (768, 1024), 10036096,    # the JAX count_params (tests/test_torch_hyperseg_l.py)
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
-         "patch_invres_s2w": 3, "patch_invres": 3, "resize_bilinear": 5,
+         "patch_invres_s2w": 6, "patch_invres": 3, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1,)),
     "V": Model(
@@ -105,7 +107,7 @@ MODELS = {
              inference_hflip=True),       # as shipped (configs/train/camvid_*_hyperseg-s.py:22)
         (576, 768), 10015856,     # the JAX count_params (tests/test_torch_hyperseg_s.py)
         {"stem": 1, "mbconv_dw": 2, "mbconv_project": 5, "mbconv_expand_dw": 21,
-         "patch_invres_s2w": 2, "patch_invres": 2, "resize_bilinear": 5,
+         "patch_invres_s2w": 5, "patch_invres": 2, "resize_bilinear": 5,
          "patch_invres_v01": 0},
         (1,)),
 }

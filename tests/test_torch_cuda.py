@@ -325,3 +325,107 @@ def test_autograd_functions_match_twins_on_card():
         (got,) = grads(lambda a: K6.ResizeBilinear.apply(a, out_hw), (x,), (True,))
         (want,) = grads(lambda a: K6.resize_bilinear_plain(a, out_hw), (x,), (True,))
         close(got, want)
+
+
+S2W_MAP_CASES = [  # b, fh, fw, sig, groups, p, the slice's first channel of a 1280-channel signal
+    (1, 16, 32, 416, 32, 5248, 0),     # HyperSeg-M level 0 at 1024x512, b1: 512 patches
+    (1, 16, 32, 224, 16, 3008, 416),   # level 1
+    (1, 16, 32, 128, 8, 704, 640),     # level 2
+    (8, 16, 32, 416, 32, 5248, 0),     # the same at b8: 4096 patches
+    (8, 16, 32, 224, 16, 3008, 416),
+    (8, 16, 32, 128, 8, 704, 640),
+    (3, 5, 7, 224, 16, 3008, 416),     # 105 patches: a partial 64-patch tile
+]
+
+
+@pytest.mark.cuda
+def test_s2w_generate_maps_in_the_signal_dtype_on_card():
+    """K1's generation at HyperSeg-M's three 1x1 routes: with a bfloat16
+    signal, the bfloat16 map is the float32 map rounded to bfloat16, bit
+    for bit (the same float32 sums, each rounded once as it is stored); the
+    float32 map, the default, within float32 reassociation of its twin, in
+    both signal dtypes; a float16 map is refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cudnn.allow_tf32 = False
+    g = torch.Generator().manual_seed(6)
+    for b, fh, fw, sig, groups, p, first in S2W_MAP_CASES:
+        s = torch.randn(b, 1280, fh, fw, generator=g)
+        w = torch.randn(p, sig // groups, 1, 1, generator=g) * (groups / sig) ** 0.5
+        for dt in (torch.float32, torch.bfloat16):
+            # a channel slice of the contiguous signal, as the decoder hands it over
+            sd, wd = s.to("cuda", dt)[:, first:first + sig], w.to("cuda", dt)
+            f32 = K1.s2w_generate(sd, wd, groups=groups, p=p)
+            want = K1.s2w_generate_plain(sd, wd, groups=groups, p=p)
+            assert f32.dtype == torch.float32 and f32.shape == (b, fh, fw, p)
+            err = (f32 - want).abs().max().item()
+            assert err <= 1e-5 * want.abs().max().item(), err
+            assert torch.equal(K1.s2w_generate(sd, wd, groups=groups, p=p,
+                                               out_dtype=torch.float32), f32)
+            if dt == torch.bfloat16:
+                got = K1.s2w_generate(sd, wd, groups=groups, p=p, out_dtype=dt)
+                assert got.dtype == dt and got.is_contiguous()
+                assert torch.equal(got, f32.to(dt))
+    with pytest.raises(ValueError, match="float32 or the signal's"):
+        K1.s2w_generate(sd, wd, groups=groups, p=p, out_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+def test_m_eval_forward_maps_its_1x1_levels_with_k1_on_card(monkeypatch):
+    """A bfloat16 HyperSeg-M eval forward on the card (256x512, b2) makes
+    HyperSeg-M's launches (train/harness.py MODELS): five of K1's
+    generation kernel, the three 1x1 levels' maps among them; its decoder
+    calls no conv2d, and the device trace of the decoder holds five
+    generation kernels and no cuDNN kernel. A 1x1 unit on two bands of one
+    process, its signal this band's rows of the whole signal (a view the
+    kernel does not take as it is), makes up the unsharded output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import torch.nn.functional as TF
+    from torch.profiler import ProfilerActivity, profile
+    from hyperseg_torch.models import hyperseg_v1_0 as V1
+    from hyperseg_torch.nn import functional as F
+    from hyperseg_torch.nn.modules import cast_weights
+    from hyperseg_torch.ops.kernels import LAUNCHES
+    from hyperseg_torch.parallel import spatial as SP
+    from hyperseg_torch.train.harness import MODELS
+    from torch_parity import HYPERSEG_M_KW
+
+    model = cast_weights(V1.hyperseg_efficientnet("efficientnet-b1", device="cuda", seed=0,
+                                                  **HYPERSEG_M_KW), torch.bfloat16)
+    x = torch.randn(2, 3, 256, 512, generator=torch.Generator().manual_seed(7))
+    x = x.to("cuda", torch.bfloat16)
+    with torch.no_grad():
+        LAUNCHES.clear()
+        model(x)
+        want = {k: v for k, v in MODELS["M"].per_forward.items() if v}
+        assert dict(LAUNCHES) == want and want["patch_invres_s2w"] == 5
+        feats = model.backbone(x)
+        s = model.weight_mapper(feats[-1])
+        convs = []
+        conv2d = TF.conv2d
+        monkeypatch.setattr(TF, "conv2d", lambda *a, **k: convs.append(1) or conv2d(*a, **k))
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.decoder([x] + feats[:-1], s)
+            torch.cuda.synchronize()
+        monkeypatch.setattr(TF, "conv2d", conv2d)
+        assert not convs
+        kernels = {e.key: e.count for e in prof.key_averages() if e.self_device_time_total > 0}
+        assert kernels, "the profiler recorded no device kernel"
+        assert sum(n for k, n in kernels.items() if "s2w_generate_kernel" in k) == 5
+        assert not [k for k in kernels if "cudnn" in k.lower() or "tensorTransform" in k
+                    or "fprop" in k], kernels
+
+        u = model.decoder.level_1[0]
+        r = u.route
+        fh, fw, ph = 8, 16, 4
+        xu = torch.randn(2, u.in_ch, fh * ph, fw * ph, device="cuda").to(torch.bfloat16)
+        su = torch.randn(2, r.signal_ch + 8, fh, fw, device="cuda").to(torch.bfloat16)
+        whole = u(xu, su)
+        bands = []
+        for i in range(2):
+            sg = SP.SpatialGroup(None, i, 2, None, 0, 1)
+            with F.spatial(sg):
+                bands.append(u(xu[:, :, i * fh // 2 * ph:(i + 1) * fh // 2 * ph],
+                               SP.own_rows(su, sg)))
+        assert torch.equal(torch.cat(bands, 2), whole)

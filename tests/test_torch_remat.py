@@ -266,7 +266,7 @@ def test_remat_leaves_eval_unchanged(monkeypatch):
         model(xm)
     assert not regions
     assert set(seen) == {"stem", "mbconv_dw", "mbconv_project", "mbconv_expand_dw",
-                         "patch_invres_s2w", "resize_bilinear"}, seen
+                         "s2w_generate", "patch_invres_s2w", "resize_bilinear"}, seen
     seen.clear()
     model.train().requires_grad_(True)
     model.backbone.drop_connect_rate = model.backbone.dropout_rate = 0.0

@@ -23,8 +23,9 @@ from hyperseg_torch.utils import trace
 M_ARGS = dict(levels=2, kernel_sizes=[1, 1, 1, 3, 3], level_channels=[64, 32, 16, 16, 16],
               expand_ratio=2, weight_groups=[32, 16, 8, 16, 4], num_classes=19)
 # kernel launches of one HyperSeg-M eval forward on the card (K1's
-# generation and K2's unit, K3, K4a, K4b, K5, K6), by LAUNCHES key
-M_LAUNCHES = {"patch_invres_s2w": 2, "patch_invres": 2, "stem": 1, "mbconv_dw": 2,
+# generation - the three 1x1 levels' maps and the two k=3 levels' K1 - and
+# K2's unit, K3, K4a, K4b, K5, K6), by LAUNCHES key
+M_LAUNCHES = {"patch_invres_s2w": 5, "patch_invres": 2, "stem": 1, "mbconv_dw": 2,
               "mbconv_project": 5, "mbconv_expand_dw": 21, "resize_bilinear": 5}
 
 

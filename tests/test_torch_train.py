@@ -360,8 +360,9 @@ def test_train_mode_routes_no_eval_only_kernel(monkeypatch, family):
     (v0_1) or HyperSeg-S Cityscapes (v1_0_unify) at full width reaches K3's
     raw conv and K6 and no eval-only kernel; after model.eval() the same
     model reaches the eval kernels again, the stem's BN-folded K3 and not
-    its raw conv (unify: K1's generation kernel for the weight blocks, K2
-    at levels 3-4)."""
+    its raw conv (v1_0: K1's generation kernel for the 1x1 levels' maps,
+    K1 at levels 3-4; unify: K1's generation kernel for the weight blocks,
+    K2 at levels 3-4)."""
     from hyperseg_torch.models import hyperseg_v0_1 as V0
     from hyperseg_torch.models import hyperseg_v1_0 as V1
     from hyperseg_torch.models import hyperseg_v1_0_unify as VU
@@ -375,7 +376,7 @@ def test_train_mode_routes_no_eval_only_kernel(monkeypatch, family):
         model = V1.hyperseg_efficientnet("efficientnet-b1", device="meta", train=True,
                                          **HYPERSEG_M_KW)
         eval_want = {"stem", "mbconv_dw", "mbconv_project", "mbconv_expand_dw",
-                     "patch_invres_s2w", "resize_bilinear"}
+                     "s2w_generate", "patch_invres_s2w", "resize_bilinear"}
     else:
         model = V0.hyperseg_efficientnet("efficientnet-b3", device="meta", train=True,
                                          **HYPERSEG_L_VOC_KW)
