@@ -231,13 +231,10 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
-from hyperseg_torch.train.harness import (MODELS, deterministic,  # noqa: E402
-                                          synthetic_batch, timed_steps, train_model, trainer)
+from hyperseg_torch.train.harness import (MODELS, bound_ms, cuda_ms,  # noqa: E402
+                                          deterministic, eval_model, nbytes, synthetic_batch,
+                                          timed_steps, train_model, trainer)
 
-# H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense
-# flop/s by input type (bf16 on the tensor cores, float32 on the CUDA cores)
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # kernel vs twin: both compute in float32 from the same inputs and round once
 # at the output, so they differ by float32 reassociation (float32) or by
 # about one output ulp (bfloat16, 2^-8 relative); tolerances are relative to
@@ -351,43 +348,6 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of fn() in ms, CUDA events around a warm loop. The
-    device first spins for ~20 ms, so the host has queued every timed launch
-    before the first starts: the events see kernel time, not launch overhead."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(40_000_000)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def tensors(obj):
-    """The tensors in a nest of arguments."""
-    if isinstance(obj, torch.Tensor):
-        yield obj
-    elif isinstance(obj, (list, tuple)):
-        for o in obj:
-            yield from tensors(o)
-    elif isinstance(obj, dict):
-        for o in obj.values():
-            yield from tensors(o)
-
-
-def bound_ms(nbytes_moved, flops, dtype):
-    """Least time for the work: bytes over HBM rate vs ops over peak rate."""
-    by_bytes = nbytes_moved / PEAK_BYTES * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
 @dataclass
 class Call:
     """One call of a kernel wrapper on the main path: its arguments and output."""
@@ -411,8 +371,7 @@ class Call:
 
     def moved(self):
         """Bytes the function must move: each input once, the output once."""
-        return sum(t.numel() * t.element_size()
-                   for t in tensors((self.args, self.kw, self.out)))
+        return nbytes(self.args, self.kw, self.out)
 
     def flops(self):
         """Operations the function needs for these inputs."""
@@ -562,8 +521,7 @@ def check_stem_conv(model, calls, dtype, rows):
     if dtype != torch.bfloat16:
         return
     xpad = TF.pad(x, (0, 1, 0, 1))
-    b_ms, by = bound_ms(sum(t.numel() * t.element_size() for t in (x, w, got)),
-                        2 * 27 * got.numel(), dtype)
+    b_ms, by = bound_ms(nbytes(x, w, got), 2 * 27 * got.numel(), dtype)
     row.update(ms=cuda_ms(lambda: K3.stem_conv(x, w)),
                plain_ms=cuda_ms(lambda: K3.stem_conv_plain(x, w)), bound_ms=b_ms, bound_by=by,
                library_ms=cuda_ms(lambda: TF.conv2d(xpad, w, stride=2)))
@@ -667,9 +625,7 @@ def check_generation(model, calls, dtype, rows):
         if dtype != torch.bfloat16:
             continue
         b, sig, fh, fw = sl.shape
-        b_ms, by = bound_ms(sl.numel() * sl.element_size() + w.numel() * w.element_size()
-                            + got.numel() * got.element_size(),
-                            2 * b * fh * fw * p * (sig // groups), dtype)
+        b_ms, by = bound_ms(nbytes(sl, w, got), 2 * b * fh * fw * p * (sig // groups), dtype)
         t = dict(ms=cuda_ms(c.kernel), plain_ms=cuda_ms(c.plain),
                  library_ms=cuda_ms(lambda: TF.conv2d(sl, w, groups=groups)))
         print(f"time   {model} s2w_generate map {i} s {tuple(sl.shape)} P {p} groups {groups} "
@@ -781,9 +737,8 @@ def run_model(key, rows):
     from hyperseg_torch.utils.calibrate import calibrate_bn
 
     cfg = MODELS[key]
-    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
     gen = torch.Generator().manual_seed(1)
-    model = factory.hyperseg_efficientnet(cfg.backbone, device="cpu", seed=0, **cfg.kw)
+    model = eval_model(key, "cpu")
     n = sum(v.numel() for v in model.state_dict().values())
     if n != cfg.param_count:
         fail(f"{cfg.name}: parameter count {n} != {cfg.param_count}")
@@ -2144,8 +2099,7 @@ def stem_train(x, w, dtype):
     g = torch.randn(got.shape, generator=torch.Generator("cuda").manual_seed(6), device="cuda",
                     dtype=dtype)
     xpad = TF.pad(x, (0, 1, 0, 1))
-    b_ms, by = bound_ms(sum(t.numel() * t.element_size() for t in (x, w, got)),
-                        2 * 27 * got.numel(), dtype)
+    b_ms, by = bound_ms(nbytes(x, w, got), 2 * 27 * got.numel(), dtype)
     with torch.no_grad():
         t = dict(max_abs_err=err, grad_max_abs_err=grad_err, shape=list(x.shape),
                  dtype=str(dtype).replace("torch.", ""),
@@ -3211,8 +3165,7 @@ def run_spatial(smi, ref):
     inputs, out = {}, {}
     for key in {**SPATIAL["evals"], **SPATIAL["pyramids"]}:
         cfg = MODELS[key]
-        factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
-        model = factory.hyperseg_efficientnet(cfg.backbone, device="cpu", seed=0, **cfg.kw)
+        model = eval_model(key, "cpu")
         x8 = torch.randn(8, 3, *cfg.res, generator=torch.Generator().manual_seed(1))
         init = {k: v.clone() for k, v in model.state_dict().items()}
 

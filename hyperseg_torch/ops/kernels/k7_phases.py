@@ -59,23 +59,25 @@ def measure(batch):
     import torch
 
     from hyperseg_torch.ops.kernels import build, invres_sweep as S, patch_invres as PI
+    from hyperseg_torch.train.harness import cuda_ms
     assert os.path.join("_build", "k7_phases") in PI.__file__, PI.__file__   # the copy
     build.kernels()
     gen = torch.Generator().manual_seed(0)
-    for lv, u, (h, wd), (fh, fw) in S.calls("V"):
-        x, w, args = S._k7_inputs(u, (h, wd), (fh, fw), batch, gen)
-        band, layout = PI.v01_plan(u.in_ch, u.hidden, u.out_ch, h // fh, wd // fw, fh, fw,
+    for _, _, a, _ in S.decoder_calls("V"):
+        x, w, kw = S.k7_inputs("V", a, batch, gen)
+        _, cin, h, wd = x.shape
+        fh, fw = a["w"][0][1:3]
+        band, layout = PI.v01_plan(cin, kw["hidden"], kw["out_ch"], h // fh, wd // fw, fh, fw,
                                    batch)
-        bns = [t for k in ("bn1", "bn2", "bn3") for t in args[k]]
-        out = torch.empty(batch, u.out_ch, h, wd, device="cuda", dtype=torch.bfloat16)
+        out = torch.empty(batch, kw["out_ch"], h, wd, device="cuda", dtype=torch.bfloat16)
         row = PI.map_row_stride(w)
         cum = []
         for stop in (1, 2, 3, 4, 5, 6, 0):
             os.environ["K7_STOP"] = str(stop)
-            cum.append(S.cuda_ms(lambda: build.kernels().patch_invres_v01(
-                x, w, row, u.hidden, bns, 1e-5, band, layout, out)))
+            cum.append(cuda_ms(lambda: build.kernels().patch_invres_v01(
+                x, w, row, kw["hidden"], S.bns(kw), 1e-5, band, layout, out)))
         steps = [cum[0]] + [b - a for a, b in zip(cum, cum[1:])]
-        print(f"k7_phases batch {batch} level {lv} x {(batch, u.in_ch, h, wd)} band {band}: "
+        print(f"k7_phases batch {batch} level {S.level('V', a)} x {tuple(x.shape)} band {band}: "
               "cumulative ms " + " ".join(f"{n} {c:.4f}" for n, c in zip(STOPS, cum))
               + " | per phase " + " ".join(f"{n} {s:.4f}" for n, s in zip(STOPS, steps)),
               flush=True)

@@ -1,18 +1,21 @@
-"""Time K3 (stem) on one GPU at the stem call of each main path.
+"""Time K3 (stem) on one GPU at the stem call of each model.
 
     python -m hyperseg_torch.ops.kernels.stem_sweep [--batch 1] [--plans]
+        [--models M L V SC SV]
 
-For HyperSeg-M (EfficientNet-B1 at 1024x512), HyperSeg-L CamVid (B1 at
-768x1024) and HyperSeg-L VOC (B3 at 512x512), the stem gets random
-bfloat16 inputs and a line for each mode - swish after BN (the eval path)
-and the raw conv (`stem_conv`) - with the kernel's mean device time (CUDA
-events over a warm loop), one `conv2d` call's on the same inputs (BN folded
-into its weight and bias; the raw conv without a bias), the least time the
-card could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s) and the
-kernel's largest difference from its plain twin. With --plans, K3 instead
-runs at every tile of ROWS x COLS, two lines per call: the tile
-`stem_plan` picks, the fastest and the pick's rank; then every tile's
-time; at the end the sums of the picks' and of the fastest tiles' times.
+For each model of train/harness.py MODELS (all by default), the stem call
+is the one of a bfloat16 eval forward at the model's full size, as the
+port's recorder lists it (harness.kernel_calls). It gets random bfloat16
+inputs of its recorded shapes at `--batch` and a line for each mode - swish
+after BN (the eval path) and the raw conv (`stem_conv`) - with the kernel's
+mean device time (CUDA events over a warm loop), one `conv2d` call's on the
+same inputs (BN folded into its weight and bias; the raw conv without a
+bias), the least time the card could take (bytes over 3.35 TB/s or flops
+over 989 TFLOP/s) and the kernel's largest difference from its plain twin.
+With --plans, K3 instead runs at every tile of ROWS x COLS, two lines per
+call: the tile `stem_plan` picks, the fastest and the pick's rank; then
+every tile's time; at the end the sums of the picks' and of the fastest
+tiles' times.
 """
 
 import argparse
@@ -22,23 +25,16 @@ import torch.nn.functional as TF
 
 from hyperseg_torch.ops.kernels import build
 from hyperseg_torch.ops.kernels import stem as K3
-from hyperseg_torch.ops.kernels.invres_sweep import cuda_ms
-from hyperseg_torch.ops.kernels.mbconv_sweep import MODELS, PEAK_BYTES, PEAK_FLOPS
-
-STEM_CH = {"M": 32, "L": 32, "V": 40}   # round_filters(32, width): B1 32, B3 40
+from hyperseg_torch.train.harness import (MODELS, bound_ms, cuda_ms, nbytes, random_bn,
+                                          random_input, sweep_calls)
 
 
 def inputs(model, batch, gen):
     """x, weight and BN of the model's stem call, on the card in bfloat16."""
-    _, (h, w) = MODELS[model]
-    c = STEM_CH[model]
-    x = torch.randn(batch, 3, h, w, generator=gen).to("cuda", torch.bfloat16)
-    wt = (torch.randn(c, 3, 3, 3, generator=gen) * 0.3).to("cuda", torch.bfloat16)
-    bn = tuple(t.to("cuda") for t in (torch.rand(c, generator=gen) + 0.5,
-                                      torch.randn(c, generator=gen) * 0.1,
-                                      torch.randn(c, generator=gen) * 0.1,
-                                      torch.rand(c, generator=gen) + 0.5))
-    return x, wt, bn
+    (_, _, a), = sweep_calls(model, ("stem",))
+    x = random_input(gen, a["x"], batch)
+    wt = random_input(gen, a["weight"], scale=0.3)
+    return x, wt, random_bn(gen, wt.shape[0])
 
 
 def time_call(x, wt, bn, act):
@@ -55,9 +51,7 @@ def time_call(x, wt, bn, act):
         err = (got.float() - K3.stem_plain(x, wt, bn, act=act).float()).abs().max().item()
         ms = cuda_ms(lambda: K3.stem(x, wt, bn, act=act))
         lib_ms = cuda_ms(lambda: TF.conv2d(xpad, wf, bf, stride=2))
-    moved = sum(t.numel() * t.element_size() for t in (x, wt, got, *(bn or ())))
-    by_bytes, by_ops = moved / PEAK_BYTES * 1e3, 2 * 27 * got.numel() / PEAK_FLOPS * 1e3
-    bound, by = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+    bound, by = bound_ms(nbytes(x, wt, got, bn), 2 * 27 * got.numel())
     return ms, lib_ms, bound, by, err
 
 
@@ -80,7 +74,7 @@ def plan_table(x, wt, bn):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--batch", type=int, default=1)
-    ap.add_argument("--models", default="MLV")
+    ap.add_argument("--models", nargs="+", default=list(MODELS), choices=list(MODELS))
     ap.add_argument("--plans", action="store_true",
                     help="time K3 at every tile it takes, against the plan's pick")
     args = ap.parse_args()

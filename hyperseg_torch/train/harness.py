@@ -9,19 +9,23 @@ batch, `trainer` the config's train step (train/step.py with the recipe's
 Adam, PolyLR and bootstrapped CE), and `timed_steps` times steps of it by
 CUDA events, `deterministic` runs them on deterministic algorithms, and
 `ddp_rank_step` is one rank's data-parallel step, `spatial_rank` one rank's
-spatially sharded forwards, pyramids and steps. chip_smoke.py (which
-also exposes `MODELS`, as wall_ab.py reads it from each tree it compares),
-train/saved_memory.py and
-train/remat_sweep.py read them from here.
+spatially sharded forwards, pyramids and steps. `kernel_calls` is the one
+list of a model's kernel calls: the kernel spans of one recorded eval
+forward, which the per-kernel sweeps (ops/kernels/*_sweep.py) time and the
+plan tests check; `cuda_ms`, `bound_ms` and `nbytes` are the timing and
+roofline helpers they share with chip_smoke.py. chip_smoke.py,
+train/saved_memory.py and train/remat_sweep.py read them from here.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import importlib
 import time
 from dataclasses import dataclass
+from types import MappingProxyType
 
 import torch
 
@@ -111,6 +115,109 @@ MODELS = {
          "patch_invres_v01": 0},
         (1,)),
 }
+
+
+# H100 SXM peaks from NVIDIA's data sheet at 700 W: HBM bytes/s, dense flop/s
+# by input type (bf16 on the tensor cores, float32 on the CUDA cores)
+PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+
+
+def bound_ms(nbytes_moved, flops, dtype=torch.bfloat16):
+    """Least time for the work in ms, and what bounds it: bytes over the HBM
+    rate or operations over the peak rate of `dtype`."""
+    by_bytes = nbytes_moved / PEAK_BYTES * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def nbytes(*objs):
+    """Bytes of the tensors in a nest of tuples, lists and dicts."""
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+    return total
+
+
+def cuda_ms(fn, iters=20, warmup=3):
+    """Mean device time of fn() in ms, CUDA events around a warm loop. The
+    device first spins for ~20 ms, so the host has queued every timed launch
+    before the first starts: the events see kernel time, not launch overhead."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def eval_model(key, device):
+    """Model `key` from seed 0 in eval on `device`, through its factory."""
+    cfg = MODELS[key]
+    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
+    return factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, **cfg.kw)
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_calls(key, device="cpu", dtype=torch.float32):
+    """Every kernel call of one eval forward of model `key` on a batch of one
+    at its full size, on `device` in `dtype`: the
+    `kernel.*` spans of the port's recorder (utils/trace.py), in order, as
+    (LAUNCHES key, attrs), attrs each argument's (shape, dtype name) or value
+    (ops/kernels `describe`), read-only. A caller scales the batch dimension
+    itself. Cached per argument; the recorder is reset around the forward."""
+    from hyperseg_torch.nn.modules import cast_weights
+    from hyperseg_torch.utils import trace
+    model = cast_weights(eval_model(key, device), dtype)
+    x = torch.zeros(1, 3, *MODELS[key].res, device=device, dtype=dtype)
+    trace.reset()
+    trace.enable()
+    try:
+        with torch.no_grad():
+            model(x)
+    finally:
+        trace.disable()
+        spans = trace.spans()
+        trace.reset()
+    return tuple((s["name"].removeprefix("kernel."), MappingProxyType(s["attrs"]))
+                 for s in spans if s["name"].startswith("kernel."))
+
+
+def sweep_calls(key, names):
+    """What a per-kernel sweep times of model `key`: (i, name, attrs) of each
+    call of the kernels `names` in one bfloat16 eval forward on the card at
+    the model's full size (kernel_calls), i its place among all the
+    forward's kernel calls."""
+    calls = kernel_calls(key, device="cuda", dtype=torch.bfloat16)
+    return [(i, n, a) for i, (n, a) in enumerate(calls) if n in names]
+
+
+def random_input(gen, recorded, batch=None, scale=1.0):
+    """A tensor on the card of a recorded argument's (shape, dtype name), its
+    first dimension `batch` if given: normal draws from `gen` times `scale`."""
+    shape, dtype = recorded
+    shape = shape if batch is None else (batch, *shape[1:])
+    return (torch.randn(*shape, generator=gen) * scale).to("cuda", getattr(torch, dtype))
+
+
+def random_bn(gen, c):
+    """A BN's float32 (weight, bias, running_mean, running_var) of `c`
+    channels on the card: weights and variances in [0.5, 1.5), the rest
+    normal draws times 0.1."""
+    return tuple(t.to("cuda") for t in (torch.rand(c, generator=gen) + 0.5,
+                                        torch.randn(c, generator=gen) * 0.1,
+                                        torch.randn(c, generator=gen) * 0.1,
+                                        torch.rand(c, generator=gen) + 0.5))
 
 
 def synthetic_batch(b, hw, seed, device, num_classes=19):
@@ -320,9 +427,7 @@ def spatial_eval_rank(device, *, key, state, x, n_data, n_spatial):
     from hyperseg_torch.parallel import mesh as PM
     from hyperseg_torch.parallel import spatial as SP
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = MODELS[key]
-    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
-    model = factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, **cfg.kw)
+    model = eval_model(key, device)
     model.load_state_dict(state)
     mesh = PM.make_mesh(n_data, n_spatial, devices=[device] * (n_data * n_spatial))
     sharding = PM.data_sharded(mesh, spatial_dim=2)
@@ -444,9 +549,7 @@ def spatial_pyramid_rank(device, *, key, state, x, n_spatial, levels):
     from hyperseg_torch.parallel import spatial as SP
     from hyperseg_torch.utils.img_utils import create_pyramid
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = MODELS[key]
-    factory = importlib.import_module(f"hyperseg_torch.models.{cfg.factory}")
-    model = factory.hyperseg_efficientnet(cfg.backbone, device=device, seed=0, **cfg.kw)
+    model = eval_model(key, device)
     model.load_state_dict(state)
     model.inference_hflip = True
     mesh = PM.make_mesh(1, n_spatial, devices=[device] * n_spatial)

@@ -1,119 +1,20 @@
-"""The plans of K4a (mbconv_dw) and K6 (resize_bilinear), and numpy walks of
-both kernels.
+"""Numpy walks of K4a (mbconv_dw) and K6 (resize_bilinear).
 
-For every K4a and K6 call of HyperSeg-M (1024x512), HyperSeg-L CamVid
-(768x1024) and HyperSeg-L VOC (512x512) at batch 1 and 8, taken from the
-port's models as mbconv_sweep and resize_sweep list them (no forward), the
-plans' grids cover the output and a K4a block's shared memory fits the
-H100's 232,448 B; the call lists themselves are held against the calls a
-forward makes at a small size. A numpy walk through each kernel's index
-arithmetic - units of 8-column strips and bands of rows, the three-row
-window, halo columns from the neighbouring lanes or loaded by the lane
-itself, ragged widths and heights, K6's compile-time taps at s = 2, 3, 4 -
-is held against the kernel's plain twin. The kernels themselves run only on
-the card (tests/test_torch_cuda.py)."""
+A numpy walk through each kernel's index arithmetic - units of 8-column
+strips and bands of rows, the three-row window, halo columns from the
+neighbouring lanes or loaded by the lane itself, ragged widths and heights,
+K6's compile-time taps at s = 2, 3, 4 - is held against the kernel's plain
+twin. Their plans at every call the models make are held in
+tests/test_torch_call_plans.py; the kernels themselves run only on the card
+(tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
-import torch
 
-from hyperseg_torch.models import hyperseg_v0_1, hyperseg_v1_0
 from hyperseg_torch.ops.kernels import mbconv as K4
-from hyperseg_torch.ops.kernels import mbconv_sweep, resize_sweep
 from hyperseg_torch.ops.kernels import resize as K6
 
-from torch_parity import bn_params, t
-
-CALLS = {"M": (2, 5), "L": (2, 5), "V": (2, 5)}   # K4a, K6 calls per forward
-
-
-def _dw_calls(model, hw=None):
-    """(channels, H, W) of each K4a call of one forward."""
-    return [(p.mid, *size) for _, kind, p, size in mbconv_sweep.calls(model, hw)
-            if kind == "dw"]
-
-
-def _units(planes, height, width, rows):
-    """Each lane of the grid as the kernels number it: (active, plane, y0,
-    x0, lane, block), strip fastest, 256 lanes a block."""
-    strips, bands = -(-width // 8), -(-height // rows)
-    per_plane, total = strips * bands, planes * strips * bands
-    g = np.arange(-(-total // 256) * 256)
-    u = np.minimum(g, total - 1)
-    plane, rem = u // per_plane, u % per_plane
-    return g < total, plane, (rem // strips) * rows, (rem % strips) * 8, g % 32, g // 256
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("model", sorted(CALLS))
-def test_dw_plan_covers_and_fits(model, batch):
-    calls = _dw_calls(model)
-    assert len(calls) == CALLS[model][0]
-    for c, h, w in calls:
-        rows, blocks, smem = K4.dw_plan(batch, c, h, w)
-        assert rows in K4.DW_ROWS
-        units = K4.dw_units(batch * c, h, w, rows)
-        assert blocks * K4.DW_THREADS >= units > (blocks - 1) * K4.DW_THREADS
-        # every (plane, output row, strip) has its lane, once
-        active, plane, y0, x0, _, block = _units(batch * c, h, w, rows)
-        assert len(active) == blocks * K4.DW_THREADS
-        cells = set(zip(plane[active], y0[active], x0[active]))
-        assert len(cells) == active.sum() == batch * c * -(-h // rows) * -(-w // 8)
-        # the band with the fewest waves times rows loaded, the taller on a tie
-        costs = {r: K4.dw_cost(batch * c, h, w, r) for r in K4.DW_ROWS}
-        assert costs[rows] == min(costs.values())
-        assert all(r <= rows for r in K4.DW_ROWS if costs[r] == costs[rows])
-        assert K4.dw_cost(batch * c, h, w, rows) == (
-            -(-blocks // (K4.SMS * K4.DW_RESIDENT)) * (rows + 2))
-        # the folded taps of every plane a block spans, within the limit
-        spans = [len(np.unique(plane[(block == i) & active])) for i in range(blocks)]
-        assert 40 * max(spans) <= smem == K4.dw_smem(batch * c, h, w, rows) <= K4.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("model", sorted(CALLS))
-def test_resize_plan_covers(model, batch):
-    calls = resize_sweep.calls(model)
-    assert len(calls) == CALLS[model][1]
-    for _, c, (h, w), s in calls:
-        assert s in K6.SCALES
-        rows, blocks = K6.resize_plan(batch * c, h, w)
-        assert rows in K6.ROWS
-        units = K6.units(batch * c, h, w, rows)
-        assert blocks * K6.THREADS >= units > (blocks - 1) * K6.THREADS
-        active, plane, y0, x0, _, _ = _units(batch * c, h, w, rows)
-        cells = set(zip(plane[active], y0[active], x0[active]))
-        assert len(cells) == active.sum() == units
-        # the tallest band of at most MAX_ROWS rows whose grid has MIN_BLOCKS
-        # blocks, or 1 row
-        assert rows <= K6.MAX_ROWS and (rows == 1 or blocks >= K6.MIN_BLOCKS)
-        assert rows == K6.MAX_ROWS or -(-K6.units(batch * c, h, w, 2 * rows)
-                                        // K6.THREADS) < K6.MIN_BLOCKS
-
-
-@pytest.mark.parametrize("model,hw", [("M", (128, 256)), ("L", (96, 128)), ("V", (128, 128))])
-def test_call_lists_match_a_forward(model, hw, monkeypatch):
-    """The sweeps' K4a and K6 calls are the ones a forward makes (CPU, at a
-    small size, counted through the wrappers)."""
-    seen = {"dw": [], "resize": []}
-    dw, resize = K4.mbconv_dw, K6.resize_bilinear
-
-    def rec_dw(x, *a, **kw):
-        seen["dw"].append(tuple(x.shape[1:]))
-        return dw(x, *a, **kw)
-
-    def rec_resize(x, out_hw):
-        seen["resize"].append((x.shape[1], tuple(x.shape[2:]), out_hw[0] // x.shape[2]))
-        return resize(x, out_hw)
-    monkeypatch.setattr(K4, "mbconv_dw", rec_dw)
-    monkeypatch.setattr(K6, "resize_bilinear", rec_resize)
-    factory = {"M": hyperseg_v1_0, "L": hyperseg_v1_0, "V": hyperseg_v0_1}[model]
-    _, backbone, kw, _ = resize_sweep.MODELS[model]
-    net = factory.hyperseg_efficientnet(backbone, device="cpu", **kw)
-    with torch.no_grad():
-        net(torch.zeros(1, 3, *hw))
-    assert seen["dw"] == _dw_calls(model, hw)
-    assert seen["resize"] == [(c, size, s) for _, c, size, s in resize_sweep.calls(model, hw)]
+from torch_parity import bn_params, strip_units, t
 
 
 def _swish(v):
@@ -138,7 +39,7 @@ def _strip_row(v, own_l, own_r, lanes, replicate):
 
 
 def _lanes(planes, height, width, rows, vec):
-    active, plane, y0, x0, lane, _ = _units(planes, height, width, rows)
+    active, plane, y0, x0, lane, _ = strip_units(planes, height, width, rows)
     return ((active, plane, y0, x0),
             (None, (not vec) | (lane == 0), (not vec) | (lane == 31), x0 == 0, x0 + 8 >= width))
 

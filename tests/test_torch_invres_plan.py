@@ -1,16 +1,13 @@
-"""The band plan of K1's and K2's unit, and walks of both kernels' index
-arithmetic.
+"""Walks of K1's and K2's index arithmetic.
 
-For every K1 call of HyperSeg-M (1024x512) and HyperSeg-L CamVid (768x1024)
-at batch 1 and 8, taken from the decoders as invres_sweep lists them (no
-forward), the plan's bands cover the patch and a block's shared memory, laid
-out by the plan, fits the H100's 232,448 B. numpy walks through the unit
-kernel (8-pixel-chunk staging from the column rounded down to 8, halo rows,
-the border reflect, K and N padded with zeros, the expand over every staged
-pixel, depthwise and project) and the generation kernel (tiles of patches
-and outputs per weight group) are held against the plain twins. The
-decoder sends every v1_0 k=3 unit through K1. The kernels themselves run
-only on the card (tests/test_torch_cuda.py)."""
+numpy walks through the unit kernel (8-pixel-chunk staging from the column
+rounded down to 8, halo rows, the border reflect, K and N padded with
+zeros, the expand over every staged pixel, depthwise and project) and the
+generation kernel (tiles of patches and outputs per weight group) are held
+against the plain twins, and K2's wrapper takes a float32 map beside a
+bfloat16 x. The unit's band plan at
+every call the models make is held in tests/test_torch_call_plans.py; the
+kernels themselves run only on the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -18,56 +15,9 @@ import torch
 
 from hyperseg_torch.models.decoder import S2W, weight_map
 from hyperseg_torch.ops.kernels import LAUNCHES
-from hyperseg_torch.ops.kernels import invres_sweep
 from hyperseg_torch.ops.kernels import patch_invres as PI
 
 from torch_parity import bn_params, t
-
-LEVELS = {"M": [3, 4], "L": [3, 4, 5]}   # the k=3 levels, each one K1 call
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("model", sorted(LEVELS))
-def test_unit_plan_covers_and_fits(model, batch):
-    calls = invres_sweep.calls(model)
-    assert [lv for lv, *_ in calls] == LEVELS[model]
-    for _, u, (h, w), (fh, fw) in calls:
-        ph, pw = h // fh, w // fw
-        for itemsize in (2, 4):
-            band, layout = PI.unit_plan(u.in_ch, u.hidden, u.out_ch, ph, pw, batch * fh * fw,
-                                        itemsize)
-            assert ph % band == 0 and layout == PI.unit_layout(u.in_ch, u.hidden, u.out_ch,
-                                                                pw, band, itemsize)
-            blocks = batch * fh * fw * (ph // band)
-            # two blocks to an SM; the tallest band that keeps MIN_BLOCKS
-            assert layout[-1] <= PI.SMEM_BUDGET
-            taller = [r for r in range(band + 1, ph + 1) if ph % r == 0 and PI.unit_layout(
-                u.in_ch, u.hidden, u.out_ch, pw, r, itemsize)[-1] <= PI.SMEM_BUDGET]
-            assert blocks >= PI.MIN_BLOCKS
-            assert all(batch * fh * fw * (ph // r) < PI.MIN_BLOCKS for r in taller)
-            (x_row, h_row, w1_row, w3_row, o_row, h_off, w1_off, w3_off, w2_off, v_off,
-             t_off, total) = layout
-            kp, hk, op = (-(-c // m) * m for c, m in ((u.in_ch, 16), (u.hidden, 16),
-                                                      (u.out_ch, 8)))
-            nch = PI.staged_chunks(pw, band)
-            assert nch % 2 == 0 and 8 * nch >= (band + 2) * (pw + 2)
-            # rows hold the staged chunks, odd counts of 16 bytes for ldmatrix
-            assert x_row >= 8 * nch and (x_row * itemsize) % 16 == 0
-            assert itemsize == 4 or (x_row * itemsize // 16) % 2 == 1
-            assert h_row >= hk and w1_row >= kp and w3_row >= hk and o_row >= band * pw
-            for row in (h_row, w1_row, w3_row):
-                assert (row * itemsize) % 16 == 0
-            # the regions follow each other, 16-byte aligned, within the limit
-            mp = -(-band * pw // 16) * 16
-            assert h_off >= itemsize * max(kp * x_row, mp * h_row)
-            assert w1_off >= h_off + max(4 * (band + 2) * (pw + 2) * h_row,
-                                         4 * op * o_row,
-                                         4 * PI.hyper_params(u.in_ch, u.hidden, u.out_ch))
-            assert w3_off >= w1_off + itemsize * hk * w1_row
-            assert w2_off >= w3_off + itemsize * op * w3_row
-            assert v_off >= w2_off + 36 * hk and t_off >= v_off + 8 * (2 * hk + op)
-            assert all(o % 16 == 0 for o in (h_off, w1_off, w3_off, w2_off, v_off, t_off))
-            assert total == t_off + 16 * nch <= PI.SMEM_LIMIT
 
 
 def _reflect(i, n):
@@ -251,30 +201,6 @@ def test_generation_walk_matches_weight_map():
     cpu = PI.s2w_generate(t(s)[:, 8:], t(wt), groups=groups, p=p)
     assert sum(LAUNCHES.values()) == 0 and cpu.dtype == torch.float32
     np.testing.assert_allclose(cpu.numpy().reshape(b * fhw, p), want, atol=1e-5)
-
-
-@pytest.mark.parametrize("model", sorted(LEVELS))
-def test_decoder_sends_every_k3_unit_through_k1(model, monkeypatch):
-    """Each v1_0 k=3 unit's forward calls K1's wrapper with its routed signal
-    slice and signal2weights weight, and nothing else of patch_invres."""
-    seen = []
-
-    def k1(x, s, w_s2w, **kw):
-        seen.append(("k1", s.shape[1], kw["groups"], tuple(w_s2w.shape)))
-        return torch.empty(x.shape[0], kw["out_ch"], *x.shape[2:], device="meta")
-
-    def other(*args, **kw):
-        seen.append(("other",))
-    monkeypatch.setattr(PI, "patch_invres_s2w", k1)
-    monkeypatch.setattr(PI, "patch_invres", other)
-    calls = invres_sweep.calls(model)
-    for _, u, (h, w), (fh, fw) in calls:
-        r = u.route
-        u(torch.empty(1, u.in_ch, h, w, device="meta"),
-          torch.empty(1, r.signal_index + r.signal_ch, fh, fw, device="meta"))
-    assert seen == [("k1", u.route.signal_ch, u.route.groups,
-                     (u.route.out_ch, u.route.signal_ch // u.route.groups, 1, 1))
-                    for _, u, *_ in calls]
 
 
 def test_k2_takes_a_float32_map_for_bfloat16_x():

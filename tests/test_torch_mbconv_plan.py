@@ -1,97 +1,21 @@
-"""The tile plans of K4b (mbconv_project) and K5 (mbconv_expand_dw).
+"""K5 (mbconv_expand_dw): a numpy walk of its kernel, and K4b's (mbconv_project)
+wrapper on the CPU.
 
-For every K4b and K5 call of HyperSeg-M (1024x512), HyperSeg-L CamVid
-(768x1024), HyperSeg-L VOC (512x512) and HyperSeg-S Cityscapes (1536x768)
-at batch 1 and 8, taken from the port's EfficientNet plans as mbconv_sweep
-lists them (no forward), the plans' tiles cover the output and a block's
-shared memory, laid out by the plan, fits the H100's 232,448 B (half of an
-SM's, so two blocks fit, for K5's 5x5 form). A numpy walk through the K5
-kernel's index arithmetic (the staged window of 8-pixel chunks, the GEMM
-over it, the epilogue's window positions, the KxK depthwise) at the
-bfloat16 and the float32 plans is held against the kernel's plain twin, at
-3x3 and 5x5 and each stride and pad the backbones' blocks have. The kernels
-themselves run only on the card (tests/test_torch_cuda.py)."""
+A numpy walk through the K5 kernel's index arithmetic (the staged window of
+8-pixel chunks, the GEMM over it, the epilogue's window positions, the KxK
+depthwise) at the bfloat16 and the float32 plans is held against the
+kernel's plain twin, at 3x3 and 5x5 and each stride and pad the backbones'
+blocks have. K4b's and K5's tile plans at every call the models make are
+held in tests/test_torch_call_plans.py; the kernels themselves run only on
+the card (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
 import torch
 
 from hyperseg_torch.ops.kernels import mbconv as K4
-from hyperseg_torch.ops.kernels import mbconv_sweep
 
 from torch_parity import bn_params, t
-
-# K4b, K5 calls per forward
-CALLS = {"M": (5, 21), "L": (5, 21), "V": (5, 24), "SC": (5, 21)}
-
-
-def _calls(model):
-    """(K4b calls, K5 calls) of one forward: (cin, hw) and (cin, mid, out_h,
-    out_w, kernel, stride, pad)."""
-    project, expand = [], []
-    for _, kind, p, (h, w) in mbconv_sweep.calls(model):
-        if kind == "project":
-            project.append((p.mid, h * w))
-        elif kind == "expand_dw":
-            oh, ow = K4.expand_dw_out_hw(h, w, p.kernel, p.stride, p.dw_pad)
-            expand.append((p.in_ch, p.mid, oh, ow, p.kernel, p.stride, p.dw_pad))
-    return project, expand
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("model", sorted(CALLS))
-def test_project_plan_covers_and_fits(model, batch):
-    project, _ = _calls(model)
-    assert len(project) == CALLS[model][0]
-    for cin, hw in project:
-        for itemsize in (2, 4):
-            tile, (row, out_row, w_row, w_off, c_off, total) = K4.project_plan(
-                cin, hw, batch, itemsize)
-            assert tile in K4.PROJECT_TILES
-            blocks = -(-hw // tile) * batch
-            assert (blocks // batch) * tile >= hw > (blocks // batch - 1) * tile
-            # 128-pixel tiles only where they still fill every SM twice
-            assert tile == 64 or blocks >= K4.MIN_BLOCKS
-            # the regions follow each other, 16-byte aligned, within the limit
-            ring = itemsize * K4.PROJECT_STAGES * K4.PROJECT_KC * row
-            assert row >= tile and out_row >= tile and row * itemsize % 16 == 0
-            assert w_off >= max(ring, 4 * K4.MAX_PROJECT_OUT * out_row) and w_off % 16 == 0
-            cin_pad = -(-cin // K4.PROJECT_KC) * K4.PROJECT_KC
-            rows, cols = (K4.MAX_PROJECT_OUT, cin_pad) if itemsize == 2 else (cin_pad, K4.MAX_PROJECT_OUT)
-            assert w_row >= cols and c_off >= w_off + itemsize * rows * w_row
-            assert total == c_off + 8 * K4.MAX_PROJECT_OUT <= K4.SMEM_LIMIT
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("model", sorted(CALLS))
-def test_expand_plan_covers_and_fits(model, batch):
-    _, expand = _calls(model)
-    assert len(expand) == CALLS[model][1]
-    for cin, mid, oh, ow, k, stride, pad in expand:
-        assert K4.expand_dw_takes(k, stride, pad)
-        for itemsize in (2, 4):
-            th, tw, cc, layout = K4.expand_dw_plan(oh, ow, k, stride, pad, cin, mid, batch,
-                                                   itemsize)
-            ty, tx = -(-oh // th), -(-ow // tw)
-            assert ty * th >= oh > (ty - 1) * th and tx * tw >= ow > (tx - 1) * tw
-            assert -(-mid // cc) * cc >= mid
-            assert cc in K4.EXPAND_CHANNELS and tw in (8, 16, 32)
-            staged = K4.expand_dw_staged(k, stride, pad, th, tw)
-            assert staged <= K4.expand_dw_max_staged(cc)
-            assert layout == K4.expand_dw_layout(cin, k, stride, pad, th, tw, cc, itemsize)
-            # the regions follow each other, 16-byte aligned, within the limit
-            x_row, w_row, stage, stages, c_off, t_off, total = layout
-            win_h, win_w = K4.expand_dw_window(k, stride, th, tw)
-            assert x_row >= staged and w_row >= K4.EXPAND_KC
-            assert (x_row * itemsize) % 16 == 0 and (w_row * itemsize) % 16 == 0
-            assert stage >= K4.EXPAND_KC * x_row + cc * w_row and (stage * itemsize) % 16 == 0
-            assert 1 <= stages <= min(K4.EXPAND_STAGES[k], -(-cin // K4.EXPAND_KC))
-            assert c_off >= max(itemsize * stages * stage, 4 * cc * win_h * win_w)
-            assert c_off % 16 == 0 and t_off >= c_off + 4 * (3 + k * k) * cc
-            assert t_off % 16 == 0
-            assert t_off + 16 * (staged // 8) <= total <= K4.EXPAND_SMEM[k] <= K4.SMEM_LIMIT
-            if k == 5:   # two blocks an SM: 228 KB, 1 KB reserved a block
-                assert 2 * (total + 1024) <= 233472
 
 
 def _swish(v):

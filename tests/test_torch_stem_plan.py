@@ -1,16 +1,14 @@
-"""K3 (stem): its plan and a numpy walk of the kernel's lanes.
+"""K3 (stem): its shared-memory layout and a numpy walk of the kernel's lanes.
 
-`stem_plan`'s tiles cover the output of every stem call of HyperSeg-M
-(1024x512), HyperSeg-L CamVid (768x1024) and HyperSeg-L VOC (512x512) at
-batch 1 and 8, and its layouts fit the H100's shared memory with rows and
-chunks on 16-byte boundaries. The bfloat16 layout's pitches keep the lanes'
-B-fragment gathers free of bank conflicts at every tile. A numpy walk
-through the kernel's index arithmetic - the staged band (16-byte chunks or
-elements, zero past the image), the A fragments of the raw filter, each
-lane's B fragment gathered from the band, the mma's accumulators, BN on the
-sums, the masked stores; and the float32 path's strips of 8 columns over its
-padded band - is held against a numpy conv at ragged shapes. The kernel
-itself runs only on the card (tests/test_torch_cuda.py)."""
+The bfloat16 layout's pitches keep the lanes' B-fragment gathers free of
+bank conflicts at every tile. A numpy walk through the kernel's index
+arithmetic - the staged band (16-byte chunks or elements, zero past the
+image), the A fragments of the raw filter, each lane's B fragment gathered
+from the band, the mma's accumulators, BN on the sums, the masked stores;
+and the float32 path's strips of 8 columns over its padded band - is held
+against a numpy conv at ragged shapes. `stem_plan` at the stem call of each model is held
+in tests/test_torch_call_plans.py; the kernel itself runs only on the card
+(tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
@@ -19,11 +17,6 @@ from hyperseg_torch.ops.kernels import stem as K3
 
 from torch_parity import bn_params, t
 
-CALLS = {  # model: input (H, W), stem channels
-    "M": ((512, 1024), 32),
-    "L": ((768, 1024), 32),
-    "V": ((512, 512), 40),
-}
 TAPS = 27
 
 
@@ -47,38 +40,6 @@ def _offsets(g, t_, lay):
         c, dy, dx = _tap(k if k < TAPS else 0)
         out.append(c * chan + dy * row + dx + 2 * g)
     return out
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-@pytest.mark.parametrize("model", sorted(CALLS))
-@pytest.mark.parametrize("itemsize", [2, 4])
-def test_plan_covers_and_fits(model, batch, itemsize):
-    (h, w), cout = CALLS[model]
-    rows, cols, lay = K3.stem_plan(batch, h, w, cout, itemsize)
-    assert rows in K3.ROWS and cols in K3.COLS
-    row, chan, chunks, bn_off, w_off, total = lay
-    v = 16 // itemsize
-    # the band: 2 rows + 1 input rows of the 2 cols + 1 columns, in whole
-    # 16-byte chunks on 16-byte boundaries, then BN, then (float32) the taps
-    assert chunks * v >= 2 * cols + 1 > (chunks - 1) * v
-    assert K3.stem_scol(chunks * v - 1, itemsize) < row
-    assert (row * itemsize) % 16 == 0 and (chan * itemsize) % 16 == 0
-    assert chan >= (2 * rows + 1) * row
-    assert bn_off >= 3 * chan * itemsize and w_off >= bn_off + 8 * cout
-    assert total == w_off + (4 * K3.W_TAPS * cout if itemsize == 4 else 0) <= K3.SMEM_LIMIT
-    # the tiles cover the output once
-    ho, wo = K3.stem_out_hw(h, w)
-    blocks = K3.stem_blocks(batch, h, w, rows, cols)
-    assert blocks == batch * -(-ho // rows) * -(-wo // cols)
-    # at least two rows; the most pixels, at most MAX_TILE, with MIN_BLOCKS
-    # blocks; the widest of those
-    assert rows >= 2 and rows * cols <= K3.MAX_TILE
-    assert blocks >= K3.MIN_BLOCKS
-    for r in K3.ROWS:
-        for c in K3.COLS:
-            if r >= 2 and K3.stem_blocks(batch, h, w, r, c) >= K3.MIN_BLOCKS:
-                assert r * c < rows * cols or r * c > K3.MAX_TILE or (
-                    r * c == rows * cols and c <= cols)
 
 
 @pytest.mark.parametrize("rows", K3.ROWS)

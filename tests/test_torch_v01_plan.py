@@ -1,27 +1,23 @@
-"""The band plan of K7 (patch_invres_v01) and a walk of its kernel's index
-arithmetic.
+"""A walk of K7's (patch_invres_v01) index arithmetic.
 
-For each K7 call of HyperSeg-L VOC (512x512) at batch 1 and 8, taken from
-the decoder as invres_sweep lists it (no forward), the plan's bands cover
-every patch, a block's shared memory, laid out by the plan, fits the H100's
-232,448 B, and it has room for the w1 copies and foreign tiles of every
-block. A numpy walk through the kernel's blocks - the chunk table and
+A numpy walk through the kernel's blocks - the chunk table and
 staging, the owner table a warp builds (which patch each staged pixel's
 expand takes, at borders and corners), each foreign w1 read once into its
 slot with K and N padded with zeros, the own and foreign m-tiles with s1 and
 s3 on the sums, every window pixel written once, depthwise and project - is
-held against the plain twin. The kernel itself runs only on the card
+held against the plain twin, at the widths of HyperSeg-L VOC's four units
+and at a single patch row and column; k7_phases' patch of the kernel's text
+applies.
+K7's band plan at every call HyperSeg-L VOC makes is held in
+tests/test_torch_call_plans.py; the kernel itself runs only on the card
 (tests/test_torch_cuda.py)."""
 
 import numpy as np
 import pytest
 
-from hyperseg_torch.ops.kernels import invres_sweep
 from hyperseg_torch.ops.kernels import patch_invres as PI
 
 from torch_parity import bn_params, t
-
-V_LEVELS = [2, 3, 4, 5]   # HyperSeg-L VOC's v0_1 units, one K7 call each
 
 
 def _reflect(i, n):
@@ -30,70 +26,6 @@ def _reflect(i, n):
 
 def _rup(v, m):
     return -(-v // m) * m
-
-
-@pytest.mark.parametrize("batch", [1, 8])
-def test_v01_plan_covers_and_fits(batch):
-    calls = invres_sweep.calls("V")
-    assert [lv for lv, *_ in calls] == V_LEVELS
-    for _, u, (h, w), (fh, fw) in calls:
-        ph, pw = h // fh, w // fw
-        for itemsize in (2, 4):
-            band, layout = PI.v01_plan(u.in_ch, u.hidden, u.out_ch, ph, pw, fh, fw, batch,
-                                       itemsize)
-            assert ph % band == 0 and layout == PI.v01_layout(
-                u.in_ch, u.hidden, u.out_ch, ph, pw, fh, fw, band, itemsize)
-            # the grid's blocks cover every band of every patch once
-            blocks = [(p, r0) for p in range(fh * fw) for r0 in range(0, ph, band)]
-            assert len(blocks) == fh * fw * (ph // band)
-            # the rule: the fewest waves of blocks over the SMs (two blocks
-            # to an SM within the budget, one within the limit), then two
-            # blocks to an SM, then the taller band
-            def waves(r, lay):
-                per_sm = 2 if lay[-1] <= PI.SMEM_BUDGET else 1
-                return (-(-batch * fh * fw * (ph // r) // (PI.SMS * per_sm)), -per_sm, -r)
-            fits = [(r, lay) for r in range(1, ph + 1) if ph % r == 0 for lay in
-                    [PI.v01_layout(u.in_ch, u.hidden, u.out_ch, ph, pw, fh, fw, r, itemsize)]
-                    if lay[-1] <= PI.SMEM_LIMIT]
-            assert band == min(fits, key=lambda f: waves(*f))[0]
-            (x_row, h_row, d_row, w1_row, w3_row, o_row, f_row, slots, tiles, h_off, w1_off,
-             w3_off, w2_off, v_off, f_off, t_off, total) = layout
-            kp, hk, op = _rup(u.in_ch, 16), _rup(u.hidden, 16), _rup(u.out_ch, 8)
-            hn = _rup(u.hidden, 8)
-            # room for every block's owners and foreign tiles, not only the
-            # blocks the plan looks at
-            most = [0, 0]
-            for p, r0 in blocks:
-                g = PI.v01_foreign(p // fw, p % fw, r0, band, ph, pw, fh, fw)
-                most = [max(most[0], 1 + len(g)), max(most[1], sum(-(-len(px) // 16)
-                                                                   for _, px in g))]
-            assert (slots, tiles) == tuple(most)
-            nch = PI.staged_chunks(pw, band)
-            assert x_row >= 8 * nch and f_row >= 16 * tiles
-            for row in (x_row, f_row):   # odd counts of 16 bytes for ldmatrix
-                assert (row * itemsize) % 16 == 0
-                assert itemsize == 4 or (row * itemsize // 16) % 2 == 1
-            assert h_row >= hn and h_row % 32 in (8, 24) and d_row >= hk
-            assert w1_row >= kp and w3_row >= hk and o_row >= band * pw and o_row % 4 == 0
-            for row in (d_row, w1_row, w3_row):
-                assert (row * itemsize) % 16 == 0
-            p, p1 = PI.hyper_params(u.in_ch, u.hidden, u.out_ch), u.in_ch * u.hidden
-            pad = 16 // itemsize
-            # the raw weights: w2 | w3 from the 16 bytes that hold w2's first
-            # entry, then (odd cin in bfloat16) each slot's w1 block
-            raw = _rup(p - p1 + pad, pad) + (slots * _rup(p1, pad) if u.in_ch % 2 and itemsize == 2
-                                             else 0)
-            assert h_off >= itemsize * max(kp * x_row, _rup(band * pw, 16) * d_row)
-            assert w1_off >= h_off + max(4 * (band + 2) * (pw + 2) * h_row, 4 * op * o_row,
-                                         itemsize * raw)
-            assert w3_off >= w1_off + itemsize * slots * hn * w1_row
-            assert w2_off >= w3_off + itemsize * op * w3_row
-            assert v_off >= w2_off + 36 * hk and f_off >= v_off + 8 * (2 * hk + op)
-            assert t_off >= f_off + itemsize * kp * f_row
-            assert all(o % 16 == 0 for o in (h_off, w1_off, w3_off, w2_off, v_off, f_off, t_off))
-            ncand = 2 * pw + 2 * (band + 2)
-            assert total == t_off + 16 * nch + 8 * 16 * tiles + 12 * ncand + 4 * tiles + 4
-            assert total <= PI.SMEM_LIMIT
 
 
 def _fold(bn, eps=1e-5):

@@ -35,6 +35,16 @@ def port_model(cfg):
     return V0.hyperseg_efficientnet(cfg["model"]["backbone"], device="cpu", **kw)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """This module on 2 threads, as the other heavy files run, and the
+    process's count restored after it for the next file on the worker."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def rel(a, b):
     return ((a - b).norm() / b.norm()).item()
 
@@ -47,7 +57,6 @@ def test_v01_eval_logits_match_plain_reference(bench):
     (measured 4.5e-5): the decoder's weights are the context head's maps,
     so their rounding scales every patch's products and the logits show
     it tenfold."""
-    torch.set_num_threads(2)
     cfg, R, W, FR = bench
     p = R.plan(cfg["model"])
     P = W.make_params(R, p, 7, "cpu")

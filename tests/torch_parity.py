@@ -68,6 +68,47 @@ def t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def kernel_calls(*keys):
+    """{key: [(LAUNCHES key, attrs)]}: every kernel call of one CPU eval
+    forward of each model of train/harness.py MODELS at its full size
+    (harness.kernel_calls, cached per process), recorded on 2 threads."""
+    from hyperseg_torch.train.harness import kernel_calls as recorded
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        return {k: recorded(k) for k in keys}
+    finally:
+        torch.set_num_threads(threads)
+
+
+def strip_units(planes, height, width, rows):
+    """Each lane of K4a's or K6's grid as the kernels number it: (active,
+    plane, y0, x0, lane, block), 8-column strip fastest, 256 lanes a
+    block."""
+    strips, bands = -(-width // 8), -(-height // rows)
+    per_plane, total = strips * bands, planes * strips * bands
+    g = np.arange(-(-total // 256) * 256)
+    u = np.minimum(g, total - 1)
+    plane, rem = u // per_plane, u % per_plane
+    return g < total, plane, (rem // strips) * rows, (rem % strips) * 8, g % 32, g // 256
+
+
+def unit_calls(calls, key, name):
+    """(level, unit, (H, W), (fh, fw)) of each `name` call (a K2 or K7 unit)
+    in model `key`'s recorded calls: unit its in_ch, hidden and out_ch, (H,
+    W) its map, which runs at stride 32 / 2^level, (fh, fw) its patch grid."""
+    from types import SimpleNamespace
+
+    from hyperseg_torch.ops.kernels.invres_sweep import level
+    out = []
+    for n, a in calls[key]:
+        if n == name:
+            _, cin, h, w = a["x"][0]
+            unit = SimpleNamespace(in_ch=cin, hidden=a["bn1"][0][0][0], out_ch=a["out"][0][1])
+            out.append((level(key, a), unit, (h, w), tuple(a["w"][0][1:3])))
+    return out
+
+
 def jax_params(module):
     """A port module's state dict in the JAX package's layout, keys kept."""
     from hyperseg_tpu.core.torch_import import convert_state_dict
